@@ -1,0 +1,65 @@
+"""Microbatch-based pipelining (paper §4.2.3 decode).
+
+The paper splits each batch into two interleaved microbatches so one
+stream's attention overlaps the other's MoE dispatch/combine. The port keeps
+the JAX package's *structure*: the batch is split along the same axes and
+the microbatch steps run one after the other on the current stream (putting
+them on two CUDA streams is later work). Leaves are split as views, so a
+step that writes its caches in place writes into the full batch.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.tree import tree_map
+
+
+def _batch_axis(leaf: torch.Tensor) -> int:
+    """Caches carry a leading layer axis, so batch is axis 1 for rank>=3
+    leaves and axis 0 for rank<=2 leaves (tokens, lengths)."""
+    return 0 if leaf.ndim <= 2 else 1
+
+
+def _split_batch(tree: Any, n: int, i: int) -> Any:
+    """Microbatch i of n along the batch axis of every batched leaf;
+    scalars and leaves whose batch does not divide by n pass through."""
+    def f(leaf):
+        if not isinstance(leaf, torch.Tensor) or leaf.ndim == 0:
+            return leaf
+        axis = _batch_axis(leaf)
+        b = leaf.shape[axis]
+        if b % n:
+            return leaf
+        step = b // n
+        return leaf.narrow(axis, i * step, step)
+    return tree_map(f, tree)
+
+
+def _concat_batch(trees):
+    def f(*leaves):
+        l0 = leaves[0]
+        if not isinstance(l0, torch.Tensor) or l0.ndim == 0:
+            return l0
+        return torch.cat(leaves, dim=_batch_axis(l0))
+    return tree_map(f, *trees)
+
+
+def microbatched(step_fn: Callable, n_micro: int = 2):
+    """Wrap a (tokens, caches, ...) -> (out, caches) step into n microbatch
+    steps over disjoint slices of the batch."""
+    if n_micro == 1:
+        return step_fn
+
+    def wrapped(tokens, caches, *args, **kwargs):
+        outs, new_caches = [], []
+        for i in range(n_micro):
+            t_i = _split_batch(tokens, n_micro, i)
+            c_i = _split_batch(caches, n_micro, i)
+            o_i, nc_i = step_fn(t_i, c_i, *args, **kwargs)
+            outs.append(o_i)
+            new_caches.append(nc_i)
+        return _concat_batch(outs), _concat_batch(new_caches)
+
+    return wrapped

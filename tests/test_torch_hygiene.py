@@ -1,0 +1,110 @@
+"""Rules of the port that hold for every module: it never imports JAX or
+the JAX package, its entry points run on CUDA unless told otherwise and
+never fall back to the CPU, and ``chip_smoke.py`` refuses to run without a
+card or without the package."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.models import init_params, make_caches
+from repro_torch.serving import ServingSystem
+from repro_torch.serving.engine import DecodeEngine, PrefillEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_jax_package_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                "__import__", "import_module"):
+            bad += [a.value for a in node.args if isinstance(
+                a, ast.Constant) and isinstance(a.value, str)
+                and _forbidden(a.value)]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def cpu_model():
+    cfg = smoke_variant(get_config("deepseek-r1"))
+    return cfg, init_params(cfg, seed=0, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["init_params", "make_caches",
+                                   "PrefillEngine", "DecodeEngine",
+                                   "ServingSystem"])
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
+                                                           cpu_model, entry):
+    cfg, params = cpu_model
+    calls = {
+        "init_params": lambda: init_params(cfg, seed=0),
+        "make_caches": lambda: make_caches(cfg, 1, 8),
+        "PrefillEngine": lambda: PrefillEngine(params, cfg, 16),
+        "DecodeEngine": lambda: DecodeEngine(params, cfg, 2, 16),
+        "ServingSystem": lambda: ServingSystem(params, cfg, capacity=16),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()
+
+
+def test_engine_refuses_params_on_another_device(cpu_model):
+    cfg, params = cpu_model
+    with pytest.raises(ValueError, match="lives on"):
+        DecodeEngine(params, cfg, 2, 16, device="meta")
+
+
+def test_later_slices_raise(cpu_model):
+    cfg, params = cpu_model
+    with pytest.raises(NotImplementedError, match="MTP"):
+        ServingSystem(params, cfg, capacity=16, use_mtp=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="EMS"):
+        ServingSystem(params, cfg, capacity=16, context_cache=object(),
+                      device="cpu")
+
+
+def _run_smoke(cwd, script):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_refuses_without_a_card():
+    out = _run_smoke(ROOT, ROOT / "chip_smoke.py")
+    assert out.returncode != 0
+    assert out.stdout == ""
+
+
+def test_chip_smoke_refuses_without_the_package(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path, tmp_path / "chip_smoke.py")
+    assert out.returncode != 0
+    assert out.stdout == ""
