@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sweep]
 
 Phases, each of which must pass (the script exits non-zero otherwise):
 
@@ -12,21 +12,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    once).
 3. serve: DeepSeek-R1 at full width cut to 4 layers (3 dense + 1 MoE with
    all 256 experts), bf16 random weights from a seed, through
-   ``ServingSystem.serve``: 8 requests of 256-1024 prompt tokens and 32 new
-   tokens each. Every request must finish, and the kernel's launch count
-   must equal decode steps x 4 MLA layers. Wall-clock TTFT/TPOT p50 and
-   decode tokens/s.
+   ``ServingSystem.serve``: 8 requests with prompt lengths drawn uniformly
+   from 256-1024 tokens and 32 new tokens each. Every request must finish,
+   and the kernel's launch count must equal decode steps x 4 MLA layers.
+   Wall-clock prefill time and TTFT per request, TTFT/TPOT p50 and decode
+   tokens/s.
 4. kernel: ``mla_decode_attention`` against its plain PyTorch version at
    DeepSeek-R1 widths (B=8, H=128, R=512, Dr=64), S=2048 and a ragged
-   S=1000 with per-row ``cache_len`` including 0, S-1 and S, and at the
-   serve phase's own final lengths (the row the kernels line reports);
-   median CUDA-event times of the kernel, the plain version and one library
-   call, beside the least time the card could take.
-5. agreement: requests served with ``moe_fn=moe_reference`` (no capacity
-   drops) are replayed through ``decode_step`` (kernel on) and checked
-   against a full-sequence ``prefill`` over prompt + generated tokens
-   (logits within AGREE_ATOL where both chose the same experts; served
-   tokens equal to the reference's argmax where its margin is clear).
+   S=1000 with per-row ``cache_len`` including 0, S-1 and S, full rows,
+   and the serve phase's own final lengths (the row the kernels line
+   reports); median CUDA-event times of the kernel, the plain version and
+   one library call, beside the least time the card could take. With
+   ``--sweep``, also the kernel at each ``n_split`` of SWEEP_SPLITS.
+5. agreement: requests of three prompt seeds served with
+   ``moe_fn=moe_reference`` (no capacity drops) are replayed through
+   ``decode_step`` (kernel on) and checked against a full-sequence
+   ``prefill`` over prompt + generated tokens (logits within AGREE_ATOL
+   where both chose the same experts; served tokens equal to the
+   reference's argmax where its margin is clear).
 
 The last two lines of standard output are a ``{"kernels": [...]}`` JSON
 object and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -34,6 +37,7 @@ port's package beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import statistics
@@ -53,6 +57,12 @@ KERNEL_TOL = 3e-5        # f32 kernel vs f32 plain version (summation order)
 # 2^-6, and the absorbed decode and unabsorbed prefill round at different
 # places through 4 layers -- 0.1 allows ~6 ulps at the largest logits.
 AGREE_ATOL = 0.1
+AGREE_SEEDS = (1, 2, 3)      # prompt seeds (offsets of SEED), 3 prompts each
+# Where the two forms chose different experts the logits are not compared.
+# The three seeds read 6, 5 and 7 flips in 48 positions each (10-15 %) on
+# an H100 at 700 W (PERF.md); a quarter is the most the phase lets pass.
+MAX_FLIP_SHARE = 0.25
+SWEEP_SPLITS = (4, 5, 8, 12, 16, 24, 32)     # n_split values of --sweep
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12      # H100 SXM data sheet, FP32 outside tensor cores
 
@@ -102,7 +112,7 @@ def mla_bound(b, h, r, dr, cache_len, s):
                                        else "bytes")
 
 
-def kernel_phase(torch, flush, serve_lens):
+def kernel_phase(torch, flush, serve_lens, sweep: bool):
     from repro_torch.kernels.mla_attention import ops
     from repro_torch.kernels.mla_attention.ref import mla_decode_attention_ref
 
@@ -112,8 +122,10 @@ def kernel_phase(torch, flush, serve_lens):
     cases = [
         ("S=2048 edges", 2048, [0, 2047, 2048, 1024, 1, 31, 32, 2015]),
         ("S=1000 ragged", 1000, [999, 1000, 0, 500, 37, 128, 129, 777]),
+        ("S=2048 full", 2048, [2047] * b),
         ("serve lengths", 2048, serve_lens),
     ]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for name, s, lens in cases:
         q_lat = torch.randn(b, h, r, device="cuda", generator=gen)
@@ -151,6 +163,18 @@ def kernel_phase(torch, flush, serve_lens):
         row["bound_ms"], row["bound_by"] = mla_bound(b, h, r, dr, lens, s)
         log("kernel:", json.dumps(row))
         rows.append(row)
+        chosen = ops.n_split_for(b, h, s, n_sm)
+        for n in (sorted(set(SWEEP_SPLITS) | {chosen}) if sweep else ()):
+            def run(n=n):
+                return ops.mla_decode_attention(q_lat, q_rope, cache,
+                                                cache_len, scale, n_split=n)
+            if not torch.allclose(run(), ref, rtol=KERNEL_TOL,
+                                  atol=KERNEL_TOL):
+                raise AssertionError(f"kernel at n_split={n} disagrees "
+                                     f"with its plain version ({name})")
+            log("sweep:", json.dumps({
+                "case": name, "n_split": n, "chosen": n == chosen,
+                "ms": timed_ms(torch, run, 30, flush)}))
     return rows
 
 
@@ -169,7 +193,7 @@ def serve_phase(torch, cfg, params, dev="cuda"):
 
     rng = np.random.RandomState(SEED)
     n_req, max_new = 8, 32
-    lens = rng.choice(np.arange(256, 1025, 128), size=n_req)
+    lens = rng.randint(256, 1025, size=n_req)          # uniform on 256..1024
     reqs = [Request(i, [int(t) for t in rng.randint(0, cfg.vocab_size, n)],
                     max_new) for i, n in enumerate(lens)]
     system = ServingSystem(params, cfg, n_prefill=1, decode_batch=8,
@@ -177,11 +201,12 @@ def serve_phase(torch, cfg, params, dev="cuda"):
 
     # Wall-clock instrumentation around the engines' own calls: both end in
     # a host read of the sampled tokens, so the device work is done.
-    prefill_done, steps = {}, []
+    prefill_start, prefill_done, steps = {}, {}, []
     pre, dec = system.prefills[0], system.decode
     run0, step0 = pre.run, dec.step_chunk
 
     def run(req):
+        prefill_start[req.rid] = time.perf_counter()
         out = run0(req)
         prefill_done[req.rid] = time.perf_counter()
         return out
@@ -213,6 +238,7 @@ def serve_phase(torch, cfg, params, dev="cuda"):
     if launches != n_steps * cfg.num_layers or launches == 0:
         raise AssertionError(f"kernel launches {launches} != decode steps "
                              f"{n_steps} x {cfg.num_layers} MLA layers")
+    results = sorted(results, key=lambda r: r.rid)      # prompt_lens order
     finish = {rid: t1 for _, t1, rids in steps for rid in rids}
     ttft = [prefill_done[r.rid] - t_start for r in results]
     tpot = [(finish[r.rid] - prefill_done[r.rid]) / (max_new - 1)
@@ -224,6 +250,9 @@ def serve_phase(torch, cfg, params, dev="cuda"):
         "requests": n_req, "prompt_lens": [int(n) for n in lens],
         "max_new_tokens": max_new, "decode_steps": n_steps,
         "kernel_launches": launches,
+        "prefill_s": [prefill_done[r.rid] - prefill_start[r.rid]
+                      for r in results],
+        "ttft_s": ttft,
         "ttft_p50_s": statistics.median(ttft),
         "tpot_p50_s": statistics.median(tpot),
         "decode_step_p50_s": statistics.median(step_s),
@@ -245,22 +274,26 @@ def agreement_phase(torch, cfg, params, dev="cuda"):
     rounding does (on the chip: ~0.2 at flipped positions, <= 0.07
     elsewhere). So every MoE call records each token's expert set, and
     the logit tolerance is held where both forms chose the same experts;
-    flips are counted and must stay a minority. Requests are served one at
-    a time (decode_batch=1), so the replay through ``decode_step`` repeats
-    the serving computation exactly and must reproduce every served token.
-    Where the reference's top-1/top-2 margin exceeds 2 x AGREE_ATOL (each
-    logit may move by AGREE_ATOL) and the experts agree, the served token
-    must be the reference's argmax."""
+    flips are counted per prompt seed and may reach at most MAX_FLIP_SHARE
+    of all positions. Requests are served one at a time (decode_batch=1),
+    so the replay through ``decode_step`` repeats the serving computation
+    exactly and must reproduce every served token. Where the reference's
+    top-1/top-2 margin exceeds 2 x AGREE_ATOL (each logit may move by
+    AGREE_ATOL) and the experts agree, the served token must be the
+    reference's argmax."""
     import numpy as np
     from repro_torch.models import decode_step, prefill
     from repro_torch.models.moe import moe_reference, route
     from repro_torch.serving import Request, ServingSystem
 
-    rng = np.random.RandomState(SEED + 1)
     n_new, capacity = 16, 512
     n_moe = cfg.num_layers - cfg.first_k_dense
-    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
-               for n in (128, 192, 256)]
+    prompts, seed_of = [], []
+    for k in AGREE_SEEDS:
+        rng = np.random.RandomState(SEED + k)
+        for n in (128, 192, 256):
+            prompts.append([int(t) for t in rng.randint(0, cfg.vocab_size, n)])
+            seed_of.append(k)
     system = ServingSystem(params, cfg, n_prefill=1, decode_batch=1,
                            capacity=capacity, moe_fn=moe_reference,
                            device=dev)
@@ -278,8 +311,9 @@ def agreement_phase(torch, cfg, params, dev="cuda"):
 
     stats = {"requests": len(prompts), "new_tokens": n_new,
              "atol": AGREE_ATOL, "max_abs_logit_err": 0.0,
-             "expert_flips": 0, "max_abs_logit_err_at_flips": 0.0,
-             "tokens_checked": 0}
+             "expert_flips": 0,
+             "expert_flips_per_seed": {k: 0 for k in AGREE_SEEDS},
+             "max_abs_logit_err_at_flips": 0.0, "tokens_checked": 0}
     for rid, prompt in enumerate(prompts):
         served = results[rid]
         if len(served) != n_new:
@@ -312,6 +346,7 @@ def agreement_phase(torch, cfg, params, dev="cuda"):
             err = (replay[i] - ref[i]).abs().max().item()
             if not torch.equal(experts[i], ref_experts):
                 stats["expert_flips"] += 1
+                stats["expert_flips_per_seed"][seed_of[rid]] += 1
                 stats["max_abs_logit_err_at_flips"] = max(
                     stats["max_abs_logit_err_at_flips"], err)
                 continue
@@ -328,7 +363,7 @@ def agreement_phase(torch, cfg, params, dev="cuda"):
                         f"rid {rid} token {i}: served {served[i]}, reference "
                         f"argmax {top2.indices[i, 0].item()} (margin "
                         f"{margin:.4f})")
-    if 2 * stats["expert_flips"] > len(prompts) * n_new:
+    if stats["expert_flips"] > MAX_FLIP_SHARE * len(prompts) * n_new:
         raise AssertionError(f"expert choice differs at {stats['expert_flips']}"
                              f" of {len(prompts) * n_new} positions")
     if stats["tokens_checked"] == 0:
@@ -336,7 +371,12 @@ def agreement_phase(torch, cfg, params, dev="cuda"):
     return stats
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time the MLA kernel at each n_split of "
+                         "SWEEP_SPLITS in every kernel-phase case")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -380,7 +420,7 @@ def main() -> int:
     log(f"serve: {json.dumps(serve)} on {device}")
 
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    rows = kernel_phase(torch, flush, final_lens)
+    rows = kernel_phase(torch, flush, final_lens, args.sweep)
     del flush
 
     agree = agreement_phase(torch, cfg, params)

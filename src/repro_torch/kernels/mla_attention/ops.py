@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -63,9 +64,10 @@ def _check(q_lat, q_rope, cache, cache_len) -> None:
 
 def n_split_for(b: int, h: int, s: int, n_sm: int) -> int:
     """Sequence pieces per request: about six blocks per SM (three waves of
-    the two that fit at once, so ragged rows even out across the waves; in
-    ``tune.py`` sweeps on an H100 it was never slower than two per SM), at
-    most one piece per 32-position tile and at most ``MAX_SPLIT``."""
+    the two that fit at once, so ragged rows even out across the waves), at
+    most one piece per 32-position tile and at most ``MAX_SPLIT``. The
+    readings behind the rule, from ``chip_smoke.py --sweep`` on an H100,
+    are in PERF.md."""
     blocks = b * (h // HEADS_PER_BLOCK)
     want = math.ceil(6 * n_sm / max(blocks, 1))
     return max(1, min(MAX_SPLIT, want, math.ceil(s / _TILE)))
@@ -73,10 +75,12 @@ def n_split_for(b: int, h: int, s: int, n_sm: int) -> int:
 
 def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
                          cache: torch.Tensor, cache_len: torch.Tensor,
-                         scale: float) -> torch.Tensor:
+                         scale: float, n_split: Optional[int] = None
+                         ) -> torch.Tensor:
     """q_lat (B,H,R), q_rope (B,H,Dr), cache (B,S,R+Dr) float32 contiguous,
     cache_len (B,) int32 -> o_lat (B,H,R) float32. Row ``b`` attends to
-    positions ``0..min(cache_len[b], S-1)``."""
+    positions ``0..min(cache_len[b], S-1)``. ``n_split`` overrides
+    :func:`n_split_for` (a sweep of the split; the model never sets it)."""
     global LAUNCHES
     _check(q_lat, q_rope, cache, cache_len)
     dev = q_lat.device
@@ -97,8 +101,11 @@ def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if lib.mla_decode_attention_smem_bytes(r, dr) > SMEM_LIMIT:
         raise ValueError(f"R+Dr={r + dr} needs more shared memory than a "
                          "block may use")
-    n_split = n_split_for(b, h, s, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    if n_split is None:
+        n_split = n_split_for(b, h, s, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    if not 1 <= n_split <= MAX_SPLIT:
+        raise ValueError(f"n_split must lie in 1..{MAX_SPLIT}, got {n_split}")
     out = torch.empty((b, h, r), dtype=torch.float32, device=dev)
     part_acc = torch.empty((b, n_split, h, r), dtype=torch.float32, device=dev)
     part_ml = torch.empty((b, n_split, h, 2), dtype=torch.float32, device=dev)

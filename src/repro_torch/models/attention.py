@@ -15,12 +15,12 @@ NEG_INF = -1e30
 
 
 def _pick_chunk(s: int, target: int = 512) -> int:
-    if s <= target:
-        return s
-    c = target
-    while s % c:
-        c //= 2
-    return max(c, 1)
+    """Query chunk of the chunked prefill loops: ``min(s, target)``, the
+    last chunk taking what is left. The JAX package halves the chunk until
+    it divides ``s`` (its ``scan`` needs equal chunks), which falls to a
+    chunk of 1 for an odd ``s`` above ``target``; an eager loop has no such
+    need."""
+    return min(s, target)
 
 
 def block_skip_enabled() -> bool:

@@ -4,7 +4,8 @@ Two execution forms, equivalence-tested against each other:
 
 * ``mla_prefill`` -- the *unabsorbed* form used for prefill: latents are
   expanded to full per-head K/V and the layer behaves as standard MHA.
-  Chunked over queries like the JAX package's ``models/attention.py``.
+  Chunked over queries like the JAX package's ``models/attention.py``,
+  except that the last chunk may be shorter (``_pick_chunk``).
 * ``mla_decode`` -- the *absorbed* form for decode: queries are pulled into
   latent space through W_UK so attention runs directly against the
   compressed (kv_lora_rank + rope) cache. Its inner loop is the hand-written
@@ -84,26 +85,28 @@ def _mla_qkv_latent(p: MLA, x: torch.Tensor, cfg: ModelConfig,
 def _mla_flash_causal(q_nope, q_rope, k_nope, k_rope, vfull, scale: float,
                       chunk: int) -> torch.Tensor:
     """Block-skipped causal MLA attention (a query chunk visits only kv
-    blocks <= its own, with an online softmax). Returns (B,S,H,vd) f32."""
+    blocks <= its own, with an online softmax; the last chunk may be
+    shorter). Returns (B,S,H,vd) f32."""
     b, s, h, _ = q_nope.shape
     vd = vfull.shape[-1]
+    dev = q_nope.device
     knf, krf, vf = k_nope.float(), k_rope.float(), vfull.float()
     outs = []
-    for ci in range(s // chunk):
-        lo_q = ci * chunk
-        qn = q_nope[:, lo_q:lo_q + chunk].float()
-        qr = q_rope[:, lo_q:lo_q + chunk].float()
-        q_pos = lo_q + torch.arange(chunk, device=q_nope.device)
-        m = torch.full((b, h, chunk, 1), NEG_INF, device=q_nope.device)
-        l = torch.zeros((b, h, chunk, 1), device=q_nope.device)
-        acc = torch.zeros((b, h, chunk, vd), device=q_nope.device)
-        for j in range(ci + 1):
-            lo = j * chunk
-            scores = (torch.einsum("bshe,bthe->bhst", qn,
-                                   knf[:, lo:lo + chunk])
-                      + torch.einsum("bshe,bte->bhst", qr,
-                                     krf[:, lo:lo + chunk])) * scale
-            kv_pos = lo + torch.arange(chunk, device=q_nope.device)
+    for lo_q in range(0, s, chunk):
+        hi_q = min(lo_q + chunk, s)
+        n = hi_q - lo_q
+        qn = q_nope[:, lo_q:hi_q].float()
+        qr = q_rope[:, lo_q:hi_q].float()
+        q_pos = torch.arange(lo_q, hi_q, device=dev)
+        m = torch.full((b, h, n, 1), NEG_INF, device=dev)
+        l = torch.zeros((b, h, n, 1), device=dev)
+        acc = torch.zeros((b, h, n, vd), device=dev)
+        for lo in range(0, lo_q + 1, chunk):
+            hi = min(lo + chunk, s)
+            scores = (torch.einsum("bshe,bthe->bhst", qn, knf[:, lo:hi])
+                      + torch.einsum("bshe,bte->bhst", qr, krf[:, lo:hi])
+                      ) * scale
+            kv_pos = torch.arange(lo, hi, device=dev)
             mask = kv_pos[None, :] <= q_pos[:, None]
             scores = torch.where(mask[None, None], scores, NEG_INF)
             m_new = torch.maximum(m, scores.amax(-1, keepdim=True))
@@ -111,10 +114,10 @@ def _mla_flash_causal(q_nope, q_rope, k_nope, k_rope, vfull, scale: float,
             pr = torch.exp(scores - m_new)
             l = l * alpha + pr.sum(-1, keepdim=True)
             acc = acc * alpha + torch.einsum("bhst,bthe->bhse", pr,
-                                             vf[:, lo:lo + chunk])
+                                             vf[:, lo:hi])
             m = m_new
-        out = acc / torch.clamp(l, min=1e-30)                 # (b,h,chunk,vd)
-        outs.append(out.transpose(1, 2))                      # (b,chunk,h,vd)
+        out = acc / torch.clamp(l, min=1e-30)                 # (b,h,n,vd)
+        outs.append(out.transpose(1, 2))                      # (b,n,h,vd)
     return torch.cat(outs, dim=1)
 
 
@@ -142,13 +145,13 @@ def mla_prefill(p: MLA, x: torch.Tensor, cfg: ModelConfig,
         knf, krf, vf = k_nope.float(), k_rope.float(), vfull.float()
         kv_pos = torch.arange(s, device=x.device)
         outs = []
-        for ci in range(s // chunk):
-            lo = ci * chunk
-            q_pos = lo + torch.arange(chunk, device=x.device)
+        for lo in range(0, s, chunk):
+            hi = min(lo + chunk, s)
+            q_pos = torch.arange(lo, hi, device=x.device)
             scores = (torch.einsum("bshe,bthe->bhst",
-                                   q_nope[:, lo:lo + chunk].float(), knf)
+                                   q_nope[:, lo:hi].float(), knf)
                       + torch.einsum("bshe,bte->bhst",
-                                     q_rope[:, lo:lo + chunk].float(), krf)
+                                     q_rope[:, lo:hi].float(), krf)
                       ) * scale
             mask = kv_pos[None, :] <= q_pos[:, None]
             scores = torch.where(mask[None, None], scores, NEG_INF)

@@ -99,8 +99,11 @@ def test_layers():
 
 
 def test_attention_helpers():
-    for s in (7, 512, 640, 1000, 2048):
-        assert t_attn._pick_chunk(s) == j_attn._pick_chunk(s)
+    # The port's loops take a ragged last chunk, so its chunk never falls
+    # below JAX's (which must divide s: 781 -> 1).
+    for s in (7, 512, 640, 781, 1000, 2048):
+        assert t_attn._pick_chunk(s) == min(s, 512)
+        assert t_attn._pick_chunk(s) >= j_attn._pick_chunk(s)
     cl = np.array([0, 3, 9, 12], np.int32)
     for ring in (False, True):
         np.testing.assert_array_equal(
@@ -121,7 +124,8 @@ def _layer(tree, i):
 
 
 @pytest.mark.parametrize("s,block_skip", [(12, False), (12, True),
-                                          (640, False), (640, True)])
+                                          (640, False), (640, True),
+                                          (781, False), (781, True)])
 def test_mla_prefill(r1, monkeypatch, s, block_skip):
     cfg, tcfg, jp, tp = r1
     monkeypatch.setenv("REPRO_BLOCK_SKIP", "1" if block_skip else "0")

@@ -1,7 +1,8 @@
 """The port's serving stack against the JAX package at
 ``smoke("deepseek-r1")`` (float32, shared weights through
-``repro_torch.convert``): emitted tokens and the scheduler's virtual-clock
-trace records must be identical. Equality is not luck: the smallest
+``repro_torch.convert``): on every serving path, emitted tokens, the
+scheduler's virtual-clock trace records and its summary must be identical.
+Equality is not luck: the smallest
 top-1/top-2 logit margin along every greedy path is asserted to sit far
 above the float32 logit tolerance the model tests use (2e-4).
 """
@@ -13,6 +14,7 @@ import torch
 import test_workload_soak as soak
 from conftest import smoke
 from repro.models import init_params as j_init_params
+from repro.models.moe import moe_reference as j_moe_reference
 from repro.serving import Request as JRequest
 from repro.serving import ServingSystem as JServingSystem
 from repro_torch import serving as port_serving
@@ -40,10 +42,16 @@ def r1():
     return cfg, tcfg, jp, tp, prompts
 
 
+def _max_new(i):
+    """Long and short requests alternate, so a two-engine pool drains
+    unevenly and its rebalancer migrates a request."""
+    return N_NEW if i % 2 == 0 else 2
+
+
 def _serve_port(tp, tcfg, prompts, **kw):
     system = ServingSystem(tp, tcfg, n_prefill=2, decode_batch=2,
                            capacity=48, device="cpu", **kw)
-    results = system.serve([Request(i, p, N_NEW) for i, p in
+    results = system.serve([Request(i, p, _max_new(i)) for i, p in
                             enumerate(prompts)])
     return {r.rid: r.tokens for r in results}, system
 
@@ -62,41 +70,74 @@ def _min_margin(tcfg, tp, prompt, tokens):
     return float((top2[:, 0] - top2[:, 1]).min())
 
 
-@pytest.mark.parametrize("kw", [{}, {"decode_chunk": 4,
-                                     "continuous_batching": True}],
-                         ids=["per_step", "chunked_continuous"])
-def test_serving_matches_jax(r1, kw):
+SERVING_PATHS = {
+    "per_step": {},
+    "chunked_continuous": {"decode_chunk": 4, "continuous_batching": True},
+    # The paths below change how many tokens share a MoE call, and with it
+    # which tokens ``moe_capacity`` drops; the dense oracle keeps them
+    # comparable with the per-step path as well.
+    "interleave": {"interleave": True, "moe": "reference"},
+    "migrating_pool": {"decode_engines": 2, "decode_rebalance_every": 1,
+                       "decode_router": "least_loaded_slots",
+                       "moe": "reference"},
+    "streamed": {"stream_handoff": True, "stream_chunk": 4,
+                 "moe": "reference"},
+    "chunked_prefill": {"prefill_chunk": 8, "moe": "reference"},
+}
+ORACLE_PATHS = [k for k, v in SERVING_PATHS.items() if "moe" in v]
+
+
+def _system_kw(path, oracle):
+    kw = dict(SERVING_PATHS[path])
+    if kw.pop("moe", None):
+        kw["moe_fn"] = oracle
+    return kw
+
+
+def _assert_path_taken(path, system):
+    """The option under test really changed how the system served."""
+    summary = system.scheduler.summary()
+    if path == "interleave":
+        assert system.decode.interleaved
+    elif path == "migrating_pool":
+        assert summary["migrations"] >= 1
+    elif path == "streamed":
+        assert summary["stream_chunks"] > summary["completed"]
+    elif path == "chunked_prefill":
+        assert all(p.continue_calls > 0 for p in system.prefills)
+
+
+@pytest.mark.parametrize("path", list(SERVING_PATHS))
+def test_serving_matches_jax(r1, path):
+    """Every serving path (per-step and chunked decode, microbatch
+    interleave, a two-engine pool with migration, the streamed handoff,
+    chunked prefill) emits JAX's tokens and writes JAX's trace records and
+    SLO summary, on the same requests and weights."""
     cfg, tcfg, jp, tp, prompts = r1
     js = JServingSystem(jp, cfg, n_prefill=2, decode_batch=2, capacity=48,
-                        **kw)
+                        **_system_kw(path, j_moe_reference))
     jres = {r.rid: r.tokens for r in js.serve(
-        [JRequest(i, p, N_NEW) for i, p in enumerate(prompts)])}
-    tres, ts = _serve_port(tp, tcfg, prompts, **kw)
+        [JRequest(i, p, _max_new(i)) for i, p in enumerate(prompts)])}
+    tres, ts = _serve_port(tp, tcfg, prompts,
+                           **_system_kw(path, moe_reference))
+    _assert_path_taken(path, ts)
     assert tres == jres
     assert ts.scheduler.trace_records() == js.scheduler.trace_records()
     assert repr(ts.scheduler.summary()) == repr(js.scheduler.summary())
-    if not kw:
+    if path == "per_step":
         margin = min(_min_margin(tcfg, tp, p, jres[i])
                      for i, p in enumerate(prompts))
         assert margin > 20 * LOGIT_TOL, margin
 
 
-@pytest.mark.parametrize("kw", [{"interleave": True},
-                                {"decode_engines": 2,
-                                 "decode_rebalance_every": 1},
-                                {"stream_handoff": True, "stream_chunk": 4},
-                                {"prefill_chunk": 8}],
-                         ids=["interleave", "migrating_pool", "streamed",
-                              "chunked_prefill"])
-def test_serving_paths_token_identical(r1, kw):
-    """Microbatch interleave, a two-engine pool, the streamed handoff and
-    chunked prefill all emit the per-step path's tokens (the JAX package
-    holds the same invariants in its own tests). The dense MoE oracle keeps
-    the comparison exact: ``moe_capacity`` drops depend on how many tokens
-    share a call, which these paths change."""
+@pytest.mark.parametrize("path", ORACLE_PATHS)
+def test_serving_paths_token_identical(r1, path):
+    """Each path also emits the per-step path's tokens (the JAX package
+    holds the same invariants in its own tests); the dense MoE oracle keeps
+    the comparison exact."""
     _, tcfg, _, tp, prompts = r1
     base, _ = _serve_port(tp, tcfg, prompts, moe_fn=moe_reference)
-    got, _ = _serve_port(tp, tcfg, prompts, moe_fn=moe_reference, **kw)
+    got, _ = _serve_port(tp, tcfg, prompts, **_system_kw(path, moe_reference))
     assert got == base
 
 
