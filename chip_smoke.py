@@ -7,32 +7,53 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off for
    matmul and cuDNN.
-2. build: every CUDA kernel of the port, compiled from ``src/repro_torch/
-   kernels/csrc`` into ``build/kernels/`` (one ``nvcc`` per source, all at
-   once).
+2. build: every CUDA kernel of the port (MLA decode attention, dispatch
+   quantize, INT8 GEMM), compiled from ``src/repro_torch/kernels/csrc``
+   into ``build/kernels/`` (one ``nvcc`` per source, all at once).
 3. serve: DeepSeek-R1 at full width cut to 4 layers (3 dense + 1 MoE with
    all 256 experts), bf16 random weights from a seed, through
    ``ServingSystem.serve``: 8 requests with prompt lengths drawn uniformly
    from 256-1024 tokens and 32 new tokens each. Every request must finish,
-   and the kernel's launch count must equal decode steps x 4 MLA layers.
-   Wall-clock prefill time and TTFT per request, TTFT/TPOT p50 and decode
-   tokens/s.
-4. kernel: ``mla_decode_attention`` against its plain PyTorch version at
+   and the MLA kernel's launch count must equal decode steps x 4 MLA
+   layers. Wall-clock prefill time and TTFT per request, TTFT/TPOT p50 and
+   decode tokens/s.
+4. serve-lep: the same requests served with ``moe_fn=make_lep_moe_fn()``
+   at world size 1 (LEP with early INT8 dispatch). Every request must
+   finish, and the dispatch-quantize kernel must launch once per MoE call.
+   TTFT/TPOT p50 and decode tokens/s beside the serve phase's, and the
+   share of served tokens equal to it (reported, not gated).
+5. kernel: ``mla_decode_attention`` against its plain PyTorch version at
    DeepSeek-R1 widths (B=8, H=128, R=512, Dr=64), S=2048 and a ragged
    S=1000 with per-row ``cache_len`` including 0, S-1 and S, full rows,
    and the serve phase's own final lengths (the row the kernels line
    reports); median CUDA-event times of the kernel, the plain version and
    one library call, beside the least time the card could take. With
    ``--sweep``, also the kernel at each ``n_split`` of SWEEP_SPLITS.
-5. agreement: requests of three prompt seeds served with
+6. dispatch_quant: ``dispatch_quantize`` against its plain version at the
+   LEP dispatch buffers of the serve-lep phase (decode: 256 slots x 8 rows;
+   the longest prompt's prefill: 256 x 48) and one 8 x 7168 activation,
+   then at the DQ_RAGGED shapes: every code equal, scale error, the packed
+   scale tail bit-identical; kernel and plain times beside the byte bound.
+7. int8: the §4.5 INT8 linear path on the served cut's INT8-policy
+   projections (wq_a, wq_b, wkv_a, wo, the dense and shared-expert
+   w_gate/w_up/w_down): ``calibrate_linear`` on activations captured from
+   one served prompt's prefill, ``quantized_matmul`` on another's at M=8
+   and at its prompt length; relative error against the bf16 product; the
+   INT8 GEMM against its plain version, its time beside the plain
+   version's, ``torch._int_mm``'s and the bound; then at the INT8_RAGGED
+   shapes against its plain version.
+8. agreement: requests of three prompt seeds served with
    ``moe_fn=moe_reference`` (no capacity drops) are replayed through
    ``decode_step`` (kernel on) and checked against a full-sequence
    ``prefill`` over prompt + generated tokens (logits within AGREE_ATOL
    where both chose the same experts; served tokens equal to the
    reference's argmax where its margin is clear).
 
-The last two lines of standard output are a ``{"kernels": [...]}`` JSON
-object and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+Each path phase (serve, serve-lep, int8) sets every kernel's launch count
+to 0 just before it and reads the counts just after. The last two lines of
+standard output are a ``{"kernels": [...]}`` JSON object (one entry per
+kernel; ``int8_matmul``'s times are sums over the int8 phase's cases) and
+``{"ok": true, "device": {...}}``. Without CUDA, or without the
 port's package beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -63,8 +84,34 @@ AGREE_SEEDS = (1, 2, 3)      # prompt seeds (offsets of SEED), 3 prompts each
 # an H100 at 700 W (PERF.md); a quarter is the most the phase lets pass.
 MAX_FLIP_SHARE = 0.25
 SWEEP_SPLITS = (4, 5, 8, 12, 16, 24, 32)     # n_split values of --sweep
+# Per-row quantization: both versions divide by 127 and by the scale with
+# IEEE f32 division and round half to even, so every code must be equal (a
+# kernel that truncates, rounds half away from zero or multiplies by a
+# reciprocal differs by 1 at some boundary); the scale (one f32 division)
+# may differ in its last bit.
+DQ_SCALE_RTOL = 1e-6
+# Shapes that the served path does not give but the kernels take, for
+# their other branches: (name, T, D, dtype, pack, offset) for per-row
+# quantization -- a row too wide for the default shared memory (f32, 16-byte
+# loads), an odd width (element loads, unaligned packed rows), a misaligned
+# pointer (offset in elements), no rows; (M, K, N, out dtype) for the INT8
+# GEMM -- M, N and K tails, K % 16 != 0 (byte loads of A), N % 4 != 0 (byte
+# loads of B), with and without split K, and K = 0.
+DQ_RAGGED = (("wide f32", 64, 20000, "float32", False, 0),
+             ("odd width bf16", 37, 1001, "bfloat16", True, 0),
+             ("misaligned bf16", 16, 7168, "bfloat16", True, 1),
+             ("no rows", 0, 7168, "bfloat16", True, 0))
+INT8_RAGGED = ((17, 100, 130, "float32"), (17, 100, 130, "bfloat16"),
+               (1, 896, 72, "float32"), (100, 200, 130, "float32"),
+               (1000, 72, 2050, "float32"), (3, 0, 5, "float32"))
+# INT8 GEMM, f32 output: the integer product is exact on both sides and
+# the epilogue rounds in the same order, so the kernel equals the plain
+# version; 1e-6 leaves one f32 rounding.
+INT8_RTOL = 1e-6
+INT8_CALIB_RID, INT8_EVAL_RID = 3, 0     # 448- and 940-token served prompts
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12      # H100 SXM data sheet, FP32 outside tensor cores
+INT8_OP_PER_S = 1979e12      # H100 SXM data sheet, dense int8 tensor cores
 
 
 def log(*args) -> None:
@@ -178,6 +225,280 @@ def kernel_phase(torch, flush, serve_lens, sweep: bool):
     return rows
 
 
+def dq_bound(t, d, in_bytes):
+    """Least time (ms) for per-row INT8 quantization of a (t, d) input and
+    what bounds it: the input read once and t*(d + 4) bytes of codes and
+    scales written once over the HBM rate, against about 4 FP32 operations
+    per element (|x| and max, divide, round, clip) over the FP32 rate."""
+    nbytes = t * d * in_bytes + t * (d + 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * t * d / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def check_dispatch_quant(torch, name, x, pack):
+    """``dispatch_quantize`` of ``x`` against its plain version: every code
+    equal, scales within DQ_SCALE_RTOL, the packed scale tail
+    bit-identical. Returns the error figures."""
+    from repro_torch.kernels.dispatch_quant import ops
+    from repro_torch.kernels.dispatch_quant.ref import dispatch_quantize_ref
+
+    d = x.shape[1]
+    got = ops.dispatch_quantize(x, pack=pack)
+    ref = dispatch_quantize_ref(x, pack=pack)
+    torch.cuda.synchronize()
+    if pack:
+        if got.shape != ref.shape or not torch.equal(got[:, d:], ref[:, d:]):
+            raise AssertionError(f"{name}: packed scale tail differs")
+        q, q_ref = got[:, :d], ref[:, :d]
+        s = got[:, d:].contiguous().view(torch.float32)
+        s_ref = ref[:, d:].contiguous().view(torch.float32)
+    else:
+        (q, s), (q_ref, s_ref) = got, ref
+    differing = int((q != q_ref).sum())
+    scale_rel = ((s - s_ref).abs() / s_ref).max().item() if s.numel() else 0.0
+    if differing or scale_rel > DQ_SCALE_RTOL:
+        raise AssertionError(f"{name}: {differing} codes differ, scales by "
+                             f"{scale_rel:.3e}")
+    err = (q.float() * s - q_ref.float() * s_ref).abs()
+    return {"codes_differing": differing, "scale_max_rel_err": scale_rel,
+            "max_abs_err": err.max().item() if err.numel() else 0.0}
+
+
+def dispatch_quant_phase(torch, flush, cfg, prefill_tokens):
+    """``dispatch_quantize`` against its plain PyTorch version at the LEP
+    dispatch buffers the serve-lep phase quantizes -- decode (8 tokens) and
+    the longest prompt's prefill, with only the rows that tokens fill
+    non-zero -- and at one activation shape (8 tokens, unpacked, as
+    ``quantize_act_per_token`` calls it), each timed; then, untimed, at the
+    DQ_RAGGED shapes (the empty one must launch nothing)."""
+    from repro_torch.core.lep import lep_capacity
+    from repro_torch.kernels.dispatch_quant import ops
+    from repro_torch.kernels.dispatch_quant.ref import dispatch_quantize_ref
+
+    k, e, d = cfg.num_experts_per_tok, cfg.num_experts, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = []
+    for name, tokens in (("decode dispatch", 8),
+                         ("prefill dispatch", prefill_tokens)):
+        rows = e * lep_capacity(tokens, k, e, cfg.capacity_factor)
+        cases.append((name, rows, min(rows, tokens * k), True))
+    cases.append(("activation", 8, 8, False))
+    out = []
+    for name, rows, filled, pack in cases:
+        x = torch.zeros(rows, d, dtype=torch.bfloat16, device="cuda")
+        idx = torch.randperm(rows, device="cuda", generator=gen)[:filled]
+        x[idx] = torch.randn(filled, d, device="cuda", generator=gen,
+                             dtype=torch.bfloat16)
+        row = {"case": name, "shape": [rows, d], "filled_rows": filled,
+               "pack": pack, **check_dispatch_quant(torch, name, x, pack)}
+        row["ms"] = timed_ms(torch, lambda: ops.dispatch_quantize(x, pack=pack),
+                             30, flush)
+        row["plain_ms"] = timed_ms(torch, lambda: dispatch_quantize_ref(
+            x, pack=pack), 30, flush)
+        row["bound_ms"], row["bound_by"] = dq_bound(rows, d, 2)
+        log("dispatch_quant:", json.dumps(row))
+        out.append(row)
+
+    ragged = []
+    for name, rows, width, dtype, pack, offset in DQ_RAGGED:
+        flat = torch.randn(rows * width + offset, device="cuda", generator=gen,
+                           dtype=getattr(torch, dtype))
+        x = flat[offset:].view(rows, width)
+        if rows:
+            x[rows // 2] = 0                  # an empty capacity slot
+            x *= torch.rand(rows, 1, device="cuda", generator=gen).to(x.dtype) * 8
+        before = ops.LAUNCHES
+        row = {"case": name, "shape": [rows, width], "dtype": dtype,
+               "pack": pack, "misaligned": offset != 0,
+               **check_dispatch_quant(torch, name, x, pack)}
+        if ops.LAUNCHES - before != (1 if rows else 0):
+            raise AssertionError(f"{name}: {ops.LAUNCHES - before} launches "
+                                 f"counted for {rows} rows")
+        log("dispatch_quant-ragged:", json.dumps(row))
+        ragged.append(row)
+    return out, ragged
+
+
+# The 2-D INT8-policy projections of the served cut: (segment, module,
+# weight); the attention and dense FFN of the first dense layer, the shared
+# expert of the MoE layer.
+INT8_PROJECTIONS = (
+    ("dense_lead", "attn", "wq_a"), ("dense_lead", "attn", "wq_b"),
+    ("dense_lead", "attn", "wkv_a"), ("dense_lead", "attn", "wo"),
+    ("dense_lead", "mlp", "w_gate"), ("dense_lead", "mlp", "w_up"),
+    ("dense_lead", "mlp", "w_down"), ("moe", "moe", "shared_gate"),
+    ("moe", "moe", "shared_up"), ("moe", "moe", "shared_down"),
+)
+
+
+def capture_inputs(torch, cfg, params, prompt, weights):
+    """The activations each weight in ``weights`` (name -> parameter) is
+    multiplied with during a ``prefill`` of ``prompt``: every ``x @ w`` of
+    the model is seen through a TorchFunctionMode, so the inputs of inner
+    projections (``wq_b`` after the q norm, ``wo`` after attention,
+    ``w_down`` after the SwiGLU gate) are the model's own. Returns name ->
+    (tokens, K)."""
+    from torch.overrides import TorchFunctionMode
+    from repro_torch.models import prefill
+
+    by_id = {id(w): name for name, w in weights.items()}
+    got = {}
+
+    class Capture(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.Tensor.matmul, torch.Tensor.__matmul__,
+                        torch.matmul) \
+                    and len(args) == 2 and id(args[1]) in by_id:
+                got[by_id[id(args[1])]] = args[0].reshape(
+                    -1, args[0].shape[-1]).detach().clone()
+            return func(*args, **(kwargs or {}))
+
+    tokens = torch.tensor([prompt], dtype=torch.int32,
+                          device=params.embed.device)
+    with torch.no_grad(), Capture():
+        prefill(params, cfg, {"tokens": tokens}, len(prompt))
+    missing = sorted(set(weights) - set(got))
+    if missing:
+        raise AssertionError(f"no activations captured for {missing}")
+    return got
+
+
+def int8_times(m, n, k):
+    """(operations ms, bytes ms) of an (m, k) x (k, n) int8 GEMM with its
+    f32 epilogue: 2*m*n*k int8 tensor-core operations over the int8 rate;
+    the operands and scales read once and the f32 output written once over
+    the HBM rate. The bound is the larger."""
+    nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
+    return 1e3 * 2 * m * n * k / INT8_OP_PER_S, 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def check_int8_plan(ops, m, k, n, n_sm):
+    """The INT8 GEMM's own launch plan for (m, k) x (k, n): the decode tile
+    shape for M <= 32, every K tile in exactly one split, and no split left
+    empty. Returns the number of K splits."""
+    small, splits, per, tile_k = ops.launch_plan(m, n, k, n_sm)
+    k_tiles = -(-k // tile_k)
+    if (small != (m <= 32) or splits < 1 or splits * per < k_tiles
+            or (k_tiles and (splits - 1) * per >= k_tiles)):
+        raise AssertionError(f"int8_matmul's plan for M={m}, K={k}, N={n}: "
+                             f"small={small}, {splits} splits of {per} "
+                             f"tiles of {tile_k}")
+    return splits
+
+
+def int8_phase(torch, flush, cfg, params, reqs):
+    """The §4.5 INT8 linear path on the served cut's INT8-policy
+    projections. Activations are captured from prefills of two served
+    prompts: ``calibrate_linear`` runs on the first (calibration), and
+    ``quantized_matmul`` on the second's first 8 rows (decode-sized) and on
+    all of its rows (its prompt length). Relative error against the bf16
+    product, for the full pipeline and for plain per-channel/per-token
+    quantization. That run is the path whose launches are counted. Then the
+    INT8 GEMM at the same inputs against its plain version, with CUDA-event
+    times of kernel, plain version and ``torch._int_mm`` plus the same
+    epilogue (the library yardstick; it takes M > 16, so decode rows are
+    padded with zeros to 32), beside the bound."""
+    from repro_torch.kernels.int8_gemm import ops
+    from repro_torch.kernels.int8_gemm.ref import int8_matmul_ref
+    from repro_torch.quant import (calibrate_linear, quantize_act_per_token,
+                                   quantized_matmul)
+
+    weights = {}
+    for seg, part, name in INT8_PROJECTIONS:
+        label = name if seg == "moe" else f"{part}.{name}"
+        weights[label] = getattr(getattr(params.segments[seg][0], part), name)
+    cal_req, eval_req = reqs[INT8_CALIB_RID], reqs[INT8_EVAL_RID]
+    x_cal = capture_inputs(torch, cfg, params, cal_req.prompt, weights)
+    x_eval = capture_inputs(torch, cfg, params, eval_req.prompt, weights)
+    ms_eval = (8, len(eval_req.prompt))
+
+    def rel_err(out, ref):
+        return (torch.linalg.norm(out.float() - ref) / torch.linalg.norm(ref)).item()
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    reset_counts()
+    quality, qls = {}, {}
+    for label, w in weights.items():
+        ql = calibrate_linear(w, x_cal[label])
+        ql_plain = calibrate_linear(w, x_cal[label], equalize=False,
+                                    block_clip=False, compensate=False)
+        qls[label] = ql
+        for m in ms_eval:
+            x = x_eval[label][:m]
+            ref = (x @ w).float()
+            quality[(label, m)] = (rel_err(quantized_matmul(x, ql), ref),
+                                   rel_err(quantized_matmul(x, ql_plain), ref))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["int8_gemm"] == 0 or counts["dispatch_quant"] == 0:
+        raise AssertionError(f"the INT8 path launched no kernel: {counts}")
+
+    rows = []
+    for label, w in weights.items():
+        ql = qls[label]
+        for m in ms_eval:
+            x = x_eval[label][:m]
+            x_q, x_s = quantize_act_per_token(x / ql.eq[None, :].to(x.dtype))
+            args = (x_q, ql.w_q, x_s, ql.w_scale, torch.float32)
+            got = ops.int8_matmul(*args)
+            ref = int8_matmul_ref(*args)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            if not torch.allclose(got, ref, rtol=INT8_RTOL, atol=0.0):
+                raise AssertionError(f"int8_matmul disagrees with its plain "
+                                     f"version ({label}, M={m}): {err:.3e}")
+            pad = 32 - m if m <= 16 else 0
+            xq_lib = torch.nn.functional.pad(x_q, (0, 0, 0, pad))
+            xs_lib = torch.nn.functional.pad(x_s, (0, 0, 0, pad))
+
+            def library():
+                return torch._int_mm(xq_lib, ql.w_q).float() * xs_lib * ql.w_scale
+
+            k, n = ql.w_q.shape
+            row = {
+                "case": label, "M": m, "K": k, "N": n,
+                "k_splits": check_int8_plan(ops, m, k, n, n_sm),
+                "rel_err_calibrated": quality[(label, m)][0],
+                "rel_err_plain": quality[(label, m)][1],
+                "max_abs_err": err,
+                "ms": timed_ms(torch, lambda: ops.int8_matmul(*args), 20, flush),
+                "plain_ms": timed_ms(torch, lambda: int8_matmul_ref(*args), 20,
+                                     flush),
+                "library_ms": timed_ms(torch, library, 20, flush),
+                "library_rows": m + pad,
+            }
+            t_ops, t_bytes = int8_times(m, n, k)
+            row["bound_ms"] = max(t_ops, t_bytes)
+            row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+            log("int8:", json.dumps(row))
+            rows.append(row)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ragged = []
+    for m, k, n, dtype in INT8_RAGGED:
+        x_q = torch.randint(-127, 128, (m, k), device="cuda", generator=gen,
+                            dtype=torch.int8)
+        w_q = torch.randint(-127, 128, (k, n), device="cuda", generator=gen,
+                            dtype=torch.int8)
+        x_s = torch.rand(m, 1, device="cuda", generator=gen) * 0.01
+        w_s = torch.rand(1, n, device="cuda", generator=gen) * 0.01
+        args = (x_q, w_q, x_s, w_s, getattr(torch, dtype))
+        got, ref = ops.int8_matmul(*args).float(), int8_matmul_ref(*args).float()
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not torch.allclose(got, ref, rtol=INT8_RTOL, atol=0.0):
+            raise AssertionError(f"int8_matmul disagrees with its plain "
+                                 f"version at M={m}, K={k}, N={n} ({dtype}): "
+                                 f"{err:.3e}")
+        row = {"M": m, "K": k, "N": n, "out_dtype": dtype,
+               "k_splits": check_int8_plan(ops, m, k, n, n_sm),
+               "max_abs_err": err}
+        log("int8-ragged:", json.dumps(row))
+        ragged.append(row)
+    return rows, ragged, counts
+
+
 def serve_config():
     from repro_torch.configs import get_config
     cfg = get_config("deepseek-r1")
@@ -186,18 +507,50 @@ def serve_config():
                                first_k_dense=3, dtype="bfloat16")
 
 
-def serve_phase(torch, cfg, params, dev="cuda"):
+KERNEL_MODULES = ("mla_attention", "dispatch_quant", "int8_gemm")
+
+
+def kernel_ops():
+    """The wrapper module of every kernel, by package name."""
+    import importlib
+    return {name: importlib.import_module(f"repro_torch.kernels.{name}.ops")
+            for name in KERNEL_MODULES}
+
+
+def reset_counts() -> None:
+    for mod in kernel_ops().values():
+        mod.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {name: mod.LAUNCHES for name, mod in kernel_ops().items()}
+
+
+def serve_requests(cfg):
+    """The served traffic: 8 requests with prompt lengths drawn uniformly
+    from 256-1024 tokens (seed SEED) and 32 new tokens each."""
     import numpy as np
-    from repro_torch.kernels.mla_attention import ops
-    from repro_torch.serving import Request, ServingSystem
+    from repro_torch.serving import Request
 
     rng = np.random.RandomState(SEED)
     n_req, max_new = 8, 32
     lens = rng.randint(256, 1025, size=n_req)          # uniform on 256..1024
-    reqs = [Request(i, [int(t) for t in rng.randint(0, cfg.vocab_size, n)],
+    return [Request(i, [int(t) for t in rng.randint(0, cfg.vocab_size, n)],
                     max_new) for i, n in enumerate(lens)]
+
+
+def serve_phase(torch, cfg, params, moe_fn=None, dev="cuda"):
+    """Serve ``serve_requests`` through ``ServingSystem`` (``moe_fn=None``:
+    the default ``moe_capacity``), with every kernel count set to 0 just
+    before and read just after. Returns (summary, counts, final lengths,
+    tokens by rid)."""
+    from repro_torch.serving import ServingSystem
+
+    reqs = serve_requests(cfg)
+    n_req, max_new = len(reqs), reqs[0].max_new_tokens
+    lens = [len(r.prompt) for r in reqs]
     system = ServingSystem(params, cfg, n_prefill=1, decode_batch=8,
-                           capacity=2048, device=dev)
+                           capacity=2048, device=dev, moe_fn=moe_fn)
 
     # Wall-clock instrumentation around the engines' own calls: both end in
     # a host read of the sampled tokens, so the device work is done.
@@ -221,11 +574,11 @@ def serve_phase(torch, cfg, params, dev="cuda"):
     if dev == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    ops.LAUNCHES = 0
+    reset_counts()
     t_start = time.perf_counter()
     results = system.serve(reqs)
     t_end = time.perf_counter()
-    launches = ops.LAUNCHES
+    counts = read_counts()
 
     if len(results) != n_req or any(r.shed or len(r.tokens) != max_new
                                     for r in results):
@@ -235,6 +588,7 @@ def serve_phase(torch, cfg, params, dev="cuda"):
         if not all(0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"rid {r.rid}: token out of range")
     n_steps = dec.iters
+    launches = counts["mla_attention"]
     if launches != n_steps * cfg.num_layers or launches == 0:
         raise AssertionError(f"kernel launches {launches} != decode steps "
                              f"{n_steps} x {cfg.num_layers} MLA layers")
@@ -247,9 +601,9 @@ def serve_phase(torch, cfg, params, dev="cuda"):
     decode_tokens = sum(len(r.tokens) - 1 for r in results)
     step_s = [t1 - t0 for t0, t1, _ in steps]
     summary = {
-        "requests": n_req, "prompt_lens": [int(n) for n in lens],
+        "requests": n_req, "prompt_lens": lens,
         "max_new_tokens": max_new, "decode_steps": n_steps,
-        "kernel_launches": launches,
+        "kernel_launches": counts,
         "prefill_s": [prefill_done[r.rid] - prefill_start[r.rid]
                       for r in results],
         "ttft_s": ttft,
@@ -261,8 +615,37 @@ def serve_phase(torch, cfg, params, dev="cuda"):
     }
     if dev == "cuda":
         summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    final_lens = [int(n) + max_new - 1 for n in lens]
-    return summary, launches, final_lens
+    final_lens = [n + max_new - 1 for n in lens]
+    return summary, counts, final_lens, {r.rid: r.tokens for r in results}
+
+
+def serve_lep_phase(torch, cfg, params, base_tokens, dev="cuda"):
+    """The same traffic served with ``moe_fn=make_lep_moe_fn()`` at world
+    size 1 (early INT8 dispatch through the dispatch-quantize kernel). Every
+    request must finish and the kernel must run once per MoE call. The
+    share of served tokens equal to the ``moe_capacity`` serve is reported,
+    not gated: INT8 dispatch and LEP's deeper prefill capacity may flip
+    some."""
+    from repro_torch.core import make_lep_moe_fn
+
+    lep = make_lep_moe_fn()
+    calls = []
+
+    def moe_fn(p, x, c):
+        calls.append(x.shape[0])
+        return lep(p, x, c)
+
+    summary, counts, _, tokens = serve_phase(torch, cfg, params, moe_fn, dev)
+    if not calls or counts["dispatch_quant"] != len(calls):
+        raise AssertionError(f"dispatch_quantize launches "
+                             f"{counts['dispatch_quant']} != moe_fn calls "
+                             f"{len(calls)}")
+    same = sum(a == b for rid in tokens
+               for a, b in zip(tokens[rid], base_tokens[rid]))
+    total = sum(len(t) for t in tokens.values())
+    summary["moe_fn_calls"] = len(calls)
+    summary["tokens_identical_to_capacity_serve"] = same / total
+    return summary, counts
 
 
 def agreement_phase(torch, cfg, params, dev="cuda"):
@@ -416,29 +799,68 @@ def main(argv=None) -> int:
     log(f"init: {n_params / 1e9:.3f} B parameters in "
         f"{time.perf_counter() - ti:.1f} s")
 
-    serve, launches, final_lens = serve_phase(torch, cfg, params)
+    serve, counts, final_lens, tokens = serve_phase(torch, cfg, params)
     log(f"serve: {json.dumps(serve)} on {device}")
+    lep_serve, lep_counts = serve_lep_phase(torch, cfg, params, tokens)
+    log(f"serve-lep: {json.dumps(lep_serve)} on {device}")
+    log("serve-lep beside serve: " + json.dumps({
+        key: [serve[key], lep_serve[key]]
+        for key in ("ttft_p50_s", "tpot_p50_s", "decode_tokens_per_s")}))
 
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = kernel_phase(torch, flush, final_lens, args.sweep)
+    dq_rows, dq_ragged = dispatch_quant_phase(torch, flush, cfg,
+                                              max(serve["prompt_lens"]))
+    int8_rows, int8_ragged, int8_counts = int8_phase(
+        torch, flush, cfg, params, serve_requests(cfg))
     del flush
 
     agree = agreement_phase(torch, cfg, params)
     log(f"agreement: {json.dumps(agree)}")
 
     main_row = rows[-1]
+    dq_row = dq_rows[0]                   # the decode dispatch buffer
+    int8_total = {key: sum(r[key] for r in int8_rows)
+                  for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    int8_ops_ms, int8_bytes_ms = (sum(t) for t in zip(*(
+        int8_times(r["M"], r["N"], r["K"]) for r in int8_rows)))
     kernels = [{
         "name": "mla_decode_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mla_decode_attention.cu",
         "replaces": "src/repro/kernels/mla_attention/mla_attention.py:69",
-        "launches": launches,
+        "launches": counts["mla_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+    }, {
+        "name": "dispatch_quantize",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dispatch_quant.cu",
+        "replaces": "src/repro/kernels/dispatch_quant/dispatch_quant.py:29",
+        "launches": lep_counts["dispatch_quant"],
+        "max_abs_err": max(r["max_abs_err"] for r in dq_rows + dq_ragged),
+        "ms": dq_row["ms"],
+        "plain_ms": dq_row["plain_ms"],
+        "bound_ms": dq_row["bound_ms"],
+        "bound_by": dq_row["bound_by"],
+        "library_ms": None,
+    }, {
+        # Sums over every projection and both M of the int8 phase.
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
+        "replaces": "src/repro/kernels/int8_gemm/int8_gemm.py:39",
+        "launches": int8_counts["int8_gemm"],
+        "max_abs_err": max(r["max_abs_err"] for r in int8_rows + int8_ragged),
+        "ms": int8_total["ms"],
+        "plain_ms": int8_total["plain_ms"],
+        "bound_ms": int8_total["bound_ms"],
+        "bound_by": "operations" if int8_ops_ms >= int8_bytes_ms else "bytes",
+        "library_ms": int8_total["library_ms"],
     }]
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(device)

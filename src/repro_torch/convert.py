@@ -1,9 +1,13 @@
-"""Load the JAX package's weights into the port's modules.
+"""Carry the JAX package's weights and quantized tensors into the port.
 
 The JAX ``init_params`` pytree (``repro/models/model.py:113``) stacks each
 segment's layer weights on a leading axis. :func:`params_from_jax_numpy`
 takes that tree with numpy arrays at the leaves and unstacks it into one
-module per layer, so both sides of a test run the same weights.
+module per layer, so both sides of a test run the same weights;
+:func:`param_tree` goes the other way and lays a port model's weights out
+as that tree. :func:`quantized_linear_from_jax_numpy` and
+:func:`quantized_tree_from_jax_numpy` carry the outputs of the JAX
+package's ``quant/int8.py`` across.
 """
 from __future__ import annotations
 
@@ -15,6 +19,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model, build_plan
+from repro_torch.models.moe import MoE
+from repro_torch.quant.int8 import QuantizedLinear
 
 
 def _load(param: torch.nn.Parameter, value: np.ndarray, what: str) -> None:
@@ -53,3 +59,63 @@ def params_from_jax_numpy(tree: Dict[str, Any], cfg: ModelConfig,
             _load_module(getattr(blk, ffn), seg_tree[ffn], li,
                          f"{what}.{ffn}")
     return model
+
+
+def moe_from_jax_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                       layer: int = 0, device: DeviceLike = None) -> MoE:
+    """One MoE layer on ``device``, in ``cfg.dtype``, holding layer
+    ``layer`` of the JAX package's stacked MoE weights (``init_moe_params``,
+    numpy leaves)."""
+    moe = MoE(cfg, resolve_device(device), getattr(torch, cfg.dtype))
+    _load_module(moe, tree, layer, "moe")
+    return moe
+
+
+def _tensor(value: Any, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(value)).to(device)
+
+
+def quantized_linear_from_jax_numpy(ql: Any, device: DeviceLike = None
+                                    ) -> QuantizedLinear:
+    """The port's :class:`QuantizedLinear` from the JAX package's (its
+    fields as numpy arrays or ``None``)."""
+    dev = resolve_device(device)
+    return QuantizedLinear(*(None if v is None else _tensor(v, dev)
+                             for v in (ql.w_q, ql.w_scale, ql.eq,
+                                       ql.bias_corr)))
+
+
+def quantized_tree_from_jax_numpy(tree: Any, device: DeviceLike = None) -> Any:
+    """A tree from the JAX package's ``quantize_param_tree`` (numpy leaves)
+    as the same nested dicts of tensors on ``device``."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _tensor(node, dev)
+
+    return walk(tree)
+
+
+def param_tree(model: Model) -> Dict[str, Any]:
+    """The weights of ``model`` in the JAX ``init_params`` layout: nested
+    dicts under the same keys, each segment's per-layer weights stacked on
+    a leading axis (a copy)."""
+    cfg = model.cfg
+    tree: Dict[str, Any] = {"embed": model.embed.data,
+                            "final_norm": model.final_norm.data}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = model.lm_head.data
+    segments = {}
+    for seg in build_plan(cfg):
+        blocks = model.segments[seg.name]
+        ffn = "moe" if seg.kind == "moe" else "mlp"
+        segments[seg.name] = {
+            part: {name: torch.stack([dict(getattr(b, part).named_parameters(
+                recurse=False))[name].data for b in blocks])
+                for name, _ in getattr(blocks[0], part).named_parameters(
+                    recurse=False)}
+            for part in ("attn", ffn)}
+    tree["segments"] = segments
+    return tree

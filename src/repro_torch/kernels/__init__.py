@@ -3,6 +3,12 @@ JAX package that the port has reached so far:
 
 * ``mla_attention`` -- absorbed-MLA decode attention over the latent cache
   (replaces ``repro/kernels/mla_attention/mla_attention.py``'s Pallas kernel).
+* ``dispatch_quant`` -- per-row INT8 quantization of the expert-parallel
+  dispatch buffer and of activations, optionally packing each row's f32
+  scale into its last 4 bytes (replaces ``repro/kernels/dispatch_quant/
+  dispatch_quant.py``).
+* ``int8_gemm`` -- int8 x int8 -> int32 GEMM with the per-token x
+  per-channel rescale (replaces ``repro/kernels/int8_gemm/int8_gemm.py``).
 
 Each kernel package has ``ref.py`` (the same function in plain PyTorch) and
 ``ops.py`` (the wrapper: the plain version for a CPU tensor, the kernel for

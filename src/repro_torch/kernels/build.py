@@ -22,6 +22,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: kernel library name -> CUDA source under csrc/
 SOURCES = {
     "mla_decode_attention": "mla_decode_attention.cu",
+    "dispatch_quant": "dispatch_quant.cu",
+    "int8_gemm": "int8_gemm.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
