@@ -8,8 +8,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off for
    matmul and cuDNN.
 2. build: every CUDA kernel of the port (MLA decode attention, dispatch
-   quantize, INT8 GEMM), compiled from ``src/repro_torch/kernels/csrc``
-   into ``build/kernels/`` (one ``nvcc`` per source, all at once).
+   quantize, INT8 GEMM, SSD scan), compiled from
+   ``src/repro_torch/kernels/csrc`` into ``build/kernels/`` (one ``nvcc``
+   per source, all at once).
 3. serve: DeepSeek-R1 at full width cut to 4 layers (3 dense + 1 MoE with
    all 256 experts), bf16 random weights from a seed, through
    ``ServingSystem.serve``: 8 requests with prompt lengths drawn uniformly
@@ -48,18 +49,42 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``prefill`` over prompt + generated tokens (logits within AGREE_ATOL
    where both chose the same experts; served tokens equal to the
    reference's argmax where its margin is clear).
+9. serve-ssm: with the DeepSeek-R1 weights freed, Mamba2-780m at full
+   width and full depth (48 layers), bf16 random weights from a seed,
+   serves the same traffic through the same ``ServingSystem``. Every
+   request must finish, and the SSD-scan kernel must launch once per layer
+   of every prefill (48 x 8). Wall-clock prefill time per request,
+   TTFT/TPOT p50, decode step p50, decode tokens/s and peak memory.
+10. ssd_scan: ``ssd_scan`` against its plain PyTorch version at the served
+   widths (B=1, H=48, P=64, N=128, Q=128) at S=1019 (ragged) and S=448
+   (whole chunks), each timed beside the plain version and the bound; then,
+   untimed, B=2, S < Q, S=1, and P and N that are not multiples of the
+   kernel's tiles; and one small case against the token recurrence
+   ``ssd_reference``.
+11. ssm-agreement: Mamba2 decode against prefill on three served prompts:
+   in float32 from a zero state over their first 192 tokens (logits within
+   SSM_F32_ATOL, argmax equal where the margin is clear); in float32 from
+   a prefill of the first 160 (the kernel's final state handed to
+   ``decode_step``, within SSM_F32_ATOL; two planted faults, a zeroed
+   state and a zeroed conv window, far outside); in float32 served through
+   ``ServingSystem`` and replayed (logits within SSM_WINDOW_ATOL of the
+   prefill, served tokens equal to the replay's argmax where its margin is
+   clear); and in bf16, the
+   served requests replayed, whose error against the float32 prefill may
+   be at most SSM_BF16_RATIO times the bf16 prefill's.
 
-Each path phase (serve, serve-lep, int8) sets every kernel's launch count
-to 0 just before it and reads the counts just after. The last two lines of
-standard output are a ``{"kernels": [...]}`` JSON object (one entry per
-kernel; ``int8_matmul``'s times are sums over the int8 phase's cases) and
-``{"ok": true, "device": {...}}``. Without CUDA, or without the
+Each path phase (serve, serve-lep, int8, serve-ssm) sets every kernel's
+launch count to 0 just before it and reads the counts just after. The last
+two lines of standard output are a ``{"kernels": [...]}`` JSON object (one
+entry per kernel; ``int8_matmul``'s times are sums over the int8 phase's
+cases) and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 port's package beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -109,6 +134,71 @@ INT8_RAGGED = ((17, 100, 130, "float32"), (17, 100, 130, "bfloat16"),
 # version; 1e-6 leaves one f32 rounding.
 INT8_RTOL = 1e-6
 INT8_CALIB_RID, INT8_EVAL_RID = 3, 0     # 448- and 940-token served prompts
+# SSD scan, f32 kernel vs f32 plain version: sums of up to N = 128 products
+# (C.B, C.h) and Q = 128 terms (W.x, the state update) taken in another
+# order, and CUDA's expf against PyTorch's exp (each within 2 ulp). The
+# relative part is the repository's own SSD-kernel tolerance
+# (tests/test_kernels.py:79-80). The absolute part scales with the output's
+# largest magnitude: at the served dt (softplus of a unit normal) cum falls
+# to about -140 within a chunk, where an f32 ulp of cum is ~1.5e-5, so each
+# decay exp(cum_t - cum_s) carries a relative error of that order, and so
+# does every term it scales, up to the largest output (|y| of a few
+# hundred at S = 1019: the phase's max_abs_y). Such terms cancel into
+# outputs near 0, whose error is then of the terms' order. The phase
+# reports how far the kernel and the f32 plain version each lie from a
+# float64 evaluation of the same inputs, in units of max|y| (a few 1e-6):
+# SSD_ATOL_REL allows several times that.
+SSD_TOL = 2e-4
+SSD_ATOL_REL = 2e-5
+# (name, B, S, H, P, N, timed): the served widths at two served prompt
+# lengths, both timed -- 1019 (7 chunks of 128 and a ragged one of 123) and
+# 448 (3 and a ragged 64) -- then untimed: whole chunks only, and the
+# kernel's other branches.
+SSD_CASES = (("served S=1019", 1, 1019, 48, 64, 128, True),
+             ("served S=448", 1, 448, 48, 64, 128, True),
+             ("whole chunks S=512", 1, 512, 48, 64, 128, False),
+             ("B=2", 2, 300, 8, 64, 128, False),
+             ("S<Q", 1, 50, 8, 64, 128, False),
+             ("S=1", 1, 1, 8, 64, 128, False),
+             ("P, N off the tiles", 1, 200, 3, 40, 100, False))
+SSD_ORACLE_CASE = (1, 200, 2, 64, 128)       # B, S, H, P, N
+SSM_AGREE_RIDS = (7, 3, 6)       # the 265-, 448- and 615-token prompts
+# Mamba2 decode (the recurrence) against prefill (the chunked scan through
+# the kernel). The logits have unit scale (the tied head over an rms-normed
+# state; |logit| reaches ~4).
+# - In float32, from a zero state, the two forms compute one function in
+#   another order: f32 round-off (~1e-7 relative) through 48 layers, which
+#   random weights amplify (the bf16 drift below grows ~4x from 12 to 48
+#   layers), stays far below 1e-3; SSM_F32_ATOL = 2e-3.
+# - In float32 after a prefill (the handoff), the decode starts from the
+#   kernel's final state and from a conv window that prefill stored in
+#   bf16, as the JAX package does. With the window taken from the
+#   recurrence instead, only the kernel's state differs, and the decode
+#   must stay within SSM_F32_ATOL. With prefill's own bf16 window, its
+#   rounding (2^-9 relative) enters the next three tokens' inputs in every
+#   layer, and 48 layers of random weights grow it to a tenth of a logit
+#   (0.086-0.164 on an H100, PERF.md; from the kernel's state with the
+#   recurrence's window, 3.4e-4): SSM_WINDOW_ATOL is 1.5 times the worst.
+#   A lost state -- a zeroed h or conv window, planted on the card -- read
+#   4.8-5.1 there, and must err by more than SSM_FAULT_FACTOR x
+#   SSM_WINDOW_ATOL.
+# - In bf16 the forms see differently rounded inputs in every layer (prefill
+#   rounds x, B and C to bf16 after the convolution and stores the conv
+#   window in bf16; decode keeps them in f32, as the JAX package does), and
+#   48 layers of random weights grow such differences along the decode
+#   steps to the logits' own scale, so no fixed atol separates rounding
+#   from a fault. The bound is measured instead: against the float32
+#   prefill of the same weights and tokens, the bf16 decode may err by at
+#   most SSM_BF16_RATIO times what the bf16 prefill errs (if both are as
+#   accurate as bf16 allows they differ by at most twice that, by the
+#   triangle inequality). A lost or misplaced state is no bf16 rounding and
+#   moves the decode much further than the prefill's own error.
+SSM_F32_ATOL = 2e-3
+SSM_F32_TOKENS = 160         # one chunk of 128 and a ragged one of 32
+SSM_HANDOFF_STEPS = 32       # decoded after a prefill of SSM_F32_TOKENS
+SSM_WINDOW_ATOL = 0.25
+SSM_FAULT_FACTOR = 10.0
+SSM_BF16_RATIO = 2.0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12      # H100 SXM data sheet, FP32 outside tensor cores
 INT8_OP_PER_S = 1979e12      # H100 SXM data sheet, dense int8 tensor cores
@@ -507,7 +597,7 @@ def serve_config():
                                first_k_dense=3, dtype="bfloat16")
 
 
-KERNEL_MODULES = ("mla_attention", "dispatch_quant", "int8_gemm")
+KERNEL_MODULES = ("mla_attention", "dispatch_quant", "int8_gemm", "ssd_scan")
 
 
 def kernel_ops():
@@ -524,6 +614,12 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: mod.LAUNCHES for name, mod in kernel_ops().items()}
+
+
+def ssm_config():
+    from repro_torch.configs import get_config
+    # Full width and full depth: 48 Mamba2 layers, d_model 1536.
+    return dataclasses.replace(get_config("mamba2-780m"), dtype="bfloat16")
 
 
 def serve_requests(cfg):
@@ -588,10 +684,15 @@ def serve_phase(torch, cfg, params, moe_fn=None, dev="cuda"):
         if not all(0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"rid {r.rid}: token out of range")
     n_steps = dec.iters
-    launches = counts["mla_attention"]
-    if launches != n_steps * cfg.num_layers or launches == 0:
-        raise AssertionError(f"kernel launches {launches} != decode steps "
-                             f"{n_steps} x {cfg.num_layers} MLA layers")
+    # Mamba2: one SSD scan per layer of every prefill; MLA: one decode
+    # attention per layer of every decode step.
+    name, per, what = (("ssd_scan", len(prefill_done), "prefills")
+                       if cfg.is_ssm else
+                       ("mla_attention", n_steps, "decode steps"))
+    launches = counts[name]
+    if launches != per * cfg.num_layers or launches == 0:
+        raise AssertionError(f"{name} launches {launches} != {what} {per} x "
+                             f"{cfg.num_layers} layers")
     results = sorted(results, key=lambda r: r.rid)      # prompt_lens order
     finish = {rid: t1 for _, t1, rids in steps for rid in rids}
     ttft = [prefill_done[r.rid] - t_start for r in results]
@@ -754,6 +855,295 @@ def agreement_phase(torch, cfg, params, dev="cuda"):
     return stats
 
 
+def ssd_bound(b, s, h, p, n, q):
+    """Least time (ms) for the SSD scan on these shapes, and what bounds it:
+    x, dt, a_log, B and C read once and y and the final state written once
+    over the HBM rate, against the FP32 operations the function needs over
+    the FP32 rate. Per chunk of L rows: C.B^T (2L^2 N) once, since every
+    head shares B and C; per head W.x, C.h and the state update
+    (2L(LP + 2NP)). The ragged last chunk counts at its own L."""
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
+                  + b * h * p * n)
+    full, tail = divmod(s, q)
+    flops = sum(cnt * b * 2 * rows * (rows * n + h * (rows * p + 2 * n * p))
+                for cnt, rows in ((full, q), (1 if tail else 0, tail)))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def ssd_inputs(torch, gen, b, s, h, p, n):
+    """Seeded inputs shaped as ``mamba_prefill`` gives them: dt = softplus
+    of a unit normal (the model's dt with dt_bias 0), A_log around 0."""
+    x = torch.randn(b, s, h, p, device="cuda", generator=gen)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, device="cuda", generator=gen))
+    a_log = 0.1 * torch.randn(h, device="cuda", generator=gen)
+    bm = torch.randn(b, s, n, device="cuda", generator=gen)
+    cm = torch.randn(b, s, n, device="cuda", generator=gen)
+    return x, dt, a_log, bm, cm
+
+
+def ssd_scan_phase(torch, flush, q):
+    """``ssd_scan`` against its plain PyTorch version (y and the final
+    state within SSD_TOL) at SSD_CASES, the timed ones with median
+    CUDA-event times of kernel and plain version beside the bound; then one
+    small case against the token recurrence ``ssd_reference``."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.models.mamba2 import ssd_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def check(name, args, ref_fn, what):
+        y, hf = ops.ssd_scan(*args, chunk=q)
+        torch.cuda.synchronize()
+        yr, hr = ref_fn(*args)
+        err = max((y - yr).abs().max().item(), (hf - hr).abs().max().item())
+        if not (torch.isfinite(y).all() and torch.isfinite(hf).all() and all(
+                torch.allclose(got, ref, rtol=SSD_TOL,
+                               atol=SSD_ATOL_REL * ref.abs().max().item())
+                for got, ref in ((y, yr), (hf, hr)))):
+            raise AssertionError(f"ssd_scan disagrees with {what} ({name}): "
+                                 f"max |err| {err:.3e}")
+        return {"max_abs_err": err, "max_abs_y": yr.abs().max().item(),
+                "max_abs_h": hr.abs().max().item()}
+
+    rows = []
+    for name, b, s, h, p, n, timed in SSD_CASES:
+        args = ssd_inputs(torch, gen, b, s, h, p, n)
+        row = {"case": name, "B": b, "S": s, "H": h, "P": p, "N": n, "Q": q,
+               **check(name, args, lambda *a: ssd_chunked(*a, q),
+                       "its plain version")}
+        if timed:
+            # Distance of the kernel and of the plain version from a float64
+            # evaluation, per unit of the largest output.
+            y64 = ssd_chunked(*(a.double() for a in args), q)[0]
+            scale = y64.abs().max().item()
+            for key, fn in (("kernel_vs_f64", ops.ssd_scan),
+                            ("plain_vs_f64", ssd_chunked)):
+                row[key] = ((fn(*args, chunk=q)[0].double() - y64).abs()
+                            .max().item() / scale)
+            row["ms"] = timed_ms(torch, lambda: ops.ssd_scan(*args, chunk=q),
+                                 30, flush)
+            row["plain_ms"] = timed_ms(torch, lambda: ssd_chunked(
+                *args, chunk=q), 10, flush)
+        row["bound_ms"], row["bound_by"] = ssd_bound(b, s, h, p, n, q)
+        log("ssd_scan:", json.dumps(row))
+        rows.append(row)
+    b, s, h, p, n = SSD_ORACLE_CASE
+    row = {"case": "vs ssd_reference", "B": b, "S": s, "H": h, "P": p,
+           "N": n, "Q": q, **check(
+               "vs ssd_reference", ssd_inputs(torch, gen, b, s, h, p, n),
+               ssd_reference, "the token recurrence")}
+    log("ssd_scan:", json.dumps(row))
+    rows.append(row)
+    return rows
+
+
+def ssm_agreement_phase(torch, cfg, params, reqs, served, dev="cuda"):
+    """Mamba2 decode (the recurrence) against full-sequence prefill (the
+    chunked scan through the kernel), on the served prompts of
+    SSM_AGREE_RIDS.
+
+    float32, from a zero state: the served weights upcast; the first
+    SSM_F32_TOKENS + SSM_HANDOFF_STEPS tokens of each prompt (batch 3)
+    stepped through ``decode_step`` must give every position's logits within
+    SSM_F32_ATOL of a ``prefill`` over the same tokens, and the same argmax
+    wherever the prefill's top-1/top-2 margin exceeds 2 x SSM_F32_ATOL (at
+    least one position).
+
+    float32, the handoff: ``prefill`` over the first SSM_F32_TOKENS (the
+    kernel's final state after a ragged last chunk), then the next
+    SSM_HANDOFF_STEPS through ``decode_step``, against that same whole
+    prefill: within SSM_F32_ATOL from the kernel's state and the
+    recurrence's conv window, within SSM_WINDOW_ATOL from prefill's own
+    state (its conv window in bf16). Two planted faults -- a zeroed state,
+    a zeroed conv window -- must err by more than SSM_FAULT_FACTOR x
+    SSM_WINDOW_ATOL, so that the check would see them.
+
+    float32, served: the same requests served through ``ServingSystem`` in
+    float32, then each replayed at batch 1 (``prefill`` of the prompt, its
+    served tokens teacher-forced through ``decode_step``). The replay's
+    logits must lie within SSM_WINDOW_ATOL of a ``prefill`` over prompt +
+    served tokens, and each served token must be the replay's argmax
+    wherever the replay's margin exceeds 2 x SSM_F32_ATOL (the serve
+    computes the same thing at another batch size). (A margin of 2 x
+    SSM_WINDOW_ATOL against the prefill is clear at almost no position.)
+
+    bfloat16, as served: each request is replayed at batch 1 (prefill of
+    the prompt, then its served tokens teacher-forced through
+    ``decode_step``). Against the float32 ``prefill`` over prompt + served
+    tokens, the replay's largest logit error may be at most SSM_BF16_RATIO
+    times the bf16 ``prefill``'s over the same tokens. (No served bf16 token
+    is checked against an argmax: the margin that bf16 rounding leaves
+    clear is above nearly every top-1/top-2 gap; the float32 serve checks
+    the served tokens instead.)"""
+    import copy
+    from repro_torch.models import decode_step, make_caches, prefill
+    from repro_torch.models.mamba2 import SSMState
+    from repro_torch.serving import Request, ServingSystem
+
+    def tok(ids):
+        return torch.tensor(ids, dtype=torch.int32, device=dev)
+
+    def replay(p, c, prompt, toks):
+        """Logits of ``prefill(prompt)`` at its last position, then of each
+        token of ``toks[:-1]`` teacher-forced through ``decode_step``."""
+        n = len(toks)
+        logits, caches = prefill(p, c, {"tokens": tok([prompt])},
+                                 len(prompt) + n, cache_dtype=torch.float32)
+        out = [logits[0, -1].float()]
+        for i, t_ in enumerate(toks[:-1]):
+            lg, caches = decode_step(p, c, tok([[t_]]), caches,
+                                     tok([len(prompt) + i]))
+            out.append(lg[0].float())
+        return torch.stack(out)
+
+    def whole(p, c, prompt, toks):
+        """``prefill`` over prompt + toks[:-1], from the prompt's last
+        position on: the reference for ``replay``."""
+        return prefill(p, c, {"tokens": tok([prompt + toks[:-1]])},
+                       len(prompt) + len(toks), cache_dtype=torch.float32
+                       )[0][0, len(prompt) - 1:].float()
+
+    # float32, from a zero state, over T + K tokens; the state after T is
+    # kept for the handoff below.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = copy.deepcopy(params).float()
+    t, k = SSM_F32_TOKENS, SSM_HANDOFF_STEPS
+    seqs = tok([reqs[rid].prompt[:t + k] for rid in SSM_AGREE_RIDS])
+    caches = make_caches(cfg32, len(SSM_AGREE_RIDS), t + k, torch.float32,
+                         dev)
+    steps = []
+    for i in range(t + k):
+        if i == t:
+            h_t, conv_t = (caches["mamba"].h.clone(),
+                           caches["mamba"].conv.clone())
+        lg, caches = decode_step(p32, cfg32, seqs[:, i:i + 1], caches, tok(i))
+        steps.append(lg.float())
+    rec = torch.stack(steps, 1)                              # (3, t + k, V)
+    ref = prefill(p32, cfg32, {"tokens": seqs}, t + k,
+                  cache_dtype=torch.float32)[0].float()
+    err = (rec - ref).abs().max().item()
+    top2 = ref.topk(2, dim=-1)
+    clear = (top2.values[..., 0] - top2.values[..., 1]) > 2 * SSM_F32_ATOL
+    same = rec.argmax(-1) == top2.indices[..., 0]
+    stats = {"f32": {"sequences": len(SSM_AGREE_RIDS), "tokens": t + k,
+                     "atol": SSM_F32_ATOL, "max_abs_logit_err": err,
+                     "tokens_checked": int(clear.sum()),
+                     "argmax_equal_share": same.float().mean().item()}}
+    log(f"ssm-agreement f32: {json.dumps(stats['f32'])}")
+    if not err <= SSM_F32_ATOL:
+        raise AssertionError(f"Mamba2 f32 recurrence vs prefill max |dlogit| "
+                             f"{err:.3e} > {SSM_F32_ATOL}")
+    if not clear.any() or not bool(same[clear].all()):
+        raise AssertionError(f"Mamba2 f32 recurrence vs prefill: argmax "
+                             f"differs at a clear margin: {stats['f32']}")
+
+    # float32, the handoff: prefill over the first T tokens (the kernel's
+    # final state after a ragged last chunk), then the next K through
+    # decode_step, against the prefill over all T + K.
+    st = prefill(p32, cfg32, {"tokens": seqs[:, :t]}, t + k,
+                 cache_dtype=torch.float32)[1]["mamba"]
+
+    def handoff_err(h, conv):
+        c = {"mamba": SSMState(h.clone(), conv.clone(), st.length)}
+        out = []
+        for i in range(t, t + k):
+            lg, c = decode_step(p32, cfg32, seqs[:, i:i + 1], c, tok(i))
+            out.append(lg.float())
+        return (torch.stack(out, 1) - ref[:, t:]).abs().max().item()
+
+    conv_f32 = st.conv.to(conv_t.dtype)
+    hand = {"prefix": t, "steps": k, "atol": SSM_F32_ATOL,
+            "window_atol": SSM_WINDOW_ATOL,
+            "h_max_rel_diff": ((st.h - h_t).abs().max()
+                               / h_t.abs().max()).item(),
+            "kernel_h": handoff_err(st.h, conv_t),
+            "prefill_state": handoff_err(st.h, conv_f32),
+            "fault_zeroed_h": handoff_err(torch.zeros_like(h_t), conv_t),
+            "fault_zeroed_conv": handoff_err(st.h, torch.zeros_like(conv_t))}
+    log(f"ssm-agreement f32 handoff: {json.dumps(hand)}")
+    if not hand["kernel_h"] <= SSM_F32_ATOL:
+        raise AssertionError(f"Mamba2 f32 decode from the kernel's final "
+                             f"state errs by {hand['kernel_h']:.3e} > "
+                             f"{SSM_F32_ATOL}")
+    if not hand["prefill_state"] <= SSM_WINDOW_ATOL:
+        raise AssertionError(f"Mamba2 f32 decode from prefill's state errs "
+                             f"by {hand['prefill_state']:.3e} > "
+                             f"{SSM_WINDOW_ATOL}")
+    for key in ("fault_zeroed_h", "fault_zeroed_conv"):
+        if not hand[key] > SSM_FAULT_FACTOR * SSM_WINDOW_ATOL:
+            raise AssertionError(f"planted fault {key} errs by only "
+                                 f"{hand[key]:.3e}: the check cannot see it")
+    stats["f32_handoff"] = hand
+
+    # float32, served: the same requests through ServingSystem, each
+    # replayed at batch 1.
+    system = ServingSystem(p32, cfg32, n_prefill=1, decode_batch=8,
+                           capacity=2048, device=dev)
+    served32 = {r.rid: r.tokens for r in system.serve(
+        [Request(rid, reqs[rid].prompt, reqs[rid].max_new_tokens)
+         for rid in SSM_AGREE_RIDS])}
+    del system
+    f32s = {"requests": len(SSM_AGREE_RIDS), "window_atol": SSM_WINDOW_ATOL,
+            "positions": 0, "per_request": []}
+    for rid in SSM_AGREE_RIDS:
+        prompt, toks = reqs[rid].prompt, served32[rid]
+        if len(toks) != reqs[rid].max_new_tokens:
+            raise AssertionError(f"f32 serve: rid {rid} finished with "
+                                 f"{len(toks)} tokens")
+        rep = replay(p32, cfg32, prompt, toks)
+        ref_w = whole(p32, cfg32, prompt, toks)
+        top2 = rep.topk(2, dim=-1)
+        clear = (top2.values[:, 0] - top2.values[:, 1]) > 2 * SSM_F32_ATOL
+        row = {"rid": rid, "prompt": len(prompt),
+               "max_abs_logit_err": (rep - ref_w).abs().max().item(),
+               "tokens_checked": int(clear.sum()),
+               "tokens_differing": int(
+                   (clear & (tok(toks) != top2.indices[:, 0])).sum())}
+        f32s["per_request"].append(row)
+        f32s["positions"] += len(toks)
+    log(f"ssm-agreement f32 served: {json.dumps(f32s)}")
+    for row in f32s["per_request"]:
+        if not row["max_abs_logit_err"] <= SSM_WINDOW_ATOL:
+            raise AssertionError(f"rid {row['rid']}: f32 Mamba2 decode after "
+                                 f"prefill errs by {row['max_abs_logit_err']:.3e}"
+                                 f" > {SSM_WINDOW_ATOL}")
+        if row["tokens_differing"]:
+            raise AssertionError(f"rid {row['rid']}: {row['tokens_differing']}"
+                                 " served f32 tokens differ from the replay's "
+                                 "argmax at a clear margin")
+    if not sum(r["tokens_checked"] for r in f32s["per_request"]):
+        raise AssertionError("f32 serve: no position had a margin to check "
+                             "tokens at")
+    stats["f32_served"] = f32s
+
+    # bfloat16, replaying the served requests.
+    bf = {"requests": len(SSM_AGREE_RIDS), "ratio": SSM_BF16_RATIO,
+          "positions": 0, "per_request": []}
+    for rid in SSM_AGREE_RIDS:
+        prompt, toks = reqs[rid].prompt, served[rid]
+        rep = replay(params, cfg, prompt, toks)
+        ref16, ref32 = (whole(p, c, prompt, toks)
+                        for p, c in ((params, cfg), (p32, cfg32)))
+        row = {"rid": rid,
+               "decode_vs_prefill": (rep - ref16).abs().max().item(),
+               "decode_vs_f32": (rep - ref32).abs().max().item(),
+               "prefill_vs_f32": (ref16 - ref32).abs().max().item()}
+        bf["per_request"].append(row)
+        bf["positions"] += len(toks)
+        allowed = SSM_BF16_RATIO * row["prefill_vs_f32"]
+        if not row["decode_vs_f32"] <= allowed:
+            raise AssertionError(f"rid {rid}: bf16 Mamba2 decode errs by "
+                                 f"{row['decode_vs_f32']:.4f} against f32, "
+                                 f"more than {SSM_BF16_RATIO} x the bf16 "
+                                 f"prefill's {row['prefill_vs_f32']:.4f}")
+    stats["bf16"] = bf
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
@@ -818,6 +1208,27 @@ def main(argv=None) -> int:
     agree = agreement_phase(torch, cfg, params)
     log(f"agreement: {json.dumps(agree)}")
 
+    # Mamba2-780m, whole: the DeepSeek-R1 weights go first, so the serve's
+    # peak memory is the model's own (the engines of the earlier serves sit
+    # in reference cycles through their instrumented methods).
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    scfg = ssm_config()
+    ti = time.perf_counter()
+    sparams = init_params(scfg, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"init-ssm: {sum(p.numel() for p in sparams.parameters()) / 1e9:.3f} "
+        f"B parameters in {time.perf_counter() - ti:.1f} s")
+    ssm_serve, ssm_counts, _, ssm_tokens = serve_phase(torch, scfg, sparams)
+    log(f"serve-ssm: {json.dumps(ssm_serve)} on {device}")
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    ssd_rows = ssd_scan_phase(torch, flush, scfg.ssm_chunk)
+    del flush
+    ssm_agree = ssm_agreement_phase(torch, scfg, sparams, serve_requests(scfg),
+                                    ssm_tokens)
+    log(f"ssm-agreement: {json.dumps(ssm_agree)}")
+
     main_row = rows[-1]
     dq_row = dq_rows[0]                   # the decode dispatch buffer
     int8_total = {key: sum(r[key] for r in int8_rows)
@@ -861,6 +1272,19 @@ def main(argv=None) -> int:
         "bound_ms": int8_total["bound_ms"],
         "bound_by": "operations" if int8_ops_ms >= int8_bytes_ms else "bytes",
         "library_ms": int8_total["library_ms"],
+    }, {
+        # The longest served prompt (S=1019) at the served widths.
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:74",
+        "launches": ssm_counts["ssd_scan"],
+        "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
+        "ms": ssd_rows[0]["ms"],
+        "plain_ms": ssd_rows[0]["plain_ms"],
+        "bound_ms": ssd_rows[0]["bound_ms"],
+        "bound_by": ssd_rows[0]["bound_by"],
+        "library_ms": None,
     }]
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(device)

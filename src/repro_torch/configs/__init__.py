@@ -1,6 +1,6 @@
 """Architecture configs. Importing this package registers every config
-ported so far (the paper's own DeepSeek-R1; the other families arrive with
-their slices of the port)."""
+ported so far (the paper's own DeepSeek-R1 and Mamba2-780m; the other
+families arrive with their slices of the port)."""
 from repro_torch.configs.base import (  # noqa: F401
     INPUT_SHAPES,
     InputShape,
@@ -12,4 +12,4 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 # Registration side effects.
-from repro_torch.configs import deepseek_r1  # noqa: F401
+from repro_torch.configs import deepseek_r1, mamba2_780m  # noqa: F401

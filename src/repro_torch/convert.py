@@ -54,11 +54,18 @@ def params_from_jax_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         seg_tree = tree["segments"][seg.name]
         for li, blk in enumerate(model.segments[seg.name]):
             what = f"segments.{seg.name}[{li}]"
-            _load_module(blk.attn, seg_tree["attn"], li, what + ".attn")
-            ffn = "moe" if blk.kind == "moe" else "mlp"
-            _load_module(getattr(blk, ffn), seg_tree[ffn], li,
-                         f"{what}.{ffn}")
+            for part in _parts(seg.kind):
+                _load_module(getattr(blk, part), seg_tree[part], li,
+                             f"{what}.{part}")
     return model
+
+
+def _parts(kind: str):
+    """The sub-modules of a layer of segment kind ``kind``, under the JAX
+    tree's keys."""
+    if kind == "mamba_tail":
+        return ("mamba",)
+    return ("attn", "moe" if kind == "moe" else "mlp")
 
 
 def moe_from_jax_numpy(tree: Dict[str, Any], cfg: ModelConfig,
@@ -110,12 +117,11 @@ def param_tree(model: Model) -> Dict[str, Any]:
     segments = {}
     for seg in build_plan(cfg):
         blocks = model.segments[seg.name]
-        ffn = "moe" if seg.kind == "moe" else "mlp"
         segments[seg.name] = {
             part: {name: torch.stack([dict(getattr(b, part).named_parameters(
                 recurse=False))[name].data for b in blocks])
                 for name, _ in getattr(blocks[0], part).named_parameters(
                     recurse=False)}
-            for part in ("attn", ffn)}
+            for part in _parts(seg.kind)}
     tree["segments"] = segments
     return tree

@@ -5,7 +5,10 @@ stream's attention overlaps the other's MoE dispatch/combine. The port keeps
 the JAX package's *structure*: the batch is split along the same axes and
 the microbatch steps run one after the other on the current stream (putting
 them on two CUDA streams is later work). Leaves are split as views, so a
-step that writes its caches in place writes into the full batch.
+step that writes its caches in place writes into the full batch; where
+every microbatch step hands back the very view it was given, the joined
+result is the full leaf itself, not a concatenated copy (a full-width
+Mamba2 state is hundreds of MB).
 """
 from __future__ import annotations
 
@@ -37,13 +40,29 @@ def _split_batch(tree: Any, n: int, i: int) -> Any:
     return tree_map(f, tree)
 
 
+def _cat(*leaves):
+    l0 = leaves[0]
+    if not isinstance(l0, torch.Tensor) or l0.ndim == 0:
+        return l0
+    return torch.cat(leaves, dim=_batch_axis(l0))
+
+
 def _concat_batch(trees):
-    def f(*leaves):
-        l0 = leaves[0]
-        if not isinstance(l0, torch.Tensor) or l0.ndim == 0:
-            return l0
-        return torch.cat(leaves, dim=_batch_axis(l0))
-    return tree_map(f, *trees)
+    return tree_map(_cat, *trees)
+
+
+def _join_batch(full, given, returned):
+    """``returned`` microbatch trees joined along the batch: a leaf that
+    every step returned as the very view of ``full`` it was given (written
+    in place) is ``full``'s leaf; any other is concatenated."""
+    n = len(given)
+
+    def f(leaf, *pairs):
+        if isinstance(leaf, torch.Tensor) and leaf.ndim and all(
+                r is g for g, r in zip(pairs[:n], pairs[n:])):
+            return leaf
+        return _cat(*pairs[n:])
+    return tree_map(f, full, *given, *returned)
 
 
 def microbatched(step_fn: Callable, n_micro: int = 2):
@@ -53,13 +72,14 @@ def microbatched(step_fn: Callable, n_micro: int = 2):
         return step_fn
 
     def wrapped(tokens, caches, *args, **kwargs):
-        outs, new_caches = [], []
+        outs, given, new_caches = [], [], []
         for i in range(n_micro):
             t_i = _split_batch(tokens, n_micro, i)
             c_i = _split_batch(caches, n_micro, i)
             o_i, nc_i = step_fn(t_i, c_i, *args, **kwargs)
             outs.append(o_i)
+            given.append(c_i)
             new_caches.append(nc_i)
-        return _concat_batch(outs), _concat_batch(new_caches)
+        return _concat_batch(outs), _join_batch(caches, given, new_caches)
 
     return wrapped

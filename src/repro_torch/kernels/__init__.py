@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), one per TPU kernel of the
-JAX package that the port has reached so far:
+JAX package:
 
 * ``mla_attention`` -- absorbed-MLA decode attention over the latent cache
   (replaces ``repro/kernels/mla_attention/mla_attention.py``'s Pallas kernel).
@@ -9,6 +9,8 @@ JAX package that the port has reached so far:
   dispatch_quant.py``).
 * ``int8_gemm`` -- int8 x int8 -> int32 GEMM with the per-token x
   per-channel rescale (replaces ``repro/kernels/int8_gemm/int8_gemm.py``).
+* ``ssd_scan`` -- the Mamba2 SSD chunked scan with a ragged last chunk
+  (replaces ``repro/kernels/ssd_scan/ssd_scan.py``).
 
 Each kernel package has ``ref.py`` (the same function in plain PyTorch) and
 ``ops.py`` (the wrapper: the plain version for a CPU tensor, the kernel for

@@ -24,6 +24,7 @@ SOURCES = {
     "mla_decode_attention": "mla_decode_attention.cu",
     "dispatch_quant": "dispatch_quant.cu",
     "int8_gemm": "int8_gemm.cu",
+    "ssd_scan": "ssd_scan.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -3,9 +3,18 @@ from repro_torch.models.model import (  # noqa: F401
     build_plan,
     cache_batch_axes,
     decode_loop,
+    decode_ready_caches,
     decode_step,
     init_params,
     make_caches,
     prefill,
     prefill_continue,
+)
+from repro_torch.models.mamba2 import (  # noqa: F401
+    SSMState,
+    mamba_decode,
+    mamba_prefill,
+    make_ssm_state,
+    ssd_chunked,
+    ssd_reference,
 )

@@ -59,13 +59,16 @@ def dense_init(shape: Sequence[int], dtype: torch.dtype,
 def weight(shape: Sequence[int], dtype: torch.dtype, device: torch.device,
            generator: Optional[torch.Generator], kind: str = "dense",
            scale: Optional[float] = None) -> torch.nn.Parameter:
-    """A frozen parameter: ones for ``kind="ones"`` (norm gains), else
-    :func:`dense_init`. Without a generator it is left uninitialized, for a
-    caller that loads weights into it (``repro_torch.convert``)."""
+    """A frozen parameter: ones for ``kind="ones"`` (norm gains), zeros for
+    ``kind="zeros"`` (biases), else :func:`dense_init`. Without a generator
+    it is left uninitialized, for a caller that loads weights into it
+    (``repro_torch.convert``)."""
     if generator is None:
         t = torch.empty(tuple(shape), dtype=dtype, device=device)
     elif kind == "ones":
         t = torch.ones(tuple(shape), dtype=dtype, device=device)
+    elif kind == "zeros":
+        t = torch.zeros(tuple(shape), dtype=dtype, device=device)
     else:
         t = dense_init(shape, dtype, generator, device, scale)
     return torch.nn.Parameter(t, requires_grad=False)

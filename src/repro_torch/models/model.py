@@ -1,14 +1,17 @@
 """Model assembly for the families ported so far: dense and MoE segments
-with MLA attention (the paper's DeepSeek-R1).
+with MLA attention (the paper's DeepSeek-R1), and the attention-free Mamba2
+SSM.
 
 The model is organized as *segments* of structurally identical layers, as
 in the JAX package: ``moe`` configs run ``[dense x first_k_dense] + [moe x
-(L - k)]``, others ``[dense x L]``. Where JAX stacks a segment's weights on a
-leading layer axis and runs ``lax.scan``, the port keeps one module per
-layer and loops over them in Python. Where JAX ``jit``s a step and donates
+(L - k)]``, ``ssm`` configs ``[mamba x L]``, others ``[dense x L]``. Where
+JAX stacks a segment's weights on a leading layer axis and runs
+``lax.scan``, the port keeps one module per layer and loops over them in
+Python. Where JAX ``jit``s a step and donates
 the cache buffers, the port runs eagerly and writes caches in place: a
-decode or continuation step mutates the latent tensors of the caches it is
-given and returns a new dict that holds those same tensors.
+decode or continuation step mutates the latent (or SSM state) tensors of
+the caches it is given and returns a new dict that holds those same
+tensors.
 
 Entry points: ``prefill`` (full sequence + cache materialization),
 ``decode_step`` (one token), ``decode_loop`` (N greedy steps with per-slot
@@ -16,8 +19,9 @@ done/capacity masks) and ``prefill_continue`` (teacher-forced continuation
 against an existing cache). MoE execution is pluggable via ``moe_fn``; the
 default is the single-device capacity implementation.
 
-Caches keep the JAX layout: per segment ``{"mla": (L,B,S,kvr+rope),
-"length": int32 tensor}``.
+Caches keep the JAX layout: per MLA segment ``{"mla": (L,B,S,kvr+rope),
+"length": int32 tensor}``, per Mamba segment ``SSMState(h (L,B,H,P,N) f32,
+conv (L,B,K-1,C), length)``.
 """
 from __future__ import annotations
 
@@ -30,9 +34,11 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import rms_norm, swiglu, weight
+from repro_torch.models.mamba2 import SSMState
 
 MoeFn = Callable[[nn.Module, torch.Tensor, ModelConfig],
                  Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -46,16 +52,17 @@ MoeFn = Callable[[nn.Module, torch.Tensor, ModelConfig],
 @dataclasses.dataclass(frozen=True)
 class Segment:
     name: str
-    kind: str        # dense | moe
+    kind: str        # dense | moe | mamba_tail
     n_layers: int
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_ssm or cfg.is_hybrid:
+    if cfg.is_hybrid:
         raise NotImplementedError(
-            f"{cfg.name}: Mamba2/Zamba2 models arrive with the SSM slice of "
-            "the port (with the ssd_scan kernel)")
-    if cfg.attention_kind != "mla":
+            f"{cfg.name}: Zamba2-style hybrids (the shared attention block, "
+            "SSM state with batch on axis 2) arrive with the Zamba2 slice of "
+            "the port, after GQA attention")
+    if not cfg.is_ssm and cfg.attention_kind != "mla":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.attention_kind} attention arrives with the "
             "GQA-attention and dense-architecture slice of the port")
@@ -67,6 +74,8 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 def build_plan(cfg: ModelConfig) -> List[Segment]:
     _check_supported(cfg)
+    if cfg.is_ssm:
+        return [Segment("mamba", "mamba_tail", cfg.num_layers)]
     if cfg.is_moe:
         plan = []
         if cfg.first_k_dense:
@@ -100,13 +109,17 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """One transformer layer: MLA attention, then the MLP or the MoE."""
+    """One layer: a Mamba2 block for ``mamba_tail`` segments, else MLA
+    attention, then the MLP or the MoE."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device: torch.device,
                  dtype: torch.dtype,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.kind = kind
+        if kind == "mamba_tail":
+            self.mamba = mamba_mod.Mamba(cfg, device, dtype, generator)
+            return
         self.attn = mla_mod.init_mla_params(cfg, device, dtype, generator)
         if kind == "moe":
             self.moe = moe_mod.init_moe_params(cfg, device, dtype, generator)
@@ -202,18 +215,27 @@ def _ffn(blk: Block, h, cfg, moe_fn: MoeFn):
 def make_caches(cfg: ModelConfig, batch: int, capacity: int,
                 dtype: torch.dtype = torch.bfloat16,
                 device: DeviceLike = None) -> Dict[str, Any]:
+    """Zero caches. An SSM state ignores ``capacity`` and ``dtype``: its
+    ``h`` is float32 and its conv window bfloat16, as in the JAX package."""
     dev = resolve_device(device)
-    return {seg.name: {
-        "mla": mla_mod.make_mla_cache(cfg, seg.n_layers, batch, capacity,
-                                      dtype, dev),
-        "length": torch.zeros((), dtype=torch.int32, device=dev)}
-        for seg in build_plan(cfg)}
+    caches: Dict[str, Any] = {}
+    for seg in build_plan(cfg):
+        if seg.kind == "mamba_tail":
+            caches[seg.name] = mamba_mod.make_ssm_state(cfg, seg.n_layers,
+                                                        batch, dev)
+        else:
+            caches[seg.name] = {
+                "mla": mla_mod.make_mla_cache(cfg, seg.n_layers, batch,
+                                              capacity, dtype, dev),
+                "length": torch.zeros((), dtype=torch.int32, device=dev)}
+    return caches
 
 
 def cache_batch_axes(cfg: ModelConfig) -> Dict[str, Any]:
     """Batch-axis index of every cache leaf, in the make_caches structure
     (None = unbatched bookkeeping leaf, e.g. the length)."""
-    return {seg.name: {"mla": 1, "length": None} for seg in build_plan(cfg)}
+    return {seg.name: SSMState(1, 1, None) if seg.kind == "mamba_tail"
+            else {"mla": 1, "length": None} for seg in build_plan(cfg)}
 
 
 def _with_lengths(cfg: ModelConfig, caches: Dict[str, Any],
@@ -222,13 +244,42 @@ def _with_lengths(cfg: ModelConfig, caches: Dict[str, Any],
     (decode carries per-slot (B,) lengths)."""
     out = dict(caches)
     for seg in build_plan(cfg):
-        out[seg.name] = {**out[seg.name], "length": length}
+        c = out[seg.name]
+        out[seg.name] = (SSMState(c.h, c.conv, length)
+                         if seg.kind == "mamba_tail"
+                         else {**c, "length": length})
     return out
 
 
-def _cache_capacity(cfg: ModelConfig, caches: Dict[str, Any]) -> int:
-    """Token capacity of the tightest sequence buffer."""
-    return min(caches[seg.name]["mla"].shape[2] for seg in build_plan(cfg))
+def _cache_capacity(cfg: ModelConfig, caches: Dict[str, Any]
+                    ) -> Optional[int]:
+    """Token capacity of the tightest sequence buffer (None when nothing
+    bounds decode length: a pure SSM)."""
+    caps = [caches[seg.name]["mla"].shape[2] for seg in build_plan(cfg)
+            if seg.kind != "mamba_tail"]
+    return min(caps) if caps else None
+
+
+def _conv_step_dtype(cfg: ModelConfig, conv: torch.Tensor) -> torch.dtype:
+    """The dtype a decode step leaves the conv window in: the promotion of
+    the window's and the model's (float32 in a float32 model, after a
+    prefill that stored it as bfloat16)."""
+    return torch.promote_types(conv.dtype, _dtype(cfg))
+
+
+def decode_ready_caches(cfg: ModelConfig, caches: Dict[str, Any]
+                        ) -> Dict[str, Any]:
+    """Caches in the dtypes a decode step produces, so that steps can write
+    into them in place from the first one (the counterpart of the JAX
+    package's ``decode_ready_caches``; the upcast is exact). Only the SSM
+    conv window changes."""
+    out = dict(caches)
+    for seg in build_plan(cfg):
+        c = out[seg.name]
+        if seg.kind == "mamba_tail":
+            out[seg.name] = SSMState(
+                c.h, c.conv.to(_conv_step_dtype(cfg, c.conv)), c.length)
+    return out
 
 
 def _as_len(value, device: torch.device) -> torch.Tensor:
@@ -244,14 +295,19 @@ def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
                 caches: Dict[str, Any], cache_len,
                 moe_fn: Optional[MoeFn] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """tokens: (B, 1) int. Writes each layer's new latent entry into
-    ``caches`` in place at ``cache_len`` (scalar or (B,)) and returns
-    (logits (B, V), caches with ``length = cache_len + 1``)."""
+    """tokens: (B, 1) int. Writes each layer's new latent entry (at
+    ``cache_len``, scalar or (B,)) or new SSM state into ``caches`` in place
+    and returns (logits (B, V), caches with ``length = cache_len + 1``)."""
     moe_fn = moe_fn or moe_mod.moe_capacity
     x = params.embed[tokens].to(_dtype(cfg))                    # (B,1,D)
     cache_len = _as_len(cache_len, x.device)
     new_caches: Dict[str, Any] = {}
     for seg in build_plan(cfg):
+        if seg.kind == "mamba_tail":
+            x, new_caches[seg.name] = _mamba_decode_segment(
+                params.segments[seg.name], x, caches[seg.name], cache_len,
+                cfg)
+            continue
         mla_cache = caches[seg.name]["mla"]
         for li, blk in enumerate(params.segments[seg.name]):
             hin = rms_norm(x, blk.attn.ln, cfg.norm_eps)
@@ -263,28 +319,71 @@ def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, new_caches
 
 
+def _mamba_decode_segment(blocks, x: torch.Tensor, state: SSMState,
+                          cache_len: torch.Tensor, cfg: ModelConfig
+                          ) -> Tuple[torch.Tensor, SSMState]:
+    """One token through every Mamba layer of a segment, each layer's new
+    ``h`` and conv window written into ``state``'s tensors in place. A conv
+    window still in prefill's bfloat16 while the step computes in float32
+    is upcast once (exactly) into a new tensor, and the step writes there:
+    the tensors it writes always have the dtype the step produces, so an
+    in-place write never rounds (a decode engine's caches are already
+    :func:`decode_ready_caches`)."""
+    h, conv = state.h, state.conv
+    step_dtype = _conv_step_dtype(cfg, conv)
+    if conv.dtype != step_dtype:
+        conv = conv.to(step_dtype)
+    for li, blk in enumerate(blocks):
+        hin = rms_norm(x, blk.mamba.ln, cfg.norm_eps)
+        out, h[li], conv[li] = mamba_mod.mamba_decode(blk.mamba, hin, h[li],
+                                                      conv[li], cfg)
+        x = x + out
+    return x, SSMState(h, conv, cache_len + 1)
+
+
 # ---------------------------------------------------------------------------
 # Multi-step greedy decode (the serving fast path)
 # ---------------------------------------------------------------------------
 
 
-def _rows_at(cfg: ModelConfig, caches, cache_len: torch.Tensor):
-    """Each slot's latent rows at its write position (clamped into the
-    buffer), for restoring frozen slots after a step."""
+def _save_frozen(cfg: ModelConfig, caches, cache_len: torch.Tensor,
+                 frozen: Optional[List[int]]):
+    """What a step may overwrite in a slot that must stay frozen. MLA: every
+    slot's latent row at its write position (clamped into the buffer),
+    chosen on the device. Mamba: the whole state of the slots ``frozen``
+    (host indices), and only theirs: at full width a Mamba state is
+    hundreds of MB."""
     saved = {}
     for seg in build_plan(cfg):
-        t = caches[seg.name]["mla"]
-        idx = cache_len.clamp(max=t.shape[2] - 1).long()
-        rows = torch.arange(t.shape[1], device=t.device)
-        saved[seg.name] = (rows, idx, t[:, rows, idx].clone())
+        c = caches[seg.name]
+        if seg.kind == "mamba_tail":
+            if frozen:
+                idx = torch.tensor(frozen, device=c.h.device)
+                saved[seg.name] = (idx, c.h[:, idx], c.conv[:, idx])
+        else:
+            t = c["mla"]
+            idx = cache_len.clamp(max=t.shape[2] - 1).long()
+            rows = torch.arange(t.shape[1], device=t.device)
+            saved[seg.name] = (rows, idx, t[:, rows, idx].clone())
     return saved
 
 
-def _restore_frozen(cfg: ModelConfig, caches, saved, live: torch.Tensor):
+def _restore_frozen(cfg: ModelConfig, caches, saved,
+                    live: torch.Tensor) -> None:
     for seg in build_plan(cfg):
-        t = caches[seg.name]["mla"]
-        rows, idx, old = saved[seg.name]
-        t[:, rows, idx] = torch.where(live[None, :, None], t[:, rows, idx], old)
+        if seg.name not in saved:
+            continue
+        c = caches[seg.name]
+        if seg.kind == "mamba_tail":
+            idx, h_old, conv_old = saved[seg.name]
+            c.h[:, idx] = h_old
+            # exact: a step may have upcast the window from bf16 to f32
+            c.conv[:, idx] = conv_old.to(c.conv.dtype)
+        else:
+            t = c["mla"]
+            rows, idx, old = saved[seg.name]
+            t[:, rows, idx] = torch.where(live[None, :, None],
+                                          t[:, rows, idx], old)
 
 
 def decode_loop(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
@@ -301,7 +400,11 @@ def decode_loop(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     frozen: their token, cache content and ``cache_len`` hold bit-exactly
     while live slots advance, so the result is token-identical to
     ``n_steps`` sequential :func:`decode_step` calls. (The step writes every
-    slot's entry in place; a frozen slot's overwritten row is restored.)
+    slot in place; what it overwrote in a frozen slot is restored. Slot i
+    is live at step j iff ``j < min(steps_left[i], capacity - cache_len[i])``.
+    An SSM step overwrites a slot's whole state, so for a Mamba segment one
+    host read before the loop names each step's frozen slots and only
+    those are copied; an MLA row is selected on the device.)
 
     tokens: (B,) int32; cache_len: (B,) int32 (scalars are broadcast);
     steps_left: (B,) tokens each slot still wants (default ``n_steps``).
@@ -331,17 +434,21 @@ def decode_loop(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
 
     cap = _cache_capacity(cfg, caches)
     caches = _with_lengths(cfg, caches, cache_len)
+    n_live = steps_left if cap is None else torch.minimum(
+        steps_left, (cap - cache_len).clamp(min=0))
+    n_live_host = n_live.tolist() if cfg.is_ssm else None
     tok = tokens.to(torch.int32)
     emitted, lives = [], []
-    for _ in range(n_steps):
-        live = (steps_left > 0) & (cache_len < cap)
-        saved = _rows_at(cfg, caches, cache_len)
+    for j in range(n_steps):
+        live = n_live > j
+        frozen = None if n_live_host is None else [
+            i for i, n in enumerate(n_live_host) if n <= j]
+        saved = _save_frozen(cfg, caches, cache_len, frozen)
         logits, caches = step_fn(tok[:, None], caches, cache_len)
         _restore_frozen(cfg, caches, saved, live)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         tok = torch.where(live, nxt, tok)
         cache_len = cache_len + live.to(torch.int32)
-        steps_left = steps_left - live.to(torch.int32)
         caches = _with_lengths(cfg, caches, cache_len)
         emitted.append(nxt)
         lives.append(live)
@@ -370,7 +477,11 @@ def prefill_continue(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     ``offset .. offset+S-1`` against caches whose first ``offset`` positions
     are valid, writing their entries in place. ``offset`` may be per-request
     (B,). With ``offset=0`` on a fresh cache this is a bounded-shape prefill
-    chunk. Returns (logits (B, S, V), caches)."""
+    chunk. Returns (logits (B, S, V), caches). MLA archs only: SSM state is
+    not token-addressable."""
+    if cfg.is_ssm:
+        raise NotImplementedError(
+            "prefill_continue requires a causal-attention or MLA arch")
     moe_fn = moe_fn or moe_mod.moe_capacity
     x = params.embed[tokens].to(_dtype(cfg))
     s = x.shape[1]
@@ -396,21 +507,33 @@ def prefill(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             capacity: int, moe_fn: Optional[MoeFn] = None,
             cache_dtype: torch.dtype = torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Run the prompt; return (logits (B,S,V), caches padded to capacity)."""
+    """Run the prompt; return (logits (B,S,V), caches padded to capacity).
+    A Mamba segment's state holds the final ``h`` and the conv window
+    rounded to bfloat16, as the JAX package stores it."""
     moe_fn = moe_fn or moe_mod.moe_capacity
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
-    if s > capacity:
+    caches = make_caches(cfg, b, capacity, cache_dtype, x.device)
+    cap = _cache_capacity(cfg, caches)
+    if cap is not None and s > cap:
         raise ValueError(f"prompt of {s} tokens exceeds the cache capacity "
                          f"{capacity}")
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
-    caches = make_caches(cfg, b, capacity, cache_dtype, x.device)
     for seg in build_plan(cfg):
+        length = torch.tensor(s, dtype=torch.int32, device=x.device)
+        if seg.kind == "mamba_tail":
+            st = caches[seg.name]
+            for li, blk in enumerate(params.segments[seg.name]):
+                hin = rms_norm(x, blk.mamba.ln, cfg.norm_eps)
+                out, st.h[li], st.conv[li] = mamba_mod.mamba_prefill(
+                    blk.mamba, hin, cfg)
+                x = x + out
+            caches[seg.name] = SSMState(st.h, st.conv, length)
+            continue
         buf = caches[seg.name]["mla"]
         for li, blk in enumerate(params.segments[seg.name]):
             x, latent = _attn_block_prefill(blk.attn, x, cfg, positions)
             buf[li, :, :s] = latent.to(cache_dtype)
             x = _ffn(blk, x, cfg, moe_fn)
-        caches[seg.name]["length"] = torch.tensor(s, dtype=torch.int32,
-                                                  device=x.device)
+        caches[seg.name]["length"] = length
     return unembed(params, cfg, x), caches

@@ -1,9 +1,11 @@
 """Structure-aware batch-axis ops over model cache trees.
 
 Caches built by ``models.model.make_caches`` hold per segment an MLA latent
-buffer (L, B, S, W) and a ``length`` leaf; these helpers slice/insert
-per-request rows for continuous batching and migration, and serialize
-per-token blocks for KV handoff. Inserts write into the destination tensors
+buffer (L, B, S, W) and a ``length`` leaf, or an ``SSMState`` (h, conv,
+length); these helpers slice/insert per-request rows for continuous
+batching and migration, and serialize per-token blocks of the MLA buffers
+for KV handoff (SSM state is not sliceable by token, as in the JAX
+package). Inserts write into the destination tensors
 in place (the JAX package returns new buffers); slices return copies, so a
 later in-place decode step never changes a slice already taken.
 """
@@ -58,9 +60,11 @@ def _seq_start(start: int, length: int, cap: int) -> int:
 
 def seq_slice(cfg: ModelConfig, caches, start: int, length: int):
     """``length`` tokens of sequence state from offset ``start`` (a view of
-    each segment's MLA buffer) -- the payload unit of chunked handoff."""
+    each MLA segment's buffer) -- the payload unit of chunked handoff."""
     out = {}
     for seg in build_plan(cfg):
+        if seg.kind == "mamba_tail":
+            continue
         buf = caches[seg.name]["mla"]
         out[seg.name] = buf.narrow(
             2, _seq_start(start, length, buf.shape[2]), length)

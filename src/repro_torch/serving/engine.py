@@ -202,9 +202,11 @@ class DecodeEngine:
         self.decode_chunk = max(1, int(decode_chunk))
         self.cache_len = torch.zeros((max_batch,), dtype=torch.int32,
                                      device=self.device)
+        # In the dtypes decode produces (the SSM conv window of an f32 model
+        # turns f32), so every step writes the slots in place.
         self.caches = model_mod._with_lengths(
-            cfg, model_mod.make_caches(cfg, max_batch, capacity,
-                                       torch.float32, self.device),
+            cfg, model_mod.decode_ready_caches(cfg, model_mod.make_caches(
+                cfg, max_batch, capacity, torch.float32, self.device)),
             self.cache_len)
         self.cur_tok = torch.zeros((max_batch,), dtype=torch.int32,
                                    device=self.device)

@@ -26,8 +26,11 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return {k: tree_map(fn, tree[k], *[r[k] for r in rest])
                 for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, x, *[r[i] for r in rest])
-                          for i, x in enumerate(tree))
+        items = [tree_map(fn, x, *[r[i] for r in rest])
+                 for i, x in enumerate(tree)]
+        # A NamedTuple (e.g. the SSM state) takes its fields positionally.
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
     return fn(tree, *rest)
 
 

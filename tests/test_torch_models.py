@@ -342,9 +342,13 @@ def test_other_families_name_their_slice(r1):
     _, tcfg, _, _ = r1
     with pytest.raises(NotImplementedError, match="GQA"):
         t_model.build_plan(dataclasses.replace(tcfg, attention_kind="causal"))
-    with pytest.raises(NotImplementedError, match="SSM"):
+    with pytest.raises(NotImplementedError, match="Zamba2"):
         t_model.build_plan(dataclasses.replace(tcfg, ssm_state=16,
-                                               num_heads=0))
+                                               attn_every=2))
+    # Pure SSM configs are ported: one Mamba segment.
+    plan = t_model.build_plan(dataclasses.replace(tcfg, ssm_state=16,
+                                                  num_heads=0))
+    assert [(s.name, s.kind) for s in plan] == [("mamba", "mamba_tail")]
     with pytest.raises(NotImplementedError, match="frontend"):
         t_model.build_plan(dataclasses.replace(tcfg,
                                                frontend="vision_patches"))
