@@ -10,7 +10,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 2. build: every CUDA kernel of the port (MLA decode attention, dispatch
    quantize, INT8 GEMM, SSD scan), compiled from
    ``src/repro_torch/kernels/csrc`` into ``build/kernels/`` (one ``nvcc``
-   per source, all at once).
+   per source, all at once), with what ``ptxas`` reports for each kernel
+   function (registers, spills).
 3. serve: DeepSeek-R1 at full width cut to 4 layers (3 dense + 1 MoE with
    all 256 experts), bf16 random weights from a seed, through
    ``ServingSystem.serve``: 8 requests with prompt lengths drawn uniformly
@@ -57,7 +58,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    TTFT/TPOT p50, decode step p50, decode tokens/s and peak memory.
 10. ssd_scan: ``ssd_scan`` against its plain PyTorch version at the served
    widths (B=1, H=48, P=64, N=128, Q=128) at S=1019 (ragged) and S=448
-   (whole chunks), each timed beside the plain version and the bound; then,
+   (whole chunks), each timed beside the plain version and the bound (the
+   operations at a third of the TF32 rate, as the kernel runs them in
+   3xTF32, with the FP32 reading beside it), and the same call replayed
+   from a CUDA graph (the device's time without the wrapper's host time)
+   and each stage kernel's device time (``torch.profiler``); at S=1019
+   each of the kernel's four stages, from the wrapper's scratch, against
+   its plain stage; the tensor-core instructions of each kernel function
+   in the built library's SASS (``cuobjdump -sass``); then,
    untimed, B=2, S < Q, S=1, and P and N that are not multiples of the
    kernel's tiles; and one small case against the token recurrence
    ``ssd_reference``.
@@ -86,6 +94,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -201,6 +210,7 @@ SSM_FAULT_FACTOR = 10.0
 SSM_BF16_RATIO = 2.0
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12      # H100 SXM data sheet, FP32 outside tensor cores
+TF32_FLOP_PER_S = 495e12     # H100 SXM data sheet, dense TF32 tensor cores
 INT8_OP_PER_S = 1979e12      # H100 SXM data sheet, dense int8 tensor cores
 
 
@@ -856,20 +866,135 @@ def agreement_phase(torch, cfg, params, dev="cuda"):
 
 
 def ssd_bound(b, s, h, p, n, q):
-    """Least time (ms) for the SSD scan on these shapes, and what bounds it:
-    x, dt, a_log, B and C read once and y and the final state written once
-    over the HBM rate, against the FP32 operations the function needs over
-    the FP32 rate. Per chunk of L rows: C.B^T (2L^2 N) once, since every
-    head shares B and C; per head W.x, C.h and the state update
-    (2L(LP + 2NP)). The ragged last chunk counts at its own L."""
+    """Least time (ms) for the SSD scan on these shapes, what bounds it, and
+    the same count read at the FP32 rate: x, dt, a_log, B and C read once
+    and y and the final state written once over the HBM rate, against the
+    products the function needs. It is causal (y_t reads rows s <= t), so
+    per chunk of L rows: C.B^T on and below the diagonal, L(L+1)N, once,
+    since every head shares B and C; per head W.x over the same triangle,
+    L(L+1)P, the chunk's own state, 2LNP, and C.h, 2LNP, for every chunk
+    but the first, whose entering state is zero. The ragged last chunk
+    counts at its own L. The state pass's 2PN operations a chunk and head
+    (under 0.5 % of the products) are left out, so the bound stays a lower
+    one. The kernel takes every product on the tensor cores in 3xTF32,
+    three TF32 passes, so the operations count at a third of the TF32 rate;
+    the FP32 reading (the bound of a kernel without tensor cores) stays
+    beside it."""
     nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
                   + b * h * p * n)
-    full, tail = divmod(s, q)
-    flops = sum(cnt * b * 2 * rows * (rows * n + h * (rows * p + 2 * n * p))
-                for cnt, rows in ((full, q), (1 if tail else 0, tail)))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    lens = [min(q, s - c0) for c0 in range(0, s, q)]
+    flops = b * sum(rows * (rows + 1) * (n + h * p) + 2 * h * rows * n * p
+                    * (2 if c else 1) for c, rows in enumerate(lens))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * max(t_bytes, flops / FP32_FLOP_PER_S))
+
+
+def ssd_stage_rows(torch, ops, args, q):
+    """Each stage of the kernel, read from the wrapper's own scratch after
+    its launch (``ssd_scan_stages``), against the plain stage on the same
+    inputs (``ssd_stages``) within SSD_TOL, so that a fault names its stage.
+    C.B^T is compared on and below the diagonal, all the kernel writes."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_stages
+
+    got = ops.ssd_scan_stages(*args, chunk=q)
+    torch.cuda.synchronize()
+    want = ssd_stages(*args, q)
+    rows = []
+    for stage, keys in zip(ops.STAGES, (("cb",), ("cum", "chunk_states"),
+                                        ("states_in", "h_final"), ("y",))):
+        row = {"stage": stage}
+        for key in keys:
+            g, w = got[key], want[key]
+            if key == "cb":
+                keep = torch.ones(w.shape[-2:], dtype=torch.bool,
+                                  device=w.device).tril()
+                g, w = g[..., keep], w[..., keep]
+            err = (g - w).abs().max().item()
+            if not (torch.isfinite(g).all() and torch.allclose(
+                    g, w, rtol=SSD_TOL,
+                    atol=SSD_ATOL_REL * w.abs().max().item())):
+                raise AssertionError(f"ssd_scan stage {stage} disagrees with "
+                                     f"its plain stage on {key}: max |err| "
+                                     f"{err:.3e}")
+            row[key] = {"max_abs_err": err, "max_abs": w.abs().max().item()}
+        rows.append(row)
+    return rows
+
+
+SSD_KERNELS = ("cb_kernel", "states_kernel", "pass_kernel", "output_kernel")
+
+
+def graph_of(torch, fn):
+    """``fn`` captured in a CUDA graph (after one run on a side stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def ssd_stage_ms(torch, fn, flush, reps=10) -> dict:
+    """Mean device time (ms) of each SSD stage kernel over ``reps`` calls of
+    ``fn``, each after an L2 flush, from ``torch.profiler``'s CUDA events;
+    empty if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for event in prof.key_averages():
+        name = next((k for k in SSD_KERNELS if k + "(" in event.key), None)
+        if name is not None:
+            total = getattr(event, "device_time_total", None)
+            if total is None:
+                total = event.cuda_time_total
+            out[name] = total / event.count / 1e3
+    return out
+
+
+def entry_name(mangled: str) -> str:
+    """The unqualified name in an Itanium-mangled function name
+    (``_ZN12_GLOBAL__N_19cb_kernelE...`` -> ``cb_kernel``)."""
+    i, parts = 2 + mangled[2:3].count("N"), []
+    while mangled.startswith("_Z") and i < len(mangled) \
+            and mangled[i].isdigit():
+        j = i
+        while j < len(mangled) and mangled[j].isdigit():
+            j += 1
+        k = int(mangled[i:j])
+        parts.append(mangled[j:j + k])
+        i = j + k
+    return parts[-1] if parts else mangled
+
+
+def tensor_core_ops(lib_path) -> dict:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``) in each kernel function
+    of a built library's SASS, by ``cuobjdump -sass``."""
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = entry_name(m.group(1))
+            counts[func] = {}
+        elif func is not None:
+            for op in re.findall(r"\b(H(?:G)?MMA\.[0-9A-Z.]+)", line):
+                counts[func][op] = counts[func].get(op, 0) + 1
+    return counts
 
 
 def ssd_inputs(torch, gen, b, s, h, p, n):
@@ -887,8 +1012,9 @@ def ssd_inputs(torch, gen, b, s, h, p, n):
 def ssd_scan_phase(torch, flush, q):
     """``ssd_scan`` against its plain PyTorch version (y and the final
     state within SSD_TOL) at SSD_CASES, the timed ones with median
-    CUDA-event times of kernel and plain version beside the bound; then one
-    small case against the token recurrence ``ssd_reference``."""
+    CUDA-event times of kernel and plain version beside the bound, the
+    first one also stage by stage (``ssd_stage_rows``); then one small case
+    against the token recurrence ``ssd_reference``."""
     from repro_torch.kernels.ssd_scan import ops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
     from repro_torch.models.mamba2 import ssd_reference
@@ -924,13 +1050,30 @@ def ssd_scan_phase(torch, flush, q):
                             ("plain_vs_f64", ssd_chunked)):
                 row[key] = ((fn(*args, chunk=q)[0].double() - y64).abs()
                             .max().item() / scale)
-            row["ms"] = timed_ms(torch, lambda: ops.ssd_scan(*args, chunk=q),
-                                 30, flush)
+            def scan():
+                return ops.ssd_scan(*args, chunk=q)
+
+            row["ms"] = timed_ms(torch, scan, 30, flush)
+            row["graph_ms"] = timed_ms(torch, graph_of(torch, scan).replay,
+                                       30, flush)
+            row["stage_ms"] = ssd_stage_ms(torch, scan, flush)
             row["plain_ms"] = timed_ms(torch, lambda: ssd_chunked(
                 *args, chunk=q), 10, flush)
-        row["bound_ms"], row["bound_by"] = ssd_bound(b, s, h, p, n, q)
+        row["bound_ms"], row["bound_by"], row["bound_fp32_ms"] = ssd_bound(
+            b, s, h, p, n, q)
         log("ssd_scan:", json.dumps(row))
         rows.append(row)
+        if len(rows) == 1:                # the served S = 1019, stage by stage
+            for stage in ssd_stage_rows(torch, ops, args, q):
+                log("ssd_scan-stage:", json.dumps({"case": name, **stage}))
+    from repro_torch.kernels import build
+
+    sass = tensor_core_ops(build.library_path("ssd_scan"))
+    log("ssd_scan-sass:", json.dumps(sass))
+    for name in ("cb_kernel", "states_kernel", "output_kernel"):
+        if not sass.get(name):
+            raise AssertionError(f"no tensor-core instruction in {name}: "
+                                 f"{sass}")
     b, s, h, p, n = SSD_ORACLE_CASE
     row = {"case": "vs ssd_reference", "B": b, "S": s, "H": h, "P": p,
            "N": n, "Q": q, **check(
@@ -1176,9 +1319,13 @@ def main(argv=None) -> int:
     build_logs = build.build_all(ptxas_verbose=True)
     log(f"build: {time.perf_counter() - tb:.1f} s for {sorted(build.SOURCES)}")
     for name, text in build_logs.items():
+        func = None
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build[{name}]: {line.strip()}")
+            m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
+            if m:
+                func = entry_name(m.group(1))
+            elif "registers" in line or "spill" in line:
+                log(f"build[{name}:{func}]: {line.strip()}")
 
     from repro_torch.models import init_params
     cfg = serve_config()
@@ -1223,7 +1370,9 @@ def main(argv=None) -> int:
     ssm_serve, ssm_counts, _, ssm_tokens = serve_phase(torch, scfg, sparams)
     log(f"serve-ssm: {json.dumps(ssm_serve)} on {device}")
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    ts = time.perf_counter()
     ssd_rows = ssd_scan_phase(torch, flush, scfg.ssm_chunk)
+    log(f"ssd_scan: phase {time.perf_counter() - ts:.1f} s")
     del flush
     ssm_agree = ssm_agreement_phase(torch, scfg, sparams, serve_requests(scfg),
                                     ssm_tokens)
@@ -1284,6 +1433,7 @@ def main(argv=None) -> int:
         "plain_ms": ssd_rows[0]["plain_ms"],
         "bound_ms": ssd_rows[0]["bound_ms"],
         "bound_by": ssd_rows[0]["bound_by"],
+        "bound_fp32_ms": ssd_rows[0]["bound_fp32_ms"],
         "library_ms": None,
     }]
     log(f"total: {time.perf_counter() - t0:.1f} s")

@@ -1,13 +1,15 @@
 """Wrapper of the Mamba2 SSD chunked-scan kernel (``csrc/ssd_scan.cu``).
 
 A CPU tensor goes to the plain version (``ref.py``). A CUDA tensor launches
-the hand-written kernel on PyTorch's current stream or raises: there is no
-fallback. ``LAUNCHES`` counts kernel launches.
+the hand-written kernel's four stages on PyTorch's current stream or raises:
+there is no fallback. ``LAUNCHES`` counts calls that launched the scan.
+The stages' scratch is allocated here (:func:`scratch_shapes`); the kernel
+allocates nothing.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -17,19 +19,34 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 #: kernel launches made by :func:`ssd_scan` in this process
 LAUNCHES = 0
 
-MAX_CHUNK = 128               # must match kQ in the source
-SMEM_LIMIT = 232_448          # dynamic shared memory one block may use
+#: the kernel's stages, one launch each, in order
+STAGES = ("chunk_cb", "chunk_states", "state_passing", "chunk_output")
+
+
+def scratch_shapes(b: int, s: int, h: int, p: int, n: int, chunk: int
+                   ) -> Dict[str, Tuple[int, ...]]:
+    """Shapes of the scratch the stages pass on, for x (b, s, h, p), B and
+    C (b, s, n) in chunks of ``q = min(chunk, s)`` rows: cum (b, nc, h, q),
+    C.B^T (b, nc, q, q) and the chunk states (b, nc, h, p, n), as the
+    matching plain stages of ``ref.py`` return them."""
+    q = max(1, min(chunk, s))
+    nc = -(-s // q)
+    return {"cum": (b, nc, h, q), "cb": (b, nc, q, q),
+            "states": (b, nc, h, p, n)}
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("ssd_scan")
     if not getattr(lib, "_argtypes_set", False):
-        fn = lib.ssd_scan_f32
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ints = [ctypes.c_int] * 6
+        lib.ssd_scan_f32.argtypes = [ctypes.c_void_p] * 10 + ints + [
             ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int]
-        lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+        lib.ssd_scan_f32.restype = ctypes.c_int
+        lib.ssd_scan_stage.argtypes = [ctypes.c_int] + [
+            ctypes.c_void_p] * 10 + ints + [ctypes.c_void_p]
+        lib.ssd_scan_stage.restype = ctypes.c_int
+        lib.ssd_scan_max_chunk.argtypes = []
+        lib.ssd_scan_max_chunk.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
 
@@ -60,6 +77,34 @@ def _check(x, dt, a_log, bmat, cmat, chunk) -> None:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
 
 
+def _buffers(x, bmat, chunk):
+    """(y, h_final, scratch by name, launch arguments after the input
+    pointers) for a CUDA launch; scratch None for an empty input."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    dev = x.device
+    if 0 in (b, s, h, p, n):          # y and the state are then all 0
+        return (torch.zeros((b, s, h, p), dtype=torch.float32, device=dev),
+                torch.zeros((b, h, p, n), dtype=torch.float32, device=dev),
+                None, None)
+    max_chunk = _lib().ssd_scan_max_chunk()
+    if chunk > max_chunk:
+        raise ValueError(f"the kernel holds at most {max_chunk} rows of a "
+                         f"chunk, got chunk={chunk}")
+    y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
+    h_final = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    shapes = scratch_shapes(b, s, h, p, n, chunk)
+    scratch = {name: torch.empty(shape, dtype=torch.float32, device=dev)
+               for name, shape in shapes.items()}
+    ptrs = [y.data_ptr(), h_final.data_ptr(), scratch["cum"].data_ptr(),
+            scratch["cb"].data_ptr(), scratch["states"].data_ptr()]
+    return y, h_final, scratch, ptrs + [b, s, h, p, n, chunk]
+
+
+def _inputs(x, dt, a_log, bmat, cmat):
+    return [t.data_ptr() for t in (x, dt, a_log, bmat, cmat)]
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              bmat: torch.Tensor, cmat: torch.Tensor, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -74,27 +119,53 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         return ssd_chunked(x, dt, a_log, bmat, cmat, chunk)
     if dev.type != "cuda":
         raise ValueError(f"ssd_scan runs on cpu or cuda, not {dev}")
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"the kernel holds at most {MAX_CHUNK} rows of a "
-                         f"chunk, got chunk={chunk}")
-    b, s, h, p = x.shape
-    n = bmat.shape[-1]
-    y = torch.empty((b, s, h, p), dtype=torch.float32, device=dev)
-    h_final = torch.zeros((b, h, p, n), dtype=torch.float32, device=dev)
-    if b == 0 or s == 0 or h == 0 or p == 0:
+    y, h_final, scratch, args = _buffers(x, bmat, chunk)
+    if scratch is None:
         return y, h_final
-    lib = _lib()
-    if n < 1 or lib.ssd_scan_smem_bytes(n) > SMEM_LIMIT:
-        raise ValueError(f"the kernel keeps a chunk of B and C in shared "
-                         f"memory: N={n} needs more than a block may use")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ssd_scan_f32(
-            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), bmat.data_ptr(),
-            cmat.data_ptr(), y.data_ptr(), h_final.data_ptr(), b, s, h, p, n,
-            min(chunk, s), stream)
+        rc = _lib().ssd_scan_f32(*_inputs(x, dt, a_log, bmat, cmat), *args,
+                                 stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed with CUDA error "
                            f"{rc}")
     LAUNCHES += 1
     return y, h_final
+
+
+def ssd_scan_stages(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                    bmat: torch.Tensor, cmat: torch.Tensor, chunk: int = 128
+                    ) -> Dict[str, torch.Tensor]:
+    """The kernel's stages launched one at a time on CUDA tensors, with a
+    copy of what each wrote: ``cb`` (B,nc,Q,Q: C.B^T, on and below the
+    diagonal only); ``cum`` (B,nc,H,Q) and ``chunk_states`` (B,nc,H,P,N);
+    ``states_in`` (the state entering each chunk, in place of the chunk
+    states) and ``h_final``; ``y``. Each is shaped as the
+    matching function of ``ref.py`` returns it, so a fault shows the stage
+    it is in. Not on the served path: ``chip_smoke.py`` reads it."""
+    global LAUNCHES
+    _check(x, dt, a_log, bmat, cmat, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_stages runs on cuda, not {x.device}")
+    y, h_final, scratch, args = _buffers(x, bmat, chunk)
+    if scratch is None:
+        raise ValueError("ssd_scan_stages needs a non-empty input")
+    wrote = (lambda: {"cb": scratch["cb"].clone()},
+             lambda: {"cum": scratch["cum"].clone(),
+                      "chunk_states": scratch["states"].clone()},
+             lambda: {"states_in": scratch["states"].clone(),
+                      "h_final": h_final.clone()},
+             lambda: {"y": y.clone()})
+    out = {}
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for stage, copy in enumerate(wrote):
+            rc = lib.ssd_scan_stage(stage, *_inputs(x, dt, a_log, bmat, cmat),
+                                    *args, stream)
+            if rc != 0:
+                raise RuntimeError(f"ssd_scan stage {STAGES[stage]} failed "
+                                   f"with CUDA error {rc}")
+            out.update(copy())
+    LAUNCHES += 1
+    return out

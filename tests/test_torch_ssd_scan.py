@@ -13,8 +13,12 @@ Tolerances:
   against JAX's halved chunks (down to 1-row chunks for odd S), 1e-5
   rtol/atol: both are exact decompositions in float32, so they differ by
   summation order only, as at equal chunks.
-The CUDA kernel itself is held against the same plain version on the card
-by ``chip_smoke.py``.
+The plain version is written as the kernel's stages (C.B^T, cum and the
+chunk states, state passing, output); each stage is held here against a
+direct formula in float64 (1e-10: the same sums in another order), and the
+wrapper's scratch shapes against the stages' shapes. The CUDA kernel itself is
+held against the same plain version, stage by stage, on the card by
+``chip_smoke.py``.
 """
 import jax
 import numpy as np
@@ -24,7 +28,7 @@ import torch
 from repro.kernels.ssd_scan.ops import ssd_scan as jax_kernel
 from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ref
 from repro.models import mamba2 as j_mamba
-from repro_torch.kernels.ssd_scan import ops
+from repro_torch.kernels.ssd_scan import ops, ref
 from repro_torch.models import mamba2 as t_mamba
 
 KERNEL_TOL = 2e-4
@@ -53,16 +57,24 @@ def _close(got, want, tol):
                                atol=tol)
 
 
-# The shapes of tests/test_kernels.py's SSD sweep.
+# The shapes of tests/test_kernels.py's SSD sweep; then a ragged S (JAX
+# falls to 1-row chunks), S < Q, S = 1, B = 2, and P and N off every tile.
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
     (1, 64, 2, 16, 8, 16), (2, 128, 4, 32, 16, 32), (1, 96, 2, 64, 128, 32),
+    (1, 45, 2, 8, 8, 16), (1, 12, 2, 8, 8, 32), (1, 1, 2, 8, 8, 16),
+    (2, 48, 3, 8, 16, 16), (1, 40, 2, 5, 12, 16),
 ])
 def test_plain_matches_jax_kernel_and_ref(b, s, h, p, n, chunk):
+    """The composed stages against the Pallas kernel and the oracle at
+    KERNEL_TOL, and against JAX's ``ssd_chunked`` at CHUNKED_TOL."""
     args = _inputs(b, s, h, p, n, seed=s + h)
     y, hf = ops.ssd_scan(*_t(*args), chunk=chunk)
     for want_y, want_h in (jax_kernel(*args, chunk=chunk), jax_ref(*args)):
         _close(y, want_y, KERNEL_TOL)
         _close(hf, want_h, KERNEL_TOL)
+    want_y, want_h = J_CHUNKED(*args, chunk=chunk)
+    _close(y, want_y, CHUNKED_TOL)
+    _close(hf, want_h, CHUNKED_TOL)
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", [
@@ -147,3 +159,83 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises(ValueError):
         ops.ssd_scan(x, dt, a_log, bm, cm, chunk=chunk)
 
+
+def _direct_stages(x, dt, a_log, bm, cm, q):
+    """Every stage of the chunked scan by its defining sums, in float64
+    numpy loops: cum (b,nc,h,q), C.B^T (b,nc,q,q), chunk states and the
+    states entering each chunk (b,nc,h,p,n), the final state, y (b,S,h,p).
+    The entering state is summed over earlier chunks' states, each decayed
+    by the chunks between -- not by the recurrence the code runs."""
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    nc = -(-s // q)
+    a = -np.exp(a_log)
+    rows = [range(c * q, min(c * q + q, s)) for c in range(nc)]
+    cum = np.zeros((b, nc, h, q))
+    cb = np.zeros((b, nc, q, q))
+    st = np.zeros((b, nc, h, p, n))
+    for bi in range(b):
+        for c, rs in enumerate(rows):
+            for i, t in enumerate(rs):
+                cum[bi, c, :, i] = sum(dt[bi, r] * a for r in rs[:i + 1])
+                for j, r in enumerate(rs):
+                    cb[bi, c, i, j] = cm[bi, t] @ bm[bi, r]
+            cum[bi, c, :, len(rs):] = cum[bi, c, :, len(rs) - 1:len(rs)]
+            for hi in range(h):
+                for i, t in enumerate(rs):
+                    st[bi, c, hi] += (np.exp(cum[bi, c, hi, -1]
+                                             - cum[bi, c, hi, i])
+                                      * dt[bi, t, hi]
+                                      * np.outer(x[bi, t, hi], bm[bi, t]))
+    decay = np.exp(cum[..., -1])                       # (b,nc,h)
+    h_in = np.zeros((b, nc + 1, h, p, n))
+    for c in range(1, nc + 1):
+        for c0 in range(c):
+            h_in[:, c] += (np.prod(decay[:, c0 + 1:c], axis=1)[..., None, None]
+                           * st[:, c0])
+    y = np.zeros((b, s, h, p))
+    for bi in range(b):
+        for c, rs in enumerate(rows):
+            for hi in range(h):
+                for i, t in enumerate(rs):
+                    ci = cum[bi, c, hi]
+                    y[bi, t, hi] = np.exp(ci[i]) * (h_in[bi, c, hi]
+                                                    @ cm[bi, t])
+                    for j, r in enumerate(rs[:i + 1]):
+                        y[bi, t, hi] += (cb[bi, c, i, j]
+                                         * np.exp(ci[i] - ci[j])
+                                         * dt[bi, r, hi] * x[bi, r, hi])
+    return {"cum": cum, "cb": cb, "chunk_states": st,
+            "states_in": h_in[:, :nc], "h_final": h_in[:, nc], "y": y}
+
+
+@pytest.mark.parametrize("stage", ["cum", "cb", "chunk_states", "states_in",
+                                   "h_final", "y"])
+def test_each_stage_matches_its_direct_formula(stage):
+    """float64, 1e-10: b=2, S=13 in chunks of 5 (a ragged last chunk of
+    3), P=3, N=4."""
+    args = [a.astype(np.float64) for a in _inputs(2, 13, 2, 3, 4, seed=6)]
+    got = ref.ssd_stages(*_t(*args), chunk=5)[stage]
+    want = _direct_stages(*args, q=5)[stage]
+    assert tuple(got.shape) == want.shape
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-10)
+
+
+# (b, S, H, P, N, chunk): the served widths at S = 1019 and the shapes of
+# the card's ssd_scan phase.
+PLANNED = [(1, 1019, 48, 64, 128, 128), (1, 448, 48, 64, 128, 128),
+           (2, 300, 8, 64, 128, 128), (1, 50, 8, 64, 128, 128),
+           (1, 1, 8, 64, 128, 128), (1, 200, 3, 40, 100, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", PLANNED)
+def test_scratch_is_shaped_as_the_plain_stages(b, s, h, p, n, chunk):
+    """The scratch the wrapper allocates has the shapes of the plain stages'
+    outputs (taken on meta tensors)."""
+    meta = [torch.empty(shape, device="meta") for shape in
+            ((b, s, h, p), (b, s, h), (h,), (b, s, n), (b, s, n))]
+    stages = ref.ssd_stages(*meta, chunk=chunk)
+    assert ops.scratch_shapes(b, s, h, p, n, chunk) == {
+        "cum": tuple(stages["cum"].shape), "cb": tuple(stages["cb"].shape),
+        "states": tuple(stages["chunk_states"].shape)}
