@@ -38,12 +38,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    scale tail bit-identical; kernel and plain times beside the byte bound.
 7. int8: the §4.5 INT8 linear path on the served cut's INT8-policy
    projections (wq_a, wq_b, wkv_a, wo, the dense and shared-expert
-   w_gate/w_up/w_down): ``calibrate_linear`` on activations captured from
-   one served prompt's prefill, ``quantized_matmul`` on another's at M=8
-   and at its prompt length; relative error against the bf16 product; the
-   INT8 GEMM against its plain version, its time beside the plain
-   version's, ``torch._int_mm``'s and the bound; then at the INT8_RAGGED
-   shapes against its plain version.
+   w_gate/w_up/w_down; every K a multiple of 16): ``calibrate_linear`` on
+   activations captured from one served prompt's prefill,
+   ``quantized_matmul`` on another's at M=8 and at its prompt length;
+   relative error against the bf16 product; the INT8 GEMM against its
+   plain version (bit-identical), with the kernel's plan (tile, swap-AB,
+   K splits), its time beside a CUDA-graph replay of the same call (the
+   device's time without the wrapper's host time), the plain version's,
+   ``torch._int_mm``'s on the weight as the port stores it (K-major,
+   cuBLAS's TN layout) and the bound; no call of the path or of these 20
+   cases may take the wrapper's padded path. Then at the INT8_RAGGED
+   shapes against its plain version, and the int8 tensor-core
+   instructions of each kernel function (``int8-sass:``; every GEMM
+   variant must use the warpgroup ``IGMMA`` and none the older ``IMMA``).
 8. agreement: requests of three prompt seeds served with
    ``moe_fn=moe_reference`` (no capacity drops) are replayed through
    ``decode_step`` (kernel on) and checked against a full-sequence
@@ -129,15 +136,22 @@ DQ_SCALE_RTOL = 1e-6
 # quantization -- a row too wide for the default shared memory (f32, 16-byte
 # loads), an odd width (element loads, unaligned packed rows), a misaligned
 # pointer (offset in elements), no rows; (M, K, N, out dtype) for the INT8
-# GEMM -- M, N and K tails, K % 16 != 0 (byte loads of A), N % 4 != 0 (byte
-# loads of B), with and without split K, and K = 0.
+# GEMM, (M, K, N, out dtype, x_q's base offset in bytes) -- M, N and K tails,
+# K % 16 != 0 and a misaligned x_q (the wrapper's padded path), N % 4 != 0,
+# with and without split K, K = 0, M = 33/64/65 around the swap-AB
+# threshold, M = 8 with K a multiple of neither the 128-byte block nor
+# block x splits, and wkv_a's N = 576 at the served prompt's M = 940.
 DQ_RAGGED = (("wide f32", 64, 20000, "float32", False, 0),
              ("odd width bf16", 37, 1001, "bfloat16", True, 0),
              ("misaligned bf16", 16, 7168, "bfloat16", True, 1),
              ("no rows", 0, 7168, "bfloat16", True, 0))
-INT8_RAGGED = ((17, 100, 130, "float32"), (17, 100, 130, "bfloat16"),
-               (1, 896, 72, "float32"), (100, 200, 130, "float32"),
-               (1000, 72, 2050, "float32"), (3, 0, 5, "float32"))
+INT8_RAGGED = ((17, 100, 130, "float32", 0), (17, 100, 130, "bfloat16", 0),
+               (1, 896, 72, "float32", 0), (100, 200, 130, "float32", 0),
+               (1000, 72, 2050, "float32", 0), (3, 0, 5, "float32", 0),
+               (33, 2048, 1536, "float32", 0), (64, 2048, 1536, "bfloat16", 0),
+               (65, 2048, 1536, "float32", 0), (8, 4112, 1024, "float32", 0),
+               (8, 7168, 2048, "float32", 3), (940, 7168, 576, "float32", 0))
+INT8_SWAP_MAX_M = 64     # the kernel's swap-AB (decode) threshold
 # INT8 GEMM, f32 output: the integer product is exact on both sides and
 # the epilogue rounds in the same order, so the kernel equals the plain
 # version; 1e-6 leaves one f32 rounding.
@@ -474,17 +488,27 @@ def int8_times(m, n, k):
 
 
 def check_int8_plan(ops, m, k, n, n_sm):
-    """The INT8 GEMM's own launch plan for (m, k) x (k, n): the decode tile
-    shape for M <= 32, every K tile in exactly one split, and no split left
-    empty. Returns the number of K splits."""
-    small, splits, per, tile_k = ops.launch_plan(m, n, k, n_sm)
-    k_tiles = -(-k // tile_k)
-    if (small != (m <= 32) or splits < 1 or splits * per < k_tiles
-            or (k_tiles and (splits - 1) * per >= k_tiles)):
+    """The INT8 GEMM's own launch plan for (m, k) x (k, n): swap-AB for
+    M <= INT8_SWAP_MAX_M with one tile of tokens that holds M (n = 8, 16,
+    32 or 64) against 64 rows of N, else 128 rows of M against 128 or 256
+    of N; at most 8 K splits (one thread-block cluster), every K block in
+    exactly one split, and no split left empty.
+    Returns the plan's fields for the row."""
+    plan = ops.launch_plan(m, n, k, n_sm)
+    k_blocks = -(-k // plan.block_k)
+    tiles = ((min(t for t in (8, 16, 32, 64) if t >= m), 64)
+             if plan.swap_ab else (128, plan.tile_n))
+    if (plan.swap_ab != (m <= INT8_SWAP_MAX_M)
+            or (plan.tile_m, plan.tile_n) != tiles
+            or (not plan.swap_ab and plan.tile_n not in (128, 256))
+            or not 1 <= plan.splits <= 8
+            or plan.splits * plan.k_blocks_per_split < k_blocks
+            or (k_blocks and (plan.splits - 1) * plan.k_blocks_per_split
+                >= k_blocks)):
         raise AssertionError(f"int8_matmul's plan for M={m}, K={k}, N={n}: "
-                             f"small={small}, {splits} splits of {per} "
-                             f"tiles of {tile_k}")
-    return splits
+                             f"{plan}")
+    return {"tile": [plan.tile_m, plan.tile_n], "swap_ab": plan.swap_ab,
+            "k_splits": plan.splits, "stages": plan.stages}
 
 
 def int8_phase(torch, flush, cfg, params, reqs):
@@ -498,7 +522,10 @@ def int8_phase(torch, flush, cfg, params, reqs):
     INT8 GEMM at the same inputs against its plain version, with CUDA-event
     times of kernel, plain version and ``torch._int_mm`` plus the same
     epilogue (the library yardstick; it takes M > 16, so decode rows are
-    padded with zeros to 32), beside the bound."""
+    padded with zeros to 32), beside the bound. The weight stays K-major
+    for ``_int_mm`` (cuBLAS's TN layout); if it refuses the view, a
+    row-major copy made outside the timed region stands in and the row
+    says so."""
     from repro_torch.kernels.int8_gemm import ops
     from repro_torch.kernels.int8_gemm.ref import int8_matmul_ref
     from repro_torch.quant import (calibrate_linear, quantize_act_per_token,
@@ -508,6 +535,9 @@ def int8_phase(torch, flush, cfg, params, reqs):
     for seg, part, name in INT8_PROJECTIONS:
         label = name if seg == "moe" else f"{part}.{name}"
         weights[label] = getattr(getattr(params.segments[seg][0], part), name)
+        if weights[label].shape[0] % ops.TMA_ALIGN:
+            raise AssertionError(f"{label}: K = {weights[label].shape[0]} "
+                                 f"would take the wrapper's padded path")
     cal_req, eval_req = reqs[INT8_CALIB_RID], reqs[INT8_EVAL_RID]
     x_cal = capture_inputs(torch, cfg, params, cal_req.prompt, weights)
     x_eval = capture_inputs(torch, cfg, params, eval_req.prompt, weights)
@@ -518,6 +548,7 @@ def int8_phase(torch, flush, cfg, params, reqs):
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     reset_counts()
+    ops.PADDED_CALLS = 0
     quality, qls = {}, {}
     for label, w in weights.items():
         ql = calibrate_linear(w, x_cal[label])
@@ -551,51 +582,83 @@ def int8_phase(torch, flush, cfg, params, reqs):
             pad = 32 - m if m <= 16 else 0
             xq_lib = torch.nn.functional.pad(x_q, (0, 0, 0, pad))
             xs_lib = torch.nn.functional.pad(x_s, (0, 0, 0, pad))
+            w_lib, w_layout = ql.w_q, "K-major (as stored)"
+            try:
+                torch._int_mm(xq_lib, w_lib)
+            except RuntimeError as exc:
+                w_lib = ql.w_q.contiguous()
+                w_layout = f"row-major copy (K-major refused: {exc})"
 
             def library():
-                return torch._int_mm(xq_lib, ql.w_q).float() * xs_lib * ql.w_scale
+                return torch._int_mm(xq_lib, w_lib).float() * xs_lib * ql.w_scale
+
+            def kernel():
+                return ops.int8_matmul(*args)
 
             k, n = ql.w_q.shape
             row = {
                 "case": label, "M": m, "K": k, "N": n,
-                "k_splits": check_int8_plan(ops, m, k, n, n_sm),
+                **check_int8_plan(ops, m, k, n, n_sm),
                 "rel_err_calibrated": quality[(label, m)][0],
                 "rel_err_plain": quality[(label, m)][1],
                 "max_abs_err": err,
-                "ms": timed_ms(torch, lambda: ops.int8_matmul(*args), 20, flush),
+                "ms": timed_ms(torch, kernel, 20, flush),
+                "graph_ms": timed_ms(torch, graph_of(torch, kernel).replay,
+                                     20, flush),
                 "plain_ms": timed_ms(torch, lambda: int8_matmul_ref(*args), 20,
                                      flush),
                 "library_ms": timed_ms(torch, library, 20, flush),
                 "library_rows": m + pad,
+                "library_w_layout": w_layout,
             }
             t_ops, t_bytes = int8_times(m, n, k)
             row["bound_ms"] = max(t_ops, t_bytes)
             row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
             log("int8:", json.dumps(row))
             rows.append(row)
+    if ops.PADDED_CALLS:
+        raise AssertionError(f"{ops.PADDED_CALLS} served INT8 products took "
+                             f"the wrapper's padded path")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     ragged = []
-    for m, k, n, dtype in INT8_RAGGED:
-        x_q = torch.randint(-127, 128, (m, k), device="cuda", generator=gen,
-                            dtype=torch.int8)
-        w_q = torch.randint(-127, 128, (k, n), device="cuda", generator=gen,
-                            dtype=torch.int8)
+    for m, k, n, dtype, offset in INT8_RAGGED:
+        # x_q at `offset` bytes into its buffer; w_q stored K-major.
+        x_q = torch.randint(-127, 128, (m * k + offset,), device="cuda",
+                            generator=gen, dtype=torch.int8)[offset:].view(m, k)
+        w_q = torch.randint(-127, 128, (n, k), device="cuda", generator=gen,
+                            dtype=torch.int8).t()
         x_s = torch.rand(m, 1, device="cuda", generator=gen) * 0.01
         w_s = torch.rand(1, n, device="cuda", generator=gen) * 0.01
         args = (x_q, w_q, x_s, w_s, getattr(torch, dtype))
+        padded = ops.PADDED_CALLS
         got, ref = ops.int8_matmul(*args).float(), int8_matmul_ref(*args).float()
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         if not torch.allclose(got, ref, rtol=INT8_RTOL, atol=0.0):
             raise AssertionError(f"int8_matmul disagrees with its plain "
-                                 f"version at M={m}, K={k}, N={n} ({dtype}): "
-                                 f"{err:.3e}")
-        row = {"M": m, "K": k, "N": n, "out_dtype": dtype,
-               "k_splits": check_int8_plan(ops, m, k, n, n_sm),
-               "max_abs_err": err}
+                                 f"version at M={m}, K={k}, N={n} ({dtype}, "
+                                 f"offset {offset}): {err:.3e}")
+        row = {"M": m, "K": k, "N": n, "out_dtype": dtype, "x_offset": offset,
+               "padded": ops.PADDED_CALLS > padded,
+               **check_int8_plan(ops, m, k, n, n_sm), "max_abs_err": err}
+        if row["padded"] != ops.needs_padding(k, x_q.data_ptr(),
+                                              w_q.data_ptr()):
+            raise AssertionError(f"int8_matmul's padding at M={m}, K={k}, "
+                                 f"N={n}, offset {offset}: {row}")
         log("int8-ragged:", json.dumps(row))
         ragged.append(row)
+
+    from repro_torch.kernels import build
+
+    sass = tensor_core_ops(build.library_path("int8_gemm"))
+    log("int8-sass:", json.dumps(sass))
+    gemms = [c for f, c in sass.items() if f.startswith("int8_gemm_kernel")]
+    if not gemms or any(not any(op.startswith("IGMMA") for op in c)
+                        or any(op.startswith("IMMA") for op in c)
+                        for c in gemms):
+        raise AssertionError(f"every int8 GEMM kernel must use IGMMA and no "
+                             f"IMMA: {sass}")
     return rows, ragged, counts
 
 
@@ -961,9 +1024,15 @@ def ssd_stage_ms(torch, fn, flush, reps=10) -> dict:
     return out
 
 
+MANGLED_TYPES = {"f": "float", "i": "int", "b": "bool", "j": "unsigned"}
+
+
 def entry_name(mangled: str) -> str:
-    """The unqualified name in an Itanium-mangled function name
-    (``_ZN12_GLOBAL__N_19cb_kernelE...`` -> ``cb_kernel``)."""
+    """The unqualified name in an Itanium-mangled function name, with its
+    template arguments where they are integers or simple types
+    (``_ZN12_GLOBAL__N_19cb_kernelE...`` -> ``cb_kernel``;
+    ``..16int8_gemm_kernelILi64ELi8ELi8ELb1EEEv..`` ->
+    ``int8_gemm_kernel<64,8,8,1>``)."""
     i, parts = 2 + mangled[2:3].count("N"), []
     while mangled.startswith("_Z") and i < len(mangled) \
             and mangled[i].isdigit():
@@ -973,12 +1042,33 @@ def entry_name(mangled: str) -> str:
         k = int(mangled[i:j])
         parts.append(mangled[j:j + k])
         i = j + k
-    return parts[-1] if parts else mangled
+    if not parts:
+        return mangled
+    args = []
+    if mangled[i:i + 1] == "I":
+        i += 1
+        while i < len(mangled) and mangled[i] != "E":
+            lit = re.match(r"L[a-z](-?\d+)E", mangled[i:])
+            name = re.match(r"(\d+)", mangled[i:])
+            if lit:
+                args.append(lit.group(1))
+                i += lit.end()
+            elif name:
+                j = i + len(name.group(1))
+                args.append(mangled[j:j + int(name.group(1))])
+                i = j + int(name.group(1))
+            elif mangled[i] in MANGLED_TYPES:
+                args.append(MANGLED_TYPES[mangled[i]])
+                i += 1
+            else:
+                break
+    return parts[-1] + (f"<{','.join(args)}>" if args else "")
 
 
 def tensor_core_ops(lib_path) -> dict:
-    """Tensor-core instructions (``HMMA``, ``HGMMA``) in each kernel function
-    of a built library's SASS, by ``cuobjdump -sass``."""
+    """Tensor-core instructions in each kernel function of a built
+    library's SASS, by ``cuobjdump -sass``: floating-point ``HMMA`` and
+    warpgroup ``HGMMA``, integer ``IMMA`` and warpgroup ``IGMMA``."""
     from repro_torch.kernels import build
 
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
@@ -992,7 +1082,7 @@ def tensor_core_ops(lib_path) -> dict:
             func = entry_name(m.group(1))
             counts[func] = {}
         elif func is not None:
-            for op in re.findall(r"\b(H(?:G)?MMA\.[0-9A-Z.]+)", line):
+            for op in re.findall(r"\b([HI]G?MMA\.[0-9A-Za-z.]+)", line):
                 counts[func][op] = counts[func].get(op, 0) + 1
     return counts
 
@@ -1326,6 +1416,12 @@ def main(argv=None) -> int:
                 func = entry_name(m.group(1))
             elif "registers" in line or "spill" in line:
                 log(f"build[{name}:{func}]: {line.strip()}")
+                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                   r"spill loads", line)
+                if name == "int8_gemm" and spills \
+                        and spills.groups() != ("0", "0"):
+                    raise AssertionError(f"int8_gemm spills in {func}: "
+                                         f"{line.strip()}")
 
     from repro_torch.models import init_params
     cfg = serve_config()
@@ -1381,7 +1477,8 @@ def main(argv=None) -> int:
     main_row = rows[-1]
     dq_row = dq_rows[0]                   # the decode dispatch buffer
     int8_total = {key: sum(r[key] for r in int8_rows)
-                  for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                  for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                              "library_ms")}
     int8_ops_ms, int8_bytes_ms = (sum(t) for t in zip(*(
         int8_times(r["M"], r["N"], r["K"]) for r in int8_rows)))
     kernels = [{
@@ -1417,6 +1514,7 @@ def main(argv=None) -> int:
         "launches": int8_counts["int8_gemm"],
         "max_abs_err": max(r["max_abs_err"] for r in int8_rows + int8_ragged),
         "ms": int8_total["ms"],
+        "graph_ms": int8_total["graph_ms"],
         "plain_ms": int8_total["plain_ms"],
         "bound_ms": int8_total["bound_ms"],
         "bound_by": "operations" if int8_ops_ms >= int8_bytes_ms else "bytes",

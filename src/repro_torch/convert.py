@@ -82,25 +82,35 @@ def _tensor(value: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(value)).to(device)
 
 
+def _k_major_tensor(value: Any, device: torch.device) -> torch.Tensor:
+    """INT8 codes (..., K, N) on ``device``, stored K-major as the port's
+    quantizer stores them (the transpose is taken on the host)."""
+    nk = np.ascontiguousarray(np.swapaxes(np.asarray(value), -1, -2))
+    return torch.from_numpy(nk).to(device).transpose(-1, -2)
+
+
 def quantized_linear_from_jax_numpy(ql: Any, device: DeviceLike = None
                                     ) -> QuantizedLinear:
     """The port's :class:`QuantizedLinear` from the JAX package's (its
-    fields as numpy arrays or ``None``)."""
+    fields as numpy arrays or ``None``), ``w_q`` stored K-major."""
     dev = resolve_device(device)
-    return QuantizedLinear(*(None if v is None else _tensor(v, dev)
-                             for v in (ql.w_q, ql.w_scale, ql.eq,
-                                       ql.bias_corr)))
+    return QuantizedLinear(
+        _k_major_tensor(ql.w_q, dev),
+        *(None if v is None else _tensor(v, dev)
+          for v in (ql.w_scale, ql.eq, ql.bias_corr)))
 
 
 def quantized_tree_from_jax_numpy(tree: Any, device: DeviceLike = None) -> Any:
     """A tree from the JAX package's ``quantize_param_tree`` (numpy leaves)
-    as the same nested dicts of tensors on ``device``."""
+    as the same nested dicts of tensors on ``device``, the ``__q__`` codes
+    stored K-major as the port's ``quantize_param_tree`` stores them."""
     dev = resolve_device(device)
 
-    def walk(node):
+    def walk(node, key=None):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return _tensor(node, dev)
+            return {k: walk(v, k) for k, v in node.items()}
+        return _k_major_tensor(node, dev) if key == "__q__" \
+            else _tensor(node, dev)
 
     return walk(tree)
 

@@ -9,7 +9,8 @@ import torch
 def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
                     x_scale: torch.Tensor, w_scale: torch.Tensor,
                     out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """x_q (M, K) int8, w_q (K, N) int8, x_scale (M, 1) f32 (per token),
+    """x_q (M, K) int8, w_q (K, N) int8 in any layout (the kernel's wrapper
+    takes it K-major), x_scale (M, 1) f32 (per token),
     w_scale (1, N) f32 (per channel) -> (M, N) ``out_dtype``: the exact
     integer product, then ``(acc * x_scale) * w_scale`` in f32.
 

@@ -8,6 +8,7 @@ from repro_torch.quant.int8 import (  # noqa: F401
     calibrate_linear,
     equalization_scales,
     error_compensation,
+    k_major,
     quantize_act_per_token,
     quantize_param_tree,
     quantize_weight_per_channel,

@@ -31,8 +31,14 @@ from repro_torch.kernels.int8_gemm import int8_matmul
 
 
 class QuantizedLinear(NamedTuple):
-    """Per-channel INT8 weight + scales (+ optional equalization & bias)."""
-    w_q: torch.Tensor                    # (K, N) int8
+    """Per-channel INT8 weight + scales (+ optional equalization & bias).
+
+    ``w_q`` has JAX's shape (K, N) and JAX's values, stored K-major: it is
+    the ``.t()`` view of a contiguous (N, K) tensor, ``stride() == (1, K)``
+    (:func:`k_major`). That is the layout the INT8 GEMM kernel feeds to the
+    tensor cores, so it is made once, when the weight is quantized, and not
+    on every product."""
+    w_q: torch.Tensor                    # (K, N) int8, stored K-major
     w_scale: torch.Tensor                # (1, N) f32
     eq: Optional[torch.Tensor]           # (K,) f32 activation equalization
     bias_corr: Optional[torch.Tensor]    # (N,) f32 error compensation
@@ -43,10 +49,17 @@ class QuantizedLinear(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
+def k_major(w: torch.Tensor) -> torch.Tensor:
+    """``w`` (..., K, N) with the same values, stored K-major: the
+    transposed view of a contiguous (..., N, K) tensor. No copy if ``w`` is
+    stored so already."""
+    return w.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
 def quantize_weight_per_channel(w: torch.Tensor,
                                 clip: Optional[torch.Tensor] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """w (K, N) -> (int8 (K, N) contiguous, scale (1, N)). Per output
+    """w (K, N) -> (int8 (K, N) stored K-major, scale (1, N)). Per output
     channel, static."""
     wf = w.float()
     absmax = wf.abs().amax(dim=0, keepdim=True)
@@ -56,7 +69,7 @@ def quantize_weight_per_channel(w: torch.Tensor,
     # its reciprocal.
     scale = absmax.clamp_min(1e-8) / torch.tensor(127.0, device=w.device)
     q = torch.round(wf / scale).clamp_(-127, 127).to(torch.int8)
-    return q.contiguous(), scale
+    return k_major(q), scale
 
 
 def quantize_act_per_token(x: torch.Tensor
@@ -216,7 +229,8 @@ def quantize_param_tree(params: dict) -> Tuple[dict, Dict[str, int]]:
     layout (nested dicts of tensors, e.g. :func:`repro_torch.convert.
     param_tree`). 2-D+ tensors on INT8 paths become ``{"__q__": int8,
     "__scale__": f32}`` dicts (one per-channel scale over all leading
-    axes); the rest is untouched. Returns ``(new tree, {"quantized": n,
+    axes; the codes stored K-major, so each (K, N) matrix has stride
+    (1, K)); the rest is untouched. Returns ``(new tree, {"quantized": n,
     "kept": m})``."""
     stats = {"quantized": 0, "kept": 0}
 
@@ -227,7 +241,8 @@ def quantize_param_tree(params: dict) -> Tuple[dict, Dict[str, int]]:
                 and should_quantize(path):
             q, s = quantize_weight_per_channel(tree.reshape(-1, tree.shape[-1]))
             stats["quantized"] += 1
-            return {"__q__": q.reshape(tree.shape), "__scale__": s.float()}
+            return {"__q__": k_major(q.reshape(tree.shape)),
+                    "__scale__": s.float()}
         stats["kept"] += 1
         return tree
 

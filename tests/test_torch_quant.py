@@ -97,7 +97,11 @@ def _mm_inputs(m, k, n):
     wq = rng.randint(-127, 128, (k, n)).astype(np.int8)
     xs = (rng.rand(m, 1) * 0.1).astype(np.float32)
     ws = (rng.rand(1, n) * 0.1).astype(np.float32)
-    return (xq, wq, xs, ws), tuple(torch.from_numpy(a) for a in (xq, wq, xs, ws))
+    # The port stores INT8 weights K-major: w_q is the .t() view of a
+    # contiguous (N, K) tensor, with JAX's (K, N) shape and values.
+    twq = torch.from_numpy(np.ascontiguousarray(wq.T)).t()
+    return (xq, wq, xs, ws), (torch.from_numpy(xq), twq, torch.from_numpy(xs),
+                              torch.from_numpy(ws))
 
 
 @pytest.mark.parametrize("m,k,n", MM_SHAPES)
@@ -131,7 +135,7 @@ def test_wrappers_run_only_on_cpu_or_cuda():
     with pytest.raises(ValueError, match="cpu or cuda"):
         dispatch_quantize(torch.zeros(2, 8, device=device))
     xq = torch.zeros(2, 8, dtype=torch.int8, device=device)
-    wq = torch.zeros(8, 4, dtype=torch.int8, device=device)
+    wq = torch.zeros(4, 8, dtype=torch.int8, device=device).t()   # K-major
     with pytest.raises(ValueError, match="cpu or cuda"):
         int8_matmul(xq, wq, torch.zeros(2, 1, device=device),
                     torch.zeros(1, 4, device=device))
