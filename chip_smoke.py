@@ -28,14 +28,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    DeepSeek-R1 widths (B=8, H=128, R=512, Dr=64), S=2048 and a ragged
    S=1000 with per-row ``cache_len`` including 0, S-1 and S, full rows,
    and the serve phase's own final lengths (the row the kernels line
-   reports); median CUDA-event times of the kernel, the plain version and
-   one library call, beside the least time the card could take. With
-   ``--sweep``, also the kernel at each ``n_split`` of SWEEP_SPLITS.
+   reports); median CUDA-event times of the kernel, the same call replayed
+   from a CUDA graph (the device's time without the wrapper's host time),
+   the plain version and one library call, beside the least time the card
+   could take (the operations at a third of the TF32 rate, as the kernel
+   runs them in 3xTF32, with the FP32 reading beside it), the kernel's
+   piece count and partial (m, l, acc) bytes; the tensor-core
+   instructions of each kernel function (``mla-sass:``; the attention
+   kernel must use TF32 ones). With ``--sweep``, also the kernel at each
+   piece count of SWEEP_PIECES.
 6. dispatch_quant: ``dispatch_quantize`` against its plain version at the
    LEP dispatch buffers of the serve-lep phase (decode: 256 slots x 8 rows;
    the longest prompt's prefill: 256 x 48) and one 8 x 7168 activation,
    then at the DQ_RAGGED shapes: every code equal, scale error, the packed
-   scale tail bit-identical; kernel and plain times beside the byte bound.
+   scale tail bit-identical; kernel times by events and by a CUDA-graph
+   replay, and plain times, beside the byte bound.
 7. int8: the §4.5 INT8 linear path on the served cut's INT8-policy
    projections (wq_a, wq_b, wkv_a, wo, the dense and shared-expert
    w_gate/w_up/w_down; every K a multiple of 16): ``calibrate_linear`` on
@@ -121,10 +128,10 @@ KERNEL_TOL = 3e-5        # f32 kernel vs f32 plain version (summation order)
 AGREE_ATOL = 0.1
 AGREE_SEEDS = (1, 2, 3)      # prompt seeds (offsets of SEED), 3 prompts each
 # Where the two forms chose different experts the logits are not compared.
-# The three seeds read 6, 5 and 7 flips in 48 positions each (10-15 %) on
-# an H100 at 700 W (PERF.md); a quarter is the most the phase lets pass.
+# The three seeds read 3 to 8 flips in 48 positions each (6-17 %) on an
+# H100 at 700 W (PERF.md); a quarter is the most the phase lets pass.
 MAX_FLIP_SHARE = 0.25
-SWEEP_SPLITS = (4, 5, 8, 12, 16, 24, 32)     # n_split values of --sweep
+SWEEP_PIECES = (1, 17, 33, 44, 66, 132)     # n_pieces values of --sweep
 # Per-row quantization: both versions divide by 127 and by the scale with
 # IEEE f32 division and round half to even, so every code must be equal (a
 # kernel that truncates, rounds half away from zero or multiplies by a
@@ -261,20 +268,25 @@ def timed_ms(torch, fn, reps: int, flush) -> float:
 
 def mla_bound(b, h, r, dr, cache_len, s):
     """Least time (ms) for absorbed-MLA decode attention on these inputs,
-    and what bounds it: each input read once (the valid cache rows only)
-    and the output written once over the HBM rate, against
-    2*H*n*(2R+Dr) FP32 operations per row of n valid positions over the
-    FP32 rate."""
-    n = [min(int(c), s - 1) + 1 for c in cache_len]
+    what bounds it, and the same count read at the FP32 rate: each input
+    read once (the valid cache rows only) and the output written once over
+    the HBM rate, against 2*H*n*(2R+Dr) operations per row of n valid
+    positions. The kernel takes both products on the tensor cores in
+    3xTF32, three TF32 passes, so the operations count at a third of the
+    TF32 rate; the FP32 reading (the bound of a kernel without tensor
+    cores) stays beside it."""
+    n = [min(max(int(c), 0), s - 1) + 1 for c in cache_len]
     nbytes = 4 * (sum(n) * (r + dr) + b * h * (r + dr) + b + b * h * r)
     flops = 2 * h * sum(n) * (2 * r + dr)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * max(t_bytes, flops / FP32_FLOP_PER_S))
 
 
 def kernel_phase(torch, flush, serve_lens, sweep: bool):
-    from repro_torch.kernels.mla_attention import ops
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mla_attention import ops, plan
     from repro_torch.kernels.mla_attention.ref import mla_decode_attention_ref
 
     b, h, r, dr = 8, 128, 512, 64
@@ -311,31 +323,51 @@ def kernel_phase(torch, flush, serve_lens, sweep: bool):
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib = sdpa(q, k, v, attn_mask=mask, scale=scale)[:, 0]
         lib_err = (lib - ref).abs().max().item()
+
+        def kernel():
+            return ops.mla_decode_attention(q_lat, q_rope, cache, cache_len,
+                                            scale)
+
+        n_pieces = plan.n_pieces_for(b, h, s, n_sm)
         row = {
             "case": name, "S": s, "cache_len": lens, "max_abs_err": err,
-            "ms": timed_ms(torch, lambda: ops.mla_decode_attention(
-                q_lat, q_rope, cache, cache_len, scale), 30, flush),
+            "n_pieces": n_pieces,
+            "partial_bytes": plan.partial_bytes(b, h, r, n_pieces),
+            "ms": timed_ms(torch, kernel, 30, flush),
+            "graph_ms": timed_ms(torch, graph_of(torch, kernel).replay, 30,
+                                 flush),
             "plain_ms": timed_ms(torch, lambda: mla_decode_attention_ref(
                 q_lat, q_rope, cache, cache_len, scale), 30, flush),
             "library_ms": timed_ms(torch, lambda: sdpa(
                 q, k, v, attn_mask=mask, scale=scale), 30, flush),
             "library_max_abs_err": lib_err,
         }
-        row["bound_ms"], row["bound_by"] = mla_bound(b, h, r, dr, lens, s)
+        row["bound_ms"], row["bound_by"], row["bound_fp32_ms"] = mla_bound(
+            b, h, r, dr, lens, s)
         log("kernel:", json.dumps(row))
         rows.append(row)
-        chosen = ops.n_split_for(b, h, s, n_sm)
-        for n in (sorted(set(SWEEP_SPLITS) | {chosen}) if sweep else ()):
+        for n in (sorted(set(SWEEP_PIECES) | {n_pieces}) if sweep else ()):
             def run(n=n):
                 return ops.mla_decode_attention(q_lat, q_rope, cache,
-                                                cache_len, scale, n_split=n)
-            if not torch.allclose(run(), ref, rtol=KERNEL_TOL,
+                                                cache_len, scale, n_pieces=n)
+            got = run()
+            torch.cuda.synchronize()
+            if not torch.allclose(got, ref, rtol=KERNEL_TOL,
                                   atol=KERNEL_TOL):
-                raise AssertionError(f"kernel at n_split={n} disagrees "
+                raise AssertionError(f"kernel at n_pieces={n} disagrees "
                                      f"with its plain version ({name})")
             log("sweep:", json.dumps({
-                "case": name, "n_split": n, "chosen": n == chosen,
-                "ms": timed_ms(torch, run, 30, flush)}))
+                "case": name, "n_pieces": n, "chosen": n == n_pieces,
+                "max_abs_err": (got - ref).abs().max().item(),
+                "partial_bytes": plan.partial_bytes(b, h, r, n),
+                "graph_ms": timed_ms(torch, graph_of(torch, run).replay, 30,
+                                     flush)}))
+    sass = tensor_core_ops(build.library_path("mla_decode_attention"))
+    log("mla-sass:", json.dumps(sass))
+    if not any(op.startswith(("HGMMA", "HMMA")) and op.endswith(".TF32")
+               for op in sass.get("mla_split_kernel", {})):
+        raise AssertionError(f"no TF32 tensor-core instruction in the MLA "
+                             f"attention kernel: {sass}")
     return rows
 
 
@@ -406,8 +438,13 @@ def dispatch_quant_phase(torch, flush, cfg, prefill_tokens):
                              dtype=torch.bfloat16)
         row = {"case": name, "shape": [rows, d], "filled_rows": filled,
                "pack": pack, **check_dispatch_quant(torch, name, x, pack)}
-        row["ms"] = timed_ms(torch, lambda: ops.dispatch_quantize(x, pack=pack),
-                             30, flush)
+
+        def kernel():
+            return ops.dispatch_quantize(x, pack=pack)
+
+        row["ms"] = timed_ms(torch, kernel, 30, flush)
+        row["graph_ms"] = timed_ms(torch, graph_of(torch, kernel).replay, 30,
+                                   flush)
         row["plain_ms"] = timed_ms(torch, lambda: dispatch_quantize_ref(
             x, pack=pack), 30, flush)
         row["bound_ms"], row["bound_by"] = dq_bound(rows, d, 2)
@@ -1380,8 +1417,8 @@ def ssm_agreement_phase(torch, cfg, params, reqs, served, dev="cuda"):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
-                    help="also time the MLA kernel at each n_split of "
-                         "SWEEP_SPLITS in every kernel-phase case")
+                    help="also time the MLA kernel at each piece count of "
+                         "SWEEP_PIECES in every kernel-phase case")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1418,9 +1455,9 @@ def main(argv=None) -> int:
                 log(f"build[{name}:{func}]: {line.strip()}")
                 spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                                    r"spill loads", line)
-                if name == "int8_gemm" and spills \
+                if name in ("int8_gemm", "mla_decode_attention") and spills \
                         and spills.groups() != ("0", "0"):
-                    raise AssertionError(f"int8_gemm spills in {func}: "
+                    raise AssertionError(f"{name} spills in {func}: "
                                          f"{line.strip()}")
 
     from repro_torch.models import init_params
@@ -1489,9 +1526,11 @@ def main(argv=None) -> int:
         "launches": counts["mla_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
+        "graph_ms": main_row["graph_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
+        "bound_fp32_ms": main_row["bound_fp32_ms"],
         "library_ms": main_row["library_ms"],
     }, {
         "name": "dispatch_quantize",
@@ -1501,6 +1540,7 @@ def main(argv=None) -> int:
         "launches": lep_counts["dispatch_quant"],
         "max_abs_err": max(r["max_abs_err"] for r in dq_rows + dq_ragged),
         "ms": dq_row["ms"],
+        "graph_ms": dq_row["graph_ms"],
         "plain_ms": dq_row["plain_ms"],
         "bound_ms": dq_row["bound_ms"],
         "bound_by": dq_row["bound_by"],

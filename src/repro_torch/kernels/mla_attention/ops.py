@@ -8,31 +8,29 @@ fallback. ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.mla_attention import plan
 from repro_torch.kernels.mla_attention.ref import mla_decode_attention_ref
 
 #: kernel launches made by :func:`mla_decode_attention` in this process
 LAUNCHES = 0
 
-HEADS_PER_BLOCK = 16          # must match kHeadsPerBlock in the source
-MAX_SPLIT = 64                # must match kMaxSplit
 SMEM_LIMIT = 232_448          # dynamic shared memory one block may use
-_TILE = 32
+MAX_R, MAX_W = 512, 576       # kPvCols * kWarps and kMaxW in the source
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("mla_decode_attention")
     if not getattr(lib, "_argtypes_set", False):
         fn = lib.mla_decode_attention_f32
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.mla_decode_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.mla_decode_attention_smem_bytes.argtypes = [ctypes.c_int]
         lib.mla_decode_attention_smem_bytes.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
@@ -62,25 +60,16 @@ def _check(q_lat, q_rope, cache, cache_len) -> None:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
 
 
-def n_split_for(b: int, h: int, s: int, n_sm: int) -> int:
-    """Sequence pieces per request: about six blocks per SM (three waves of
-    the two that fit at once, so ragged rows even out across the waves), at
-    most one piece per 32-position tile and at most ``MAX_SPLIT``. The
-    readings behind the rule, from ``chip_smoke.py --sweep`` on an H100,
-    are in PERF.md."""
-    blocks = b * (h // HEADS_PER_BLOCK)
-    want = math.ceil(6 * n_sm / max(blocks, 1))
-    return max(1, min(MAX_SPLIT, want, math.ceil(s / _TILE)))
-
-
 def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
                          cache: torch.Tensor, cache_len: torch.Tensor,
-                         scale: float, n_split: Optional[int] = None
+                         scale: float, n_pieces: Optional[int] = None
                          ) -> torch.Tensor:
     """q_lat (B,H,R), q_rope (B,H,Dr), cache (B,S,R+Dr) float32 contiguous,
     cache_len (B,) int32 -> o_lat (B,H,R) float32. Row ``b`` attends to
-    positions ``0..min(cache_len[b], S-1)``. ``n_split`` overrides
-    :func:`n_split_for` (a sweep of the split; the model never sets it)."""
+    positions ``0..min(cache_len[b], S-1)``. ``n_pieces`` overrides
+    :func:`plan.n_pieces_for` (a sweep of the cut; the model never sets
+    it). The kernel cuts the batch's tiles into pieces on the device
+    (``plan.py``); the host never reads ``cache_len``."""
     global LAUNCHES
     _check(q_lat, q_rope, cache, cache_len)
     dev = q_lat.device
@@ -90,31 +79,38 @@ def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
         raise ValueError(f"mla_decode_attention runs on cpu or cuda, not {dev}")
     b, h, r = q_lat.shape
     s, dr = cache.shape[1], q_rope.shape[-1]
-    if h % HEADS_PER_BLOCK or r % 4 or r > 512 or dr % 4:
-        raise ValueError(f"the kernel takes H % {HEADS_PER_BLOCK} == 0, "
-                         f"R % 4 == 0, R <= 512 and Dr % 4 == 0; got H={h}, "
-                         f"R={r}, Dr={dr}")
+    if r % 4 or r > MAX_R or dr % 4 or r + dr > MAX_W:
+        raise ValueError(f"the kernel takes R % 4 == 0, R <= {MAX_R}, "
+                         f"Dr % 4 == 0 and R + Dr <= {MAX_W}; got R={r}, "
+                         f"Dr={dr}")
     if any(t.data_ptr() % 16 for t in (q_lat, q_rope, cache)):
         raise ValueError("the kernel reads float4: q_lat, q_rope and cache "
                          "must start on 16-byte boundaries")
     lib = _lib()
-    if lib.mla_decode_attention_smem_bytes(r, dr) > SMEM_LIMIT:
-        raise ValueError(f"R+Dr={r + dr} needs more shared memory than a "
-                         "block may use")
-    if n_split is None:
-        n_split = n_split_for(b, h, s, torch.cuda.get_device_properties(
+    if lib.mla_decode_attention_smem_bytes(b) > SMEM_LIMIT:
+        raise ValueError(f"a batch of {b} rows needs more shared memory than "
+                         "a block may use")
+    if n_pieces is None:
+        n_pieces = plan.n_pieces_for(b, h, s, torch.cuda.get_device_properties(
             dev).multi_processor_count)
-    if not 1 <= n_split <= MAX_SPLIT:
-        raise ValueError(f"n_split must lie in 1..{MAX_SPLIT}, got {n_split}")
+    if not 1 <= n_pieces <= plan.MAX_PIECES:
+        raise ValueError(f"n_pieces must lie in 1..{plan.MAX_PIECES}, got "
+                         f"{n_pieces}")
+    # One scratch allocation: the partial acc (slots, H, R), (m, l) (slots,
+    # H, 2) and the kernel's cut, B + 1 int32 tile starts.
     out = torch.empty((b, h, r), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((b, n_split, h, r), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((b, n_split, h, 2), dtype=torch.float32, device=dev)
+    slots = n_pieces + b - 1
+    scratch = torch.empty(slots * h * (r + 2) + b + 1, dtype=torch.float32,
+                          device=dev)
+    part_acc = scratch.data_ptr()
+    part_ml = part_acc + 4 * slots * h * r
+    tile_starts = part_ml + 4 * slots * h * 2
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mla_decode_attention_f32(
             q_lat.data_ptr(), q_rope.data_ptr(), cache.data_ptr(),
-            cache_len.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), b, h, s, r, dr, n_split, float(scale), stream)
+            cache_len.data_ptr(), out.data_ptr(), part_acc, part_ml,
+            tile_starts, b, h, s, r, dr, n_pieces, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"mla_decode_attention kernel launch failed with "
                            f"CUDA error {rc}")
