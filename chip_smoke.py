@@ -38,11 +38,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    kernel must use TF32 ones). With ``--sweep``, also the kernel at each
    piece count of SWEEP_PIECES.
 6. dispatch_quant: ``dispatch_quantize`` against its plain version at the
-   LEP dispatch buffers of the serve-lep phase (decode: 256 slots x 8 rows;
-   the longest prompt's prefill: 256 x 48) and one 8 x 7168 activation,
-   then at the DQ_RAGGED shapes: every code equal, scale error, the packed
-   scale tail bit-identical; kernel times by events and by a CUDA-graph
-   replay, and plain times, beside the byte bound.
+   LEP dispatch buffers of the serve-lep phase (decode: 256 slots x 8 rows,
+   64 of them filled; the same buffer with every row filled; the longest
+   prompt's prefill: 256 x 48) and one 8 x 7168 activation, each with its
+   launch plan (``dispatch_quant/plan.py``): kernel times by events and by
+   a CUDA-graph replay, and plain times, beside the byte bound and
+   ``bound_frac`` (bound over graph time). Then, untimed, at the
+   DQ_RAGGED shapes (every plan the kernel has) and at rows planted at
+   rounding boundaries (``ref.bf16_boundary_rows``, every bf16 value up to
+   absmax for 128 mantissas of absmax; ``ref.f32_boundary_rows``) through
+   the ring and the cluster split. Every code must equal the plain
+   version's and the packed scale tail be bit-identical.
 7. int8: the §4.5 INT8 linear path on the served cut's INT8-policy
    projections (wq_a, wq_b, wkv_a, wo, the dense and shared-expert
    w_gate/w_up/w_down; every K a multiple of 16): ``calibrate_linear`` on
@@ -140,10 +146,15 @@ SWEEP_PIECES = (1, 17, 33, 44, 66, 132)     # n_pieces values of --sweep
 DQ_SCALE_RTOL = 1e-6
 # Shapes that the served path does not give but the kernels take, for
 # their other branches: (name, T, D, dtype, pack, offset) for per-row
-# quantization -- a row too wide for the default shared memory (f32, 16-byte
-# loads), an odd width (element loads, unaligned packed rows), a misaligned
-# pointer (offset in elements), no rows; (M, K, N, out dtype) for the INT8
-# GEMM, (M, K, N, out dtype, x_q's base offset in bytes) -- M, N and K tails,
+# quantization -- a wide f32 row (cluster split, 16-byte loads), an odd
+# width (element loads, unaligned packed rows), a misaligned pointer
+# (offset in elements), no rows; the same three at T past the split (the
+# ring at two stages of 80,000 bytes, one block an SM, and the plain-load
+# rows path twice), a row too long for two ring stages (rows path: D has no
+# limit), f32 rings with packed and unpacked rows whose code rows start 4
+# bytes off an 8-byte boundary, an f32 activation, one row (a cluster of
+# 8) and T = 66 (the largest split, a cluster of 2); for the INT8 GEMM,
+# (M, K, N, out dtype, x_q's base offset in bytes) -- M, N and K tails,
 # K % 16 != 0 and a misaligned x_q (the wrapper's padded path), N % 4 != 0,
 # with and without split K, K = 0, M = 33/64/65 around the swap-AB
 # threshold, M = 8 with K a multiple of neither the 128-byte block nor
@@ -151,7 +162,17 @@ DQ_SCALE_RTOL = 1e-6
 DQ_RAGGED = (("wide f32", 64, 20000, "float32", False, 0),
              ("odd width bf16", 37, 1001, "bfloat16", True, 0),
              ("misaligned bf16", 16, 7168, "bfloat16", True, 1),
-             ("no rows", 0, 7168, "bfloat16", True, 0))
+             ("no rows", 0, 7168, "bfloat16", True, 0),
+             ("wide f32, many rows", 200, 20000, "float32", False, 0),
+             ("odd width bf16, many rows", 300, 1001, "bfloat16", True, 0),
+             ("misaligned bf16, many rows", 512, 7168, "bfloat16", True, 1),
+             ("past two stages bf16", 160, 131072, "bfloat16", True, 0),
+             ("f32 packed", 300, 4096, "float32", True, 0),
+             ("f32 D % 8 = 4", 300, 1028, "float32", False, 0),
+             ("activation f32", 8, 7168, "float32", False, 0),
+             ("one row", 1, 7168, "bfloat16", True, 0),
+             ("largest split", 66, 7168, "bfloat16", True, 0))
+DQ_BOUNDARY_F32_ROWS = 512
 INT8_RAGGED = ((17, 100, 130, "float32", 0), (17, 100, 130, "bfloat16", 0),
                (1, 896, 72, "float32", 0), (100, 200, 130, "float32", 0),
                (1000, 72, 2050, "float32", 0), (3, 0, 5, "float32", 0),
@@ -229,6 +250,8 @@ SSM_HANDOFF_STEPS = 32       # decoded after a prefill of SSM_F32_TOKENS
 SSM_WINDOW_ATOL = 0.25
 SSM_FAULT_FACTOR = 10.0
 SSM_BF16_RATIO = 2.0
+# Kernels whose build fails the run if ptxas reports a spill.
+SPILL_GATED = ("int8_gemm", "mla_decode_attention", "dispatch_quant")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12      # H100 SXM data sheet, FP32 outside tensor cores
 TF32_FLOP_PER_S = 495e12     # H100 SXM data sheet, dense TF32 tensor cores
@@ -411,16 +434,29 @@ def check_dispatch_quant(torch, name, x, pack):
             "max_abs_err": err.max().item() if err.numel() else 0.0}
 
 
+def dq_plan(torch, x, pack):
+    """The launch plan ``dispatch_quantize`` takes for ``x``."""
+    from repro_torch.kernels.dispatch_quant import ops
+
+    t, d = x.shape
+    q = torch.empty((t, d + 4 if pack else d), dtype=torch.int8,
+                    device=x.device)
+    return ops.plan_for(x, q)._asdict()
+
+
 def dispatch_quant_phase(torch, flush, cfg, prefill_tokens):
     """``dispatch_quantize`` against its plain PyTorch version at the LEP
-    dispatch buffers the serve-lep phase quantizes -- decode (8 tokens) and
-    the longest prompt's prefill, with only the rows that tokens fill
-    non-zero -- and at one activation shape (8 tokens, unpacked, as
-    ``quantize_act_per_token`` calls it), each timed; then, untimed, at the
-    DQ_RAGGED shapes (the empty one must launch nothing)."""
+    dispatch buffers the serve-lep phase quantizes -- decode (8 tokens),
+    the same buffer with every row filled, and the longest prompt's
+    prefill, with only the rows that tokens fill non-zero -- and at one
+    activation shape (8 tokens, unpacked, as ``quantize_act_per_token``
+    calls it), each timed; then, untimed, at the DQ_RAGGED shapes (the
+    empty one must launch nothing) and at rows planted at rounding
+    boundaries."""
     from repro_torch.core.lep import lep_capacity
     from repro_torch.kernels.dispatch_quant import ops
-    from repro_torch.kernels.dispatch_quant.ref import dispatch_quantize_ref
+    from repro_torch.kernels.dispatch_quant.ref import (
+        bf16_boundary_rows, dispatch_quantize_ref, f32_boundary_rows)
 
     k, e, d = cfg.num_experts_per_tok, cfg.num_experts, cfg.d_model
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -429,6 +465,7 @@ def dispatch_quant_phase(torch, flush, cfg, prefill_tokens):
                          ("prefill dispatch", prefill_tokens)):
         rows = e * lep_capacity(tokens, k, e, cfg.capacity_factor)
         cases.append((name, rows, min(rows, tokens * k), True))
+    cases.insert(1, ("full dispatch", cases[0][1], cases[0][1], True))
     cases.append(("activation", 8, 8, False))
     out = []
     for name, rows, filled, pack in cases:
@@ -437,7 +474,8 @@ def dispatch_quant_phase(torch, flush, cfg, prefill_tokens):
         x[idx] = torch.randn(filled, d, device="cuda", generator=gen,
                              dtype=torch.bfloat16)
         row = {"case": name, "shape": [rows, d], "filled_rows": filled,
-               "pack": pack, **check_dispatch_quant(torch, name, x, pack)}
+               "pack": pack, "plan": dq_plan(torch, x, pack),
+               **check_dispatch_quant(torch, name, x, pack)}
 
         def kernel():
             return ops.dispatch_quantize(x, pack=pack)
@@ -448,6 +486,7 @@ def dispatch_quant_phase(torch, flush, cfg, prefill_tokens):
         row["plain_ms"] = timed_ms(torch, lambda: dispatch_quantize_ref(
             x, pack=pack), 30, flush)
         row["bound_ms"], row["bound_by"] = dq_bound(rows, d, 2)
+        row["bound_frac"] = row["bound_ms"] / row["graph_ms"]
         log("dispatch_quant:", json.dumps(row))
         out.append(row)
 
@@ -462,12 +501,26 @@ def dispatch_quant_phase(torch, flush, cfg, prefill_tokens):
         before = ops.LAUNCHES
         row = {"case": name, "shape": [rows, width], "dtype": dtype,
                "pack": pack, "misaligned": offset != 0,
+               "plan": dq_plan(torch, x, pack),
                **check_dispatch_quant(torch, name, x, pack)}
         if ops.LAUNCHES - before != (1 if rows else 0):
             raise AssertionError(f"{name}: {ops.LAUNCHES - before} launches "
                                  f"counted for {rows} rows")
         log("dispatch_quant-ragged:", json.dumps(row))
         ragged.append(row)
+    # Rows at rounding boundaries, through the ring (all rows) and the
+    # cluster split (the first 8).
+    for name, rows in (("bf16", bf16_boundary_rows(d, SEED)),
+                       ("f32", f32_boundary_rows(DQ_BOUNDARY_F32_ROWS, d,
+                                                 SEED))):
+        rows = rows.to("cuda")
+        for x, pack in ((rows, name == "bf16"), (rows[:8], name != "bf16")):
+            case = f"{name} boundary rows, T={x.shape[0]}"
+            row = {"case": case, "shape": list(x.shape), "pack": pack,
+                   "plan": dq_plan(torch, x, pack),
+                   **check_dispatch_quant(torch, case, x, pack)}
+            log("dispatch_quant-boundary:", json.dumps(row))
+            ragged.append(row)
     return out, ragged
 
 
@@ -1455,7 +1508,7 @@ def main(argv=None) -> int:
                 log(f"build[{name}:{func}]: {line.strip()}")
                 spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                                    r"spill loads", line)
-                if name in ("int8_gemm", "mla_decode_attention") and spills \
+                if name in SPILL_GATED and spills \
                         and spills.groups() != ("0", "0"):
                     raise AssertionError(f"{name} spills in {func}: "
                                          f"{line.strip()}")

@@ -2,8 +2,9 @@
 (``csrc/dispatch_quant.cu``).
 
 A CPU tensor goes to the plain version (``ref.py``). A CUDA tensor launches
-the hand-written kernel on PyTorch's current stream or raises: there is no
-fallback. ``LAUNCHES`` counts kernel launches.
+the hand-written kernel on PyTorch's current stream, with the launch plan
+of ``plan.py``, or raises: there is no fallback. ``LAUNCHES`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -12,13 +13,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.dispatch_quant import plan as dq_plan
 from repro_torch.kernels.dispatch_quant.ref import dispatch_quantize_ref
 
 #: kernel launches made by :func:`dispatch_quantize` in this process
 LAUNCHES = 0
 
-SMEM_LIMIT = 232_448          # shared memory one block may use
-STATIC_SMEM = 32              # the kernel's per-warp maxima (8 floats)
+KINDS = {"none": 0, "ring": 1, "rows": 2, "split": 3}
+
+_N_SM = {}                    # device index -> SM count
 
 
 def _lib() -> ctypes.CDLL:
@@ -27,11 +30,22 @@ def _lib() -> ctypes.CDLL:
         fn = lib.dispatch_quantize
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_int,
+                       *[ctypes.c_int] * 8, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib._argtypes_set = True
     return lib
+
+
+def plan_for(x: torch.Tensor, q: torch.Tensor) -> dq_plan.Plan:
+    """The launch plan of ``x`` (T, D) into the code rows of ``q``."""
+    t, d = x.shape
+    n_sm = _N_SM.get(x.device.index)
+    if n_sm is None:
+        n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+        _N_SM[x.device.index] = n_sm
+    return dq_plan.launch_plan(t, d, x.element_size(), x.data_ptr(),
+                               q.data_ptr(), q.shape[1], n_sm)
 
 
 def dispatch_quantize(x: torch.Tensor, pack: bool = False):
@@ -51,26 +65,24 @@ def dispatch_quantize(x: torch.Tensor, pack: bool = False):
     if x.device.type != "cuda":
         raise ValueError(f"dispatch_quantize runs on cpu or cuda, not {x.device}")
     t, d = x.shape
-    if d < 1 or 4 * d + STATIC_SMEM > SMEM_LIMIT:
-        raise ValueError(f"the kernel keeps a row in shared memory: D must "
-                         f"lie in 1..{(SMEM_LIMIT - STATIC_SMEM) // 4}, "
-                         f"got {d}")
+    if d < 1:
+        raise ValueError(f"D must be at least 1, got {d}")
     width = d + 4 if pack else d
     q = torch.empty((t, width), dtype=torch.int8, device=x.device)
     scale = None if pack else torch.empty((t, 1), dtype=torch.float32,
                                           device=x.device)
-    if t == 0:
+    plan = plan_for(x, q)
+    if plan.kind == "none":
         return q if pack else (q, scale)
-    vec = d % 8 == 0 and x.data_ptr() % 16 == 0 and width % 4 == 0 \
-        and q.data_ptr() % 4 == 0
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _lib().dispatch_quantize(
             x.data_ptr(), int(x.dtype == torch.bfloat16), q.data_ptr(),
             None if scale is None else scale.data_ptr(), t, d, width,
-            int(pack), int(vec), stream)
+            int(pack), KINDS[plan.kind], plan.grid, plan.warps, plan.stages,
+            plan.cluster, plan.slice, int(plan.vec), plan.smem, stream)
     if rc != 0:
         raise RuntimeError(f"dispatch_quantize kernel launch failed with "
-                           f"CUDA error {rc}")
+                           f"CUDA error {rc} ({plan})")
     LAUNCHES += 1
     return q if pack else (q, scale)
