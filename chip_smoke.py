@@ -70,6 +70,36 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    ``prefill`` over prompt + generated tokens (logits within AGREE_ATOL
    where both chose the same experts; served tokens equal to the
    reference's argmax where its margin is clear).
+8a. serve-mtp: MTP speculative decoding on the same cut: 8 prompts of 640
+   tokens (one length: ``fit_draft_head`` takes one array), 32 new tokens
+   each. The draft head (``init_mtp_params`` seed 1) is distilled by
+   ``fit_draft_head`` on those prompts (gen_len 64, 300 steps), then the
+   traffic is served through ``ServingSystem(use_mtp=True)`` twice: per
+   step with the two-decode-step verify (the MLA kernel must launch 2 x
+   iterations x 4 layers exactly) and fused in chunks of 4 (no MLA kernel:
+   the fused verify is plain ``prefill_continue``, as in JAX). Every
+   request must finish, a draft must be accepted, and each served token
+   must be the argmax of a teacher-forced prefill over prompt + served
+   tokens wherever its margin exceeds MTP_MARGIN (expert flips counted as
+   in the agreement phase, via a batch-1 replay). Acceptance, tokens per
+   iteration, TTFT/TPOT p50, decode step p50, ``fit_draft_head`` seconds,
+   peak memory.
+8b. serve-ems: two turns through one ``ServingSystem`` with an
+   ``EMSService`` (blocks of 8): the serve traffic, then each prompt + its
+   32 served tokens + 64 new. Turn 2 must reuse exactly the first turn's
+   whole blocks, run its suffixes through ``prefill_continue``, keep the
+   EMS promote/demote bytes equal to its transfer engine's, launch the MLA
+   kernel decode steps x 4 times in each turn, and give first tokens that
+   agree with a cold prefill of the same prompts that drops no token
+   (logits within AGREE_ATOL where the last token's experts agree). Hit
+   rate, turn-2 prefill time beside the cold prefill's (timed bare, and
+   under turn 2's instrumentation: the device synchronized around it and
+   an expert recorder on its MoE call), and the reuse path's parts (fetch,
+   suffix, store).
+8c. cli: ``repro_torch.launch.serve.main`` in this process on the card
+   (``--arch deepseek-r1 --mtp --mtp-fused --fit-draft --decode-chunk 4``,
+   EMS on): it must finish, show ``reused>0`` for a later rid and fewer
+   iterations than tokens.
 9. serve-ssm: with the DeepSeek-R1 weights freed, Mamba2-780m at full
    width and full depth (48 layers), bf16 random weights from a seed,
    serves the same traffic through the same ``ServingSystem``. Every
@@ -101,8 +131,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    served requests replayed, whose error against the float32 prefill may
    be at most SSM_BF16_RATIO times the bf16 prefill's.
 
-Each path phase (serve, serve-lep, int8, serve-ssm) sets every kernel's
-launch count to 0 just before it and reads the counts just after. The last
+Each path phase (serve, serve-lep, int8, serve-mtp's two serves,
+serve-ems's two turns, cli, serve-ssm) sets every kernel's launch count to
+0 just before it and reads the counts just after; the MLA entry of the
+kernels line lists them by path. The last
 two lines of standard output are a ``{"kernels": [...]}`` JSON object (one
 entry per kernel; ``int8_matmul``'s times are sums over the int8 phase's
 cases) and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -138,6 +170,28 @@ AGREE_SEEDS = (1, 2, 3)      # prompt seeds (offsets of SEED), 3 prompts each
 # H100 at 700 W (PERF.md); a quarter is the most the phase lets pass.
 MAX_FLIP_SHARE = 0.25
 SWEEP_PIECES = (1, 17, 33, 44, 66, 132)     # n_pieces values of --sweep
+# serve-mtp: 8 prompts of one length (fit_draft_head takes one (n_seq,
+# prompt_len) array, as the serve CLI passes it), 32 new tokens each; the
+# draft head from seed 1 is distilled on them over MTP_FIT_GEN generated
+# tokens with fit_draft_head's default 300 Adam steps.
+MTP_N_REQ, MTP_PROMPT_LEN, MTP_NEW = 8, 640, 32
+MTP_FIT_GEN = 64
+MTP_FIT_STEPS = 300
+# Served tokens against the argmax of a teacher-forced prefill over prompt
+# + served tokens. The served decode (8 rows a step) and its replay at
+# batch 1 round differently, and so do the replay and the prefill (the
+# absorbed and unabsorbed forms); where the experts agree each pair lies
+# within AGREE_ATOL (the replay-vs-prefill pair is gated here, as in the
+# agreement phase), so a served logit lies at most 2 x AGREE_ATOL from the
+# prefill's and a top-1/top-2 margin above 4 x AGREE_ATOL cannot flip the
+# token. Positions where the replay and the prefill chose different
+# experts -- or the prefill's capacity buffer dropped the token -- are
+# counted as flips, not checked (at most MAX_FLIP_SHARE of them).
+MTP_MARGIN = 4 * AGREE_ATOL
+# serve-ems: blocks of 8 tokens (the serve CLI's), and each second turn
+# adds the first turn's 32 served tokens and 64 new ones.
+EMS_BLOCK = 8
+EMS_TURN2_NEW = 64
 # Per-row quantization: both versions divide by 127 and by the scale with
 # IEEE f32 division and round half to even, so every code must be equal (a
 # kernel that truncates, rounds half away from zero or multiplies by a
@@ -798,24 +852,33 @@ def serve_requests(cfg):
                     max_new) for i, n in enumerate(lens)]
 
 
-def serve_phase(torch, cfg, params, moe_fn=None, dev="cuda"):
-    """Serve ``serve_requests`` through ``ServingSystem`` (``moe_fn=None``:
-    the default ``moe_capacity``), with every kernel count set to 0 just
-    before and read just after. Returns (summary, counts, final lengths,
-    tokens by rid)."""
+def serve_phase(torch, cfg, params, moe_fn=None, dev="cuda", *, reqs=None,
+                system=None, mla_per_iter=1):
+    """Serve ``reqs`` (default ``serve_requests``) through ``system``
+    (default a new ``ServingSystem(n_prefill=1, decode_batch=8,
+    capacity=2048)``; ``moe_fn=None``: the default ``moe_capacity``), with
+    every kernel count set to 0 just before and
+    read just after. An MLA model must launch the MLA kernel
+    ``mla_per_iter`` times per layer in every decode iteration of this
+    serve (1 for plain decode, 2 for MTP's two-step verify, 0 for the fused
+    verify, which runs no decode step). Returns (summary, counts, final
+    lengths, tokens by rid); with a context cache the summary lists each
+    request's reused tokens."""
     from repro_torch.serving import ServingSystem
 
-    reqs = serve_requests(cfg)
+    reqs = serve_requests(cfg) if reqs is None else reqs
     n_req, max_new = len(reqs), reqs[0].max_new_tokens
     lens = [len(r.prompt) for r in reqs]
-    system = ServingSystem(params, cfg, n_prefill=1, decode_batch=8,
-                           capacity=2048, device=dev, moe_fn=moe_fn)
+    if system is None:
+        system = ServingSystem(params, cfg, n_prefill=1, decode_batch=8,
+                               capacity=2048, device=dev, moe_fn=moe_fn)
 
     # Wall-clock instrumentation around the engines' own calls: both end in
     # a host read of the sampled tokens, so the device work is done.
     prefill_start, prefill_done, steps = {}, {}, []
     pre, dec = system.prefills[0], system.decode
     run0, step0 = pre.run, dec.step_chunk
+    iters0 = dec.iters
 
     def run(req):
         prefill_start[req.rid] = time.perf_counter()
@@ -835,9 +898,12 @@ def serve_phase(torch, cfg, params, moe_fn=None, dev="cuda"):
         torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t_start = time.perf_counter()
-    results = system.serve(reqs)
-    t_end = time.perf_counter()
-    counts = read_counts()
+    try:
+        results = system.serve(reqs)
+    finally:
+        t_end = time.perf_counter()
+        counts = read_counts()
+        del pre.run, dec.step_chunk       # the engines' own methods again
 
     if len(results) != n_req or any(r.shed or len(r.tokens) != max_new
                                     for r in results):
@@ -846,14 +912,15 @@ def serve_phase(torch, cfg, params, moe_fn=None, dev="cuda"):
     for r in results:
         if not all(0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"rid {r.rid}: token out of range")
-    n_steps = dec.iters
+    n_steps = dec.iters - iters0
     # Mamba2: one SSD scan per layer of every prefill; MLA: one decode
     # attention per layer of every decode step.
     name, per, what = (("ssd_scan", len(prefill_done), "prefills")
                        if cfg.is_ssm else
-                       ("mla_attention", n_steps, "decode steps"))
+                       ("mla_attention", mla_per_iter * n_steps,
+                        f"{mla_per_iter} x decode iterations"))
     launches = counts[name]
-    if launches != per * cfg.num_layers or launches == 0:
+    if launches != per * cfg.num_layers or (launches == 0) != (per == 0):
         raise AssertionError(f"{name} launches {launches} != {what} {per} x "
                              f"{cfg.num_layers} layers")
     results = sorted(results, key=lambda r: r.rid)      # prompt_lens order
@@ -879,6 +946,8 @@ def serve_phase(torch, cfg, params, moe_fn=None, dev="cuda"):
     }
     if dev == "cuda":
         summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if system.cc is not None:
+        summary["reused_tokens"] = [r.reused_tokens for r in results]
     final_lens = [n + max_new - 1 for n in lens]
     return summary, counts, final_lens, {r.rid: r.tokens for r in results}
 
@@ -1016,6 +1085,412 @@ def agreement_phase(torch, cfg, params, dev="cuda"):
     if stats["tokens_checked"] == 0:
         raise AssertionError("no position had a margin to check tokens at")
     return stats
+
+
+# ---------------------------------------------------------------------------
+# serve-mtp, serve-ems, cli
+# ---------------------------------------------------------------------------
+
+
+def expert_recorder(torch, when=None, no_drop=False):
+    """``moe_capacity`` with each call's effective experts recorded (only
+    while ``when()`` is true, if given): per token its K experts, sorted,
+    an expert whose capacity buffer dropped the token shifted by
+    ``num_experts`` (so a drop reads as a change). ``no_drop`` sizes every
+    expert's buffer for all the call's tokens, as a decode step of a few
+    rows always has it: the base model of a reference prefill."""
+    from repro_torch.models.moe import (capacity_for, dispatch_indices,
+                                        moe_capacity, route)
+    calls = []
+
+    def moe_fn(p, x, c):
+        cap = x.shape[0] if no_drop else capacity_for(c, x.shape[0])
+        if when is None or when():
+            top_i = route(p.router, x, c)[0]
+            _, valid = dispatch_indices(top_i, c.num_experts, cap)
+            calls.append(torch.where(valid, top_i, top_i + c.num_experts)
+                         .sort(dim=-1).values.cpu())
+        return moe_capacity(p, x, c, capacity=cap)
+
+    return moe_fn, calls
+
+
+def check_served(torch, cfg, params, prompt, served, margin, stats,
+                 dev="cuda", capacity=2048):
+    """Hold ``served`` (tokens a serve emitted after ``prompt``, with
+    ``moe_capacity``) against a teacher-forced prefill of prompt + served
+    tokens: the prompt prefilled as the serve prefilled it (capacity drops
+    included) and the served tokens replayed through ``decode_step`` at
+    batch 1 give the decode path's logits and experts, which must lie
+    within AGREE_ATOL of the prefill's where the experts agree; there each
+    served token must be the prefill's argmax wherever its top-1/top-2
+    margin exceeds ``margin``. The reference prefill drops no token (a
+    decode step of 8 rows never does), so a served position whose token
+    the serve's prefill dropped reads as a flip. Adds to ``stats``."""
+    from repro_torch.models import decode_step, prefill
+
+    moe_fn, calls = expert_recorder(torch)
+    ref_fn, ref_calls = expert_recorder(torch, no_drop=True)
+    n_moe = cfg.num_layers - cfg.first_k_dense
+
+    def tok(ids):
+        return torch.tensor(ids, dtype=torch.int32, device=dev)
+
+    logits, caches = prefill(params, cfg, {"tokens": tok([prompt])},
+                             capacity, moe_fn, cache_dtype=torch.float32)
+    replay = [logits[0, -1].float()]
+    experts = [torch.stack([c[-1] for c in calls[-n_moe:]])]
+    del logits
+    for i, t in enumerate(served[:-1]):
+        lg, caches = decode_step(params, cfg, tok([[t]]), caches,
+                                 tok([len(prompt) + i]), moe_fn)
+        replay.append(lg[0].float())
+        experts.append(torch.stack([c[0] for c in calls[-n_moe:]]))
+    del caches
+    replay = torch.stack(replay)
+    ref_logits, _ = prefill(params, cfg,
+                            {"tokens": tok([prompt + served[:-1]])},
+                            capacity, ref_fn, cache_dtype=torch.float32)
+    ref = ref_logits[0, len(prompt) - 1:].float()
+    del ref_logits
+    top2 = ref.topk(2, dim=-1)
+    stats["positions"] += len(served)
+    stats["replay_argmax_equal_served"] += sum(
+        a == b for a, b in zip(replay.argmax(-1).tolist(), served))
+    for i in range(len(served)):
+        ref_experts = torch.stack([c[len(prompt) - 1 + i]
+                                   for c in ref_calls[-n_moe:]])
+        err = (replay[i] - ref[i]).abs().max().item()
+        if not torch.equal(experts[i], ref_experts):
+            stats["expert_flips"] += 1
+            continue
+        stats["max_abs_logit_err"] = max(stats["max_abs_logit_err"], err)
+        if err > AGREE_ATOL:
+            raise AssertionError(f"position {i}: decode replay vs prefill "
+                                 f"max |dlogit| {err:.4f} > {AGREE_ATOL}")
+        gap = (top2.values[i, 0] - top2.values[i, 1]).item()
+        if gap > margin:
+            stats["tokens_checked"] += 1
+            if served[i] != top2.indices[i, 0].item():
+                raise AssertionError(
+                    f"position {i}: served {served[i]}, prefill argmax "
+                    f"{top2.indices[i, 0].item()} (margin {gap:.4f})")
+
+
+def new_check_stats(margin):
+    return {"margin": margin, "positions": 0, "tokens_checked": 0,
+            "expert_flips": 0, "max_abs_logit_err": 0.0,
+            "replay_argmax_equal_served": 0}
+
+
+def close_check(stats, what):
+    if stats["expert_flips"] > MAX_FLIP_SHARE * stats["positions"]:
+        raise AssertionError(f"{what}: expert choice differs at "
+                             f"{stats['expert_flips']} of "
+                             f"{stats['positions']} positions")
+    if stats["tokens_checked"] == 0:
+        raise AssertionError(f"{what}: no position had a margin to check "
+                             "tokens at")
+    return stats
+
+
+def mtp_requests(cfg):
+    """serve-mtp's traffic: MTP_N_REQ prompts of MTP_PROMPT_LEN tokens
+    (seed SEED + 10), MTP_NEW new tokens each."""
+    import numpy as np
+    from repro_torch.serving import Request
+
+    rng = np.random.RandomState(SEED + 10)
+    return [Request(i, [int(t) for t in rng.randint(0, cfg.vocab_size,
+                                                     MTP_PROMPT_LEN)],
+                    MTP_NEW) for i in range(MTP_N_REQ)]
+
+
+def serve_mtp_phase(torch, cfg, params, dev="cuda"):
+    """MTP speculative decoding served on the R1 cut. The draft head
+    (``init_mtp_params`` seed 1) is distilled by ``fit_draft_head`` on the
+    served prompts; then the traffic is served twice through
+    ``ServingSystem(use_mtp=True)``: per step with the two-decode-step
+    verify (each iteration launches the MLA kernel twice per layer), and
+    with the fused verify in chunks of 4 iterations (one two-token
+    ``prefill_continue``, plain PyTorch as in JAX: no MLA kernel). Every
+    request must finish, some draft must be accepted, and the served tokens
+    must be the base model's greedy tokens (``check_served``)."""
+    import numpy as np
+    from repro_torch.core import fit_draft_head, init_mtp_params
+    from repro_torch.serving import ServingSystem
+
+    reqs = mtp_requests(cfg)
+    head = init_mtp_params(cfg, seed=1, device=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    head = fit_draft_head(params, cfg, head,
+                          prompts=np.asarray([r.prompt for r in reqs],
+                                             np.int32),
+                          gen_len=MTP_FIT_GEN, steps=MTP_FIT_STEPS)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    out = {"requests": len(reqs), "prompt_len": MTP_PROMPT_LEN,
+           "max_new_tokens": MTP_NEW,
+           "fit_draft_head_s": time.perf_counter() - t0,
+           "fit_steps": MTP_FIT_STEPS, "fit_gen_len": MTP_FIT_GEN}
+    if dev == "cuda":
+        out["fit_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts, served = {}, {}
+    for name, kw, per_iter in (("unfused", {}, 2),
+                               ("fused", {"mtp_fused": True,
+                                          "decode_chunk": 4}, 0)):
+        system = ServingSystem(params, cfg, n_prefill=1, decode_batch=8,
+                               capacity=2048, device=dev, use_mtp=True,
+                               mtp_params=head, **kw)
+        summary, counts[name], _, served[name] = serve_phase(
+            torch, cfg, params, dev=dev, reqs=reqs, system=system,
+            mla_per_iter=per_iter)
+        if system.decode.mtp_fused != (name == "fused"):
+            raise AssertionError(f"{name}: the engine's verify is not {name}")
+        recs = system.scheduler.trace_records()
+        iters = sum(r["decode_iters"] for r in recs)
+        toks = sum(r["decode_tokens"] for r in recs)
+        if toks <= iters:
+            raise AssertionError(f"{name}: no draft was accepted "
+                                 f"({toks} tokens in {iters} iterations)")
+        summary.update({"mtp_iterations": iters, "decode_tokens": toks,
+                        "tokens_per_iteration": toks / iters,
+                        "acceptance": toks / iters - 1,
+                        "engine_iterations": system.decode.iters})
+        out[name] = summary
+        del system
+    out["tokens_identical_fused_vs_unfused"] = sum(
+        a == b for rid in served["unfused"]
+        for a, b in zip(served["unfused"][rid], served["fused"][rid])) / (
+        MTP_N_REQ * MTP_NEW)
+    for name in ("unfused", "fused"):
+        stats = new_check_stats(MTP_MARGIN)
+        for r in reqs:
+            check_served(torch, cfg, params, r.prompt, served[name][r.rid],
+                         MTP_MARGIN, stats, dev)
+        out[f"check_{name}"] = close_check(stats, f"serve-mtp {name}")
+    del head
+    return out, counts
+
+
+def serve_ems_phase(torch, cfg, params, first_tokens, dev="cuda"):
+    """Two turns of the serve traffic through one ``ServingSystem`` with
+    an ``EMSService`` context cache (blocks of EMS_BLOCK tokens, tag
+    ``cfg.name``): turn 1 the ``serve_requests`` prompts, turn 2 each
+    prompt + its 32 served tokens + EMS_TURN2_NEW new ones. Turn 2 must
+    reuse exactly the first turn's whole blocks, run its suffixes through
+    ``prefill_continue``, and keep the EMS byte books equal to its transfer
+    engine's; each turn-2 first token is held against a cold prefill of the
+    same prompt, which drops no token (logits within AGREE_ATOL where the
+    last token's experts agree, the argmax where the margin exceeds 2 x
+    AGREE_ATOL). Reports the hit rate, turn-2 prefill time beside the cold
+    prefill's (bare, and under turn 2's instrumentation: part timers that
+    synchronize the device, an expert recorder on the suffix's MoE calls),
+    and the time of each part of the reuse path."""
+    import numpy as np
+    from repro_torch.mempool import EMSService, MemoryPool
+    from repro_torch.models import prefill
+    from repro_torch.serving import Request, ServingSystem, cache_ops
+
+    turn1 = serve_requests(cfg)
+    rng = np.random.RandomState(SEED + 20)
+    ems = EMSService(MemoryPool(n_nodes=8), block_tokens=EMS_BLOCK,
+                     model_tag=cfg.name)
+    # moe_capacity, recording experts only inside a suffix run (below).
+    in_suffix = [False]
+    moe_fn, suffix_calls = expert_recorder(torch, lambda: in_suffix[0])
+    n_moe = cfg.num_layers - cfg.first_k_dense
+    system = ServingSystem(params, cfg, n_prefill=1, decode_batch=8,
+                           capacity=2048, context_cache=ems, moe_fn=moe_fn,
+                           device=dev)
+    pre = system.prefills[0]
+    s1, c1, _, tok1 = serve_phase(torch, cfg, params, dev=dev, reqs=turn1,
+                                  system=system)
+    if any(tok1[r.rid][:1] != first_tokens[r.rid][:1] for r in turn1):
+        raise AssertionError("turn 1's first tokens differ from the serve "
+                             "phase's (the same prompts, cache empty)")
+    turn2 = [Request(r.rid, r.prompt + tok1[r.rid] + [
+        int(t) for t in rng.randint(0, cfg.vocab_size, EMS_TURN2_NEW)],
+        r.max_new_tokens) for r in turn1]
+
+    # Times of the reuse path's parts, each ending in a synchronize.
+    parts = {"fetch_s": [], "suffix_s": [], "store_s": []}
+    fetch0, cont0, pack0 = ems.fetch, pre._continue_chunks, \
+        cache_ops.pack_blocks
+    last_logits = {}
+
+    def timed(key, fn):
+        def wrapped(*a, **kw):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            parts[key].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def suffix(tokens, caches, pos, chunk, fresh):
+        # The last token's row in the last call: the calls' widths as
+        # _continue_chunks takes them (the chunk, clamped to the headroom).
+        st, p0, part = 0, pos, 0
+        while st < len(tokens):
+            part = min(min(chunk, pre.capacity - p0), len(tokens) - st)
+            st, p0 = st + part, p0 + part
+        suffix_calls.clear()
+        in_suffix[0] = True
+        try:
+            out = cont0(tokens, caches, pos, chunk, fresh)
+        finally:
+            in_suffix[0] = False
+        last_logits[len(last_logits)] = (
+            out[0].float(),
+            torch.stack([c[part - 1] for c in suffix_calls[-n_moe:]]))
+        return out
+
+    ems.fetch = timed("fetch_s", fetch0)
+    pre._continue_chunks = timed("suffix_s", suffix)
+    cache_ops.pack_blocks = timed("store_s", pack0)
+    suffix0 = pre.suffix_calls
+    try:
+        s2, c2, _, tok2 = serve_phase(torch, cfg, params, dev=dev,
+                                      reqs=turn2, system=system)
+    finally:
+        del ems.fetch, pre._continue_chunks
+        cache_ops.pack_blocks = pack0
+    want = [len(r.prompt) // EMS_BLOCK * EMS_BLOCK for r in turn1]
+    got = s2["reused_tokens"]
+    if got != want:
+        raise AssertionError(f"turn-2 reused tokens {got} != whole blocks "
+                             f"of turn 1 {want}")
+    if pre.suffix_calls <= suffix0 or len(last_logits) != len(turn2):
+        raise AssertionError(f"suffix calls {pre.suffix_calls - suffix0}, "
+                             f"suffix runs {len(last_logits)}")
+    ems.flush()
+    st = ems.ems_stats()
+    books = (ems.transfer.bytes_promoted, ems.transfer.bytes_demoted)
+    if (st["promote_bytes"], st["demote_bytes"]) != books or books[1] == 0:
+        raise AssertionError(f"EMS promote/demote bytes "
+                             f"{(st['promote_bytes'], st['demote_bytes'])} "
+                             f"!= transfer engine's books {books}")
+
+    # Cold prefills of the turn-2 prompts, each timed bare and under turn
+    # 2's instrumentation (an expert recorder on every MoE call, the device
+    # synchronized before and after); then the first token.
+    cold_fn, calls = expert_recorder(torch, no_drop=True)
+    inst_fn, inst_calls = expert_recorder(torch)
+    stats = {"margin": 2 * AGREE_ATOL, "checked": 0, "expert_flips": 0,
+             "max_abs_logit_err": 0.0}
+
+    def cold_time(toks, fn):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = prefill(params, cfg, {"tokens": toks}, 2048, fn,
+                            cache_dtype=torch.float32)
+        int(torch.argmax(logits[0, -1]))          # ends in a host read
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    cold_s, cold_inst_s = [], []
+    for k, r in enumerate(turn2):
+        first = tok2[r.rid][0]
+        toks = torch.tensor([r.prompt], dtype=torch.int32, device=dev)
+        cold_s.append(cold_time(toks, None))
+        cold_inst_s.append(cold_time(toks, inst_fn))
+        inst_calls.clear()
+        calls.clear()
+        logits, _ = prefill(params, cfg, {"tokens": toks}, 2048, cold_fn,
+                            cache_dtype=torch.float32)
+        cold = logits[0, -1].float()
+        del logits
+        cold_experts = torch.stack([c[-1] for c in calls[-n_moe:]])
+        ems_last, ems_experts = last_logits[k]
+        if first != int(ems_last.argmax()):
+            raise AssertionError(f"rid {r.rid}: served first token "
+                                 f"{first} is not its logits' argmax")
+        if not torch.equal(ems_experts, cold_experts):
+            stats["expert_flips"] += 1
+            continue
+        err = (ems_last - cold).abs().max().item()
+        stats["max_abs_logit_err"] = max(stats["max_abs_logit_err"], err)
+        if err > AGREE_ATOL:
+            raise AssertionError(f"rid {r.rid}: EMS path vs cold prefill "
+                                 f"max |dlogit| {err:.4f} > {AGREE_ATOL}")
+        top2 = cold.topk(2)
+        gap = (top2.values[0] - top2.values[1]).item()
+        if gap > stats["margin"]:
+            stats["checked"] += 1
+            if first != top2.indices[0].item():
+                raise AssertionError(f"rid {r.rid}: EMS first token "
+                                     f"{first}, cold prefill "
+                                     f"{top2.indices[0].item()} (margin "
+                                     f"{gap:.4f})")
+    if stats["expert_flips"] > MAX_FLIP_SHARE * len(turn2):
+        raise AssertionError(f"EMS first tokens: expert choice differs at "
+                             f"{stats['expert_flips']} of {len(turn2)}")
+    s2.update({"turn2_prompt_lens": [len(r.prompt) for r in turn2],
+               "suffix_calls": pre.suffix_calls - suffix0,
+               "suffix_widths": sorted(pre.suffix_widths),
+               "cold_prefill_s": cold_s,
+               "cold_prefill_p50_s": statistics.median(cold_s),
+               "cold_prefill_instrumented_s": cold_inst_s,
+               "cold_prefill_instrumented_p50_s": statistics.median(
+                   cold_inst_s),
+               "ems_prefill_p50_s": statistics.median(s2["prefill_s"]),
+               **parts,
+               "first_token_check": stats})
+    out = {"turn1": s1, "turn2": s2, "ems": st,
+           "pool": ems.pool.stats()}
+    return out, {"turn1": c1, "turn2": c2}
+
+
+def cli_phase(torch, dev="cuda"):
+    """``repro_torch.launch.serve.main`` in this process, on the card:
+    the arch's smoke variant with fused MTP, a draft head fitted on the
+    served prompts, 4 iterations a sync and the EMS cache on (the CLI's
+    default). It must finish, reuse the shared prefix in a later request,
+    and take fewer iterations than tokens."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "deepseek-r1", "--mtp", "--mtp-fused", "--fit-draft",
+            "--decode-chunk", "4", "--device", dev]
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = buf.getvalue()
+    rows = re.findall(r"rid=(\d+) prefill@\d+ reused=(\d+) computed=(\d+) "
+                      r"iters=(\d+) tokens=\[([^\]]*)\]", text)
+    if not rows:
+        raise AssertionError(f"cli printed no request line:\n{text}")
+    reused = {int(r[0]): int(r[1]) for r in rows}
+    iters = sum(int(r[3]) for r in rows)
+    tokens = sum(len(r[4].split(",")) for r in rows)
+    if not any(v > 0 for rid, v in reused.items() if rid > 0):
+        raise AssertionError(f"cli: no later request reused a prefix: "
+                             f"{reused}")
+    if iters >= tokens:
+        raise AssertionError(f"cli: {iters} iterations for {tokens} tokens")
+    for key in ("SLO summary (virtual clock):", "ems: hit_rate=",
+                "transfer:"):
+        if key not in text:
+            raise AssertionError(f"cli printed no {key!r} line")
+    return {"argv": argv, "wall_s": wall, "requests": len(rows),
+            "reused": reused, "iterations": iters, "tokens": tokens,
+            "kernel_launches": counts,
+            "lines": [ln for ln in text.splitlines()
+                      if ln.startswith(("SLO summary", "ems:", "transfer:"))]}
 
 
 def ssd_bound(b, s, h, p, n, q):
@@ -1541,6 +2016,17 @@ def main(argv=None) -> int:
     agree = agreement_phase(torch, cfg, params)
     log(f"agreement: {json.dumps(agree)}")
 
+    tp = time.perf_counter()
+    mtp, mtp_counts = serve_mtp_phase(torch, cfg, params)
+    log(f"serve-mtp: {json.dumps(mtp)} on {device}")
+    log(f"serve-mtp: phase {time.perf_counter() - tp:.1f} s")
+    tp = time.perf_counter()
+    ems, ems_counts = serve_ems_phase(torch, cfg, params, tokens)
+    log(f"serve-ems: {json.dumps(ems)} on {device}")
+    log(f"serve-ems: phase {time.perf_counter() - tp:.1f} s")
+    cli = cli_phase(torch)
+    log(f"cli: {json.dumps(cli)} on {device}")
+
     # Mamba2-780m, whole: the DeepSeek-R1 weights go first, so the serve's
     # peak memory is the model's own (the engines of the earlier serves sit
     # in reference cycles through their instrumented methods).
@@ -1577,6 +2063,15 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/mla_decode_attention.cu",
         "replaces": "src/repro/kernels/mla_attention/mla_attention.py:69",
         "launches": counts["mla_attention"],
+        # Each path's own run, counts set to 0 just before it.
+        "launches_by_path": {
+            "serve": counts["mla_attention"],
+            "serve-lep": lep_counts["mla_attention"],
+            "serve-mtp unfused": mtp_counts["unfused"]["mla_attention"],
+            "serve-mtp fused": mtp_counts["fused"]["mla_attention"],
+            "serve-ems turn 1": ems_counts["turn1"]["mla_attention"],
+            "serve-ems turn 2": ems_counts["turn2"]["mla_attention"],
+            "cli": cli["kernel_launches"]["mla_attention"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "graph_ms": main_row["graph_ms"],

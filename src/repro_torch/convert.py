@@ -5,7 +5,8 @@ segment's layer weights on a leading axis. :func:`params_from_jax_numpy`
 takes that tree with numpy arrays at the leaves and unstacks it into one
 module per layer, so both sides of a test run the same weights;
 :func:`param_tree` goes the other way and lays a port model's weights out
-as that tree. :func:`quantized_linear_from_jax_numpy` and
+as that tree. :func:`mtp_from_jax_numpy` carries the draft head of
+``repro/core/mtp.py`` across. :func:`quantized_linear_from_jax_numpy` and
 :func:`quantized_tree_from_jax_numpy` carry the outputs of the JAX
 package's ``quant/int8.py`` across.
 """
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.mtp import MTPHead
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model, build_plan
 from repro_torch.models.moe import MoE
@@ -66,6 +68,21 @@ def _parts(kind: str):
     if kind == "mamba_tail":
         return ("mamba",)
     return ("attn", "moe" if kind == "moe" else "mlp")
+
+
+def mtp_from_jax_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                       device: DeviceLike = None) -> MTPHead:
+    """The draft head of the JAX package's ``init_mtp_params`` /
+    ``fit_draft_head`` (numpy leaves ``ln``, ``mix``, ``proj``) as an
+    :class:`MTPHead` on ``device``."""
+    head = MTPHead(cfg, resolve_device(device))
+    names = dict(head.named_parameters())
+    if set(names) != set(tree):
+        raise ValueError(f"mtp: port weights {sorted(names)} != JAX weights "
+                         f"{sorted(tree)}")
+    for name, param in names.items():
+        _load(param, tree[name], f"mtp.{name}")
+    return head
 
 
 def moe_from_jax_numpy(tree: Dict[str, Any], cfg: ModelConfig,

@@ -8,3 +8,5 @@ from repro_torch.mempool.pool import (  # noqa: F401
     UB_PLANE,
     VPC_PLANE,
 )
+from repro_torch.mempool.context_cache import ContextCache  # noqa: F401
+from repro_torch.mempool.ems import EMSService  # noqa: F401

@@ -3,6 +3,7 @@ from repro_torch.models.model import (  # noqa: F401
     build_plan,
     cache_batch_axes,
     decode_loop,
+    decode_loop_mtp,
     decode_ready_caches,
     decode_step,
     init_params,

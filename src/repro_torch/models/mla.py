@@ -221,9 +221,17 @@ def mla_extend(p: MLA, x: torch.Tensor, cache: torch.Tensor, offset,
         start = torch.clamp(offset, 0, max(cap - s, 0))
         cache[:, (start + steps).long()] = new_entry
     else:
-        rows = torch.arange(b, device=x.device)[:, None].expand(b, s)
-        keep = positions < cap       # out-of-bounds rows are dropped
-        cache[rows[keep], positions[keep].long()] = new_entry[keep]
+        # Out-of-bounds positions are dropped. One token at a time, each
+        # row's entry goes to its (clamped) position or the row's old value
+        # is written back: no two writes of a call share an index, and no
+        # boolean mask makes the host wait for the device.
+        rows = torch.arange(b, device=x.device)
+        keep = positions < cap
+        idx = positions.clamp(max=cap - 1).long()
+        for j in range(s):
+            old = cache[rows, idx[:, j]]
+            cache[rows, idx[:, j]] = torch.where(keep[:, j, None],
+                                                 new_entry[:, j], old)
 
     wk = p.wk_b.reshape(kvr, h, nope)
     q_lat = torch.einsum("bshe,rhe->bshr", q_nope.float(), wk.float())

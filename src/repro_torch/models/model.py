@@ -15,8 +15,11 @@ tensors.
 
 Entry points: ``prefill`` (full sequence + cache materialization),
 ``decode_step`` (one token), ``decode_loop`` (N greedy steps with per-slot
-done/capacity masks) and ``prefill_continue`` (teacher-forced continuation
-against an existing cache). MoE execution is pluggable via ``moe_fn``; the
+done/capacity masks), ``decode_loop_mtp`` (N MTP speculative iterations,
+up to 2N tokens per host sync) and ``prefill_continue`` (teacher-forced
+continuation against an existing cache: the EMS-reuse suffix, the
+bounded-shape prefill chunk and, with per-request offsets, the MTP fused
+verification). MoE execution is pluggable via ``moe_fn``; the
 default is the single-device capacity implementation.
 
 Caches keep the JAX layout: per MLA segment ``{"mla": (L,B,S,kvr+rope),
@@ -347,24 +350,29 @@ def _mamba_decode_segment(blocks, x: torch.Tensor, state: SSMState,
 
 
 def _save_frozen(cfg: ModelConfig, caches, cache_len: torch.Tensor,
-                 frozen: Optional[List[int]]):
+                 frozen: Optional[List[int]], span: int = 1):
     """What a step may overwrite in a slot that must stay frozen. MLA: every
-    slot's latent row at its write position (clamped into the buffer),
-    chosen on the device. Mamba: the whole state of the slots ``frozen``
-    (host indices), and only theirs: at full width a Mamba state is
-    hundreds of MB."""
+    slot's latent rows at its ``span`` write positions from ``cache_len``
+    (clamped into the buffer), chosen on the device. Mamba: the whole state
+    of the slots ``frozen`` (host indices), and only theirs: at full width a
+    Mamba state is hundreds of MB; ``frozen=None`` (the host cannot name
+    them: MTP's acceptance decides) saves every slot's state."""
     saved = {}
     for seg in build_plan(cfg):
         c = caches[seg.name]
         if seg.kind == "mamba_tail":
-            if frozen:
+            if frozen is None:
+                saved[seg.name] = (None, c.h.clone(), c.conv.clone())
+            elif frozen:
                 idx = torch.tensor(frozen, device=c.h.device)
                 saved[seg.name] = (idx, c.h[:, idx], c.conv[:, idx])
         else:
             t = c["mla"]
-            idx = cache_len.clamp(max=t.shape[2] - 1).long()
             rows = torch.arange(t.shape[1], device=t.device)
-            saved[seg.name] = (rows, idx, t[:, rows, idx].clone())
+            saved[seg.name] = [
+                (rows, idx, t[:, rows, idx].clone()) for idx in
+                ((cache_len + k).clamp(max=t.shape[2] - 1).long()
+                 for k in range(span))]
     return saved
 
 
@@ -376,14 +384,21 @@ def _restore_frozen(cfg: ModelConfig, caches, saved,
         c = caches[seg.name]
         if seg.kind == "mamba_tail":
             idx, h_old, conv_old = saved[seg.name]
-            c.h[:, idx] = h_old
             # exact: a step may have upcast the window from bf16 to f32
-            c.conv[:, idx] = conv_old.to(c.conv.dtype)
+            conv_old = conv_old.to(c.conv.dtype)
+            if idx is None:
+                c.h.copy_(torch.where(live[None, :, None, None, None], c.h,
+                                      h_old))
+                c.conv.copy_(torch.where(live[None, :, None, None], c.conv,
+                                         conv_old))
+            else:
+                c.h[:, idx] = h_old
+                c.conv[:, idx] = conv_old
         else:
             t = c["mla"]
-            rows, idx, old = saved[seg.name]
-            t[:, rows, idx] = torch.where(live[None, :, None],
-                                          t[:, rows, idx], old)
+            for rows, idx, old in saved[seg.name]:
+                t[:, rows, idx] = torch.where(live[None, :, None],
+                                              t[:, rows, idx], old)
 
 
 def decode_loop(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
@@ -454,6 +469,87 @@ def decode_loop(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
         lives.append(live)
     return (torch.stack(emitted, 1), torch.stack(lives, 1), tok, caches,
             cache_len)
+
+
+# ---------------------------------------------------------------------------
+# Multi-iteration MTP speculative decode (the serving fast path, §4.2.4)
+# ---------------------------------------------------------------------------
+
+
+def decode_loop_mtp(params: Model, mtp: Any, cfg: ModelConfig,
+                    tokens: torch.Tensor, drafts: torch.Tensor,
+                    caches: Dict[str, Any], cache_len, n_iters: int, *,
+                    steps_left: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
+                    greedy: bool = True, fused_verify: bool = False,
+                    moe_fn: Optional[MoeFn] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor, Dict[str, Any],
+                               torch.Tensor]:
+    """``n_iters`` MTP iterations without a host sync between them -- up to
+    ``2 * n_iters`` tokens per sync (the JAX package runs them in one
+    ``lax.scan``; here a Python loop).
+
+    Each iteration is one :func:`repro_torch.core.mtp.mtp_step`: base and
+    draft verification (two decode steps, or ONE fused two-token forward
+    when ``fused_verify``), sampling, per-slot accept/reject and the next
+    draft. Accepted iterations advance ``cache_len`` by 2, rejected ones by
+    1, so lengths diverge within the batch.
+
+    A slot is live while it still wants tokens (``steps_left > 0``) and both
+    writes fit (``cache_len + 2 <= capacity``); frozen slots keep their
+    token, draft, cache rows and ``cache_len`` bit-exactly. Liveness depends
+    on acceptance, so it stays on the device: the two rows an iteration may
+    write in each slot (MLA) are saved and restored by a select, and no
+    iteration reads anything back to the host. (A Mamba state is saved
+    whole; a rejected draft's SSM update is not rolled back, as in the JAX
+    package.)
+
+    tokens/drafts: (B,) int32, the last committed token and its proposed
+    successor. steps_left: (B,) tokens each slot still wants (default
+    ``2 * n_iters``). Returns ``(emitted (B, n_iters, 2), accepted (B,
+    n_iters), live (B, n_iters), tokens, drafts, caches, cache_len)``;
+    ``emitted[:, j]`` is meaningful only where ``live[:, j]``, and
+    ``emitted[:, j, 1]`` only where also ``accepted[:, j]``.
+    """
+    from repro_torch.core import mtp as mtp_mod  # core.mtp imports us
+
+    if tokens.ndim != 1:
+        raise ValueError(f"decode_loop_mtp wants tokens of shape (B,), "
+                         f"got {tuple(tokens.shape)}")
+    if n_iters < 1:
+        raise ValueError(f"decode_loop_mtp needs n_iters >= 1, got {n_iters}")
+    b = tokens.shape[0]
+    dev = tokens.device
+    cache_len = _as_len(cache_len, dev).expand(b).clone()
+    if steps_left is None:
+        left = torch.full((b,), 2 * n_iters, dtype=torch.int32, device=dev)
+    else:
+        left = _as_len(steps_left, dev).clamp(min=0)
+    cap = _cache_capacity(cfg, caches)
+    caches = _with_lengths(cfg, decode_ready_caches(cfg, caches), cache_len)
+    tok, drf = tokens.to(torch.int32), drafts.to(torch.int32)
+    ems, accs, lives = [], [], []
+    for _ in range(n_iters):
+        live = left > 0
+        if cap is not None:
+            live &= cache_len + 2 <= cap   # base + speculative writes fit
+        saved = _save_frozen(cfg, caches, cache_len, None, span=2)
+        em, acc, x_next, d_next, caches, new_len = mtp_mod.mtp_step(
+            params, mtp, cfg, tok, drf, caches, cache_len, generator,
+            moe_fn, greedy, fused_verify)
+        _restore_frozen(cfg, caches, saved, live)
+        acc = acc & live
+        tok = torch.where(live, x_next, tok)
+        drf = torch.where(live, d_next, drf)
+        cache_len = torch.where(live, new_len, cache_len)
+        left = left - torch.where(live, 1 + acc.to(torch.int32), 0)
+        caches = _with_lengths(cfg, caches, cache_len)
+        ems.append(em)
+        accs.append(acc)
+        lives.append(live)
+    return (torch.stack(ems, 1), torch.stack(accs, 1), torch.stack(lives, 1),
+            tok, drf, caches, cache_len)
 
 
 # ---------------------------------------------------------------------------

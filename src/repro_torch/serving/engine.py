@@ -3,11 +3,12 @@
 Three independently scalable pools, communicating only via explicit KV
 interfaces:
 
-* :class:`PrefillEngine`  -- prompt processing.
+* :class:`PrefillEngine`  -- prompt processing + EMS context-cache reuse/store
+  (reused prefixes skip computation; suffixes run with position offsets).
 * :class:`DecodeEngine`   -- continuous-batched autoregressive decode over
   fixed slots whose allocation/eviction and per-request ``cache_len``
   accounting live in :class:`~repro_torch.serving.scheduler.DecodeSlotManager`;
-  optional two-microbatch interleaving
+  optional MTP speculative decoding and two-microbatch interleaving
   (:class:`~repro_torch.serving.scheduler.MicrobatchInterleaver`).
 * :class:`ServingSystem`  -- the peer-to-peer glue. Every scheduling
   *decision* (prefill routing policy, SLO admission control, trace/clock
@@ -17,9 +18,7 @@ interfaces:
 
 The JAX package ``jit``s each step and donates the cache buffers; here the
 steps run eagerly on the engines' device and update the caches in place.
-Every engine runs on CUDA unless the caller passes ``device="cpu"``. MTP
-speculative decoding and the EMS context cache arrive with later slices of
-the port; asking for them raises ``NotImplementedError``.
+Every engine runs on CUDA unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -31,7 +30,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import mtp as mtp_mod
 from repro_torch.device import DeviceLike, check_on, resolve_device
+from repro_torch.mempool.context_cache import ContextCache
+from repro_torch.mempool.ems import EMSService
 from repro_torch.models import model as model_mod
 from repro_torch.serving import cache_ops
 from repro_torch.serving.faults import FaultInjector
@@ -87,26 +89,33 @@ def _set(t: torch.Tensor, i: int, value) -> torch.Tensor:
 
 
 class PrefillEngine:
+    #: tokens per prefill_continue call on the EMS-reuse suffix path (the
+    #: tail chunk is padded to this length, so every call has one shape).
+    SUFFIX_CHUNK = 32
+
     def __init__(self, params, cfg: ModelConfig, capacity: int,
-                 context_cache: Optional[Any] = None,
+                 context_cache: Optional[ContextCache] = None,
                  instance_id: int = 0, moe_fn=None,
                  prefill_chunk: Optional[int] = None,
                  device: DeviceLike = None):
-        if context_cache is not None:
-            raise NotImplementedError(
-                "the EMS context cache arrives with a later slice of the port")
         self.device = resolve_device(device)
         check_on(self.device, params.embed, "params")
         self.params, self.cfg, self.capacity = params, cfg, capacity
+        self.cc = context_cache
         self.instance_id = instance_id
         self.moe_fn = moe_fn
+        # EMS device-tier tag: blocks this instance computes land (dirty)
+        # in its own HBM tier and write back to the shared pool async.
+        self._ems_tag = f"prefill{instance_id}"
         self.load = 0  # in-flight prompt tokens (scheduler signal)
         # Fresh prompts, when set, run through chunked prefill_continue
         # calls of this width (offset 0 on a fresh cache == prefill).
+        # Fresh-path and EMS-suffix dispatches are counted separately.
         self.prefill_chunk = prefill_chunk
         self.continue_calls = 0            # fresh-path dispatches
         self.continue_widths: set = set()  # fresh-path call widths
-        self.suffix_calls = 0              # EMS-suffix dispatches (no EMS yet)
+        self.suffix_calls = 0              # EMS-suffix dispatches
+        self.suffix_widths: set = set()
         self._chunkable = model_mod.supports_prefill_continue(cfg, capacity)
 
     def _fresh_cache(self):
@@ -121,7 +130,8 @@ class PrefillEngine:
             return float("nan")
         return 1.0 - len(self.continue_widths) / self.continue_calls
 
-    def _continue_chunks(self, tokens, caches, pos: int, chunk: int):
+    def _continue_chunks(self, tokens, caches, pos: int, chunk: int,
+                         fresh: bool):
         """Feed ``tokens`` at positions ``pos..`` through prefill_continue
         calls of bounded width ``chunk`` (tail padded, so every call has one
         of few shapes). Returns (last_logits_row, caches, end_pos); padded
@@ -139,8 +149,12 @@ class PrefillEngine:
             part = tokens[st:st + width]
             toks = torch.tensor([list(part) + [0] * (width - len(part))],
                                 dtype=torch.int32, device=self.device)
-            self.continue_calls += 1
-            self.continue_widths.add(width)
+            if fresh:
+                self.continue_calls += 1
+                self.continue_widths.add(width)
+            else:
+                self.suffix_calls += 1
+                self.suffix_widths.add(width)
             logits, caches = model_mod.prefill_continue(
                 self.params, self.cfg, toks, caches, pos, self.moe_fn)
             pos += len(part)
@@ -151,22 +165,82 @@ class PrefillEngine:
     def run(self, req: Request) -> Tuple[int, Any, RequestResult]:
         """Process one prompt. Returns (first_token, caches(B=1), result)."""
         prompt = list(req.prompt)
+        cfg = self.cfg
         res = RequestResult(req.rid, [], prefill_instance=self.instance_id)
         self.load += len(prompt)
         try:
-            if self.prefill_chunk and self._chunkable:
+            reuse_len = 0
+            caches = None
+            if self.cc is not None and cfg.attention_kind != "none" \
+                    and not cfg.is_hybrid:
+                reuse_len, keys = self.cc.match_prefix(prompt)
+                reuse_len = min(reuse_len, len(prompt) - 1)
+                reuse_len -= reuse_len % self.cc.block
+                keys = keys[: reuse_len // self.cc.block]
+                if reuse_len > 0:
+                    # Resolve through the cache service (EMS: engine-HBM
+                    # tier first, then pooled tier with an RDMA promote). A
+                    # block evicted between match and fetch shortens the
+                    # returned prefix: shrink the reuse and recompute the
+                    # rest.
+                    flats = self.cc.fetch(keys, engine=self._ems_tag)
+                    if len(flats) < len(keys):
+                        reuse_len = len(flats) * self.cc.block
+                    if reuse_len > 0:
+                        caches = self._fresh_cache()
+                        tmpl = cache_ops.seq_slice(cfg, caches, 0,
+                                                   self.cc.block)
+                        for bi, flat in enumerate(flats):
+                            payload = cache_ops.unpack_payload(flat, tmpl)
+                            caches = cache_ops.seq_insert(
+                                cfg, caches, payload, bi * self.cc.block)
+            if reuse_len > 0:
+                # Suffix-only computation: teacher-forced continuation from
+                # the reused prefix (positions offset by reuse_len), in
+                # chunked prefill_continue calls (a cache that
+                # prefill_continue cannot serve takes the token loop).
+                if not self._chunkable:
+                    logits = None
+                    cl = torch.tensor(reuse_len, dtype=torch.int32,
+                                      device=self.device)
+                    for tok in prompt[reuse_len:]:
+                        t = torch.full((1, 1), tok, dtype=torch.int32,
+                                       device=self.device)
+                        logits, caches = model_mod.decode_step(
+                            self.params, cfg, t, caches, cl, self.moe_fn)
+                        cl = cl + 1
+                    last = logits[0]
+                else:
+                    last, caches, _ = self._continue_chunks(
+                        prompt[reuse_len:], caches, reuse_len,
+                        self.SUFFIX_CHUNK, fresh=False)
+                res.computed_tokens = len(prompt) - reuse_len
+            elif self.prefill_chunk and self._chunkable:
                 caches = self._fresh_cache()
                 last, caches, _ = self._continue_chunks(
-                    prompt, caches, 0, self.prefill_chunk)
+                    prompt, caches, 0, self.prefill_chunk, fresh=True)
+                res.computed_tokens = len(prompt)
             else:
                 batch = {"tokens": torch.tensor([prompt], dtype=torch.int32,
                                                 device=self.device)}
                 logits, caches = model_mod.prefill(
-                    self.params, self.cfg, batch, self.capacity, self.moe_fn,
+                    self.params, cfg, batch, self.capacity, self.moe_fn,
                     cache_dtype=torch.float32)
                 last = logits[0, len(prompt) - 1]
+                res.computed_tokens = len(prompt)
             first = int(torch.argmax(last))
-            res.computed_tokens = len(prompt)
+            res.reused_tokens = reuse_len
+
+            # Store newly computed full blocks back to EMS (async in the
+            # real system): one slice and one host copy build every block.
+            if self.cc is not None and cfg.attention_kind != "none" \
+                    and not cfg.is_hybrid:
+                n_blocks = len(prompt) // self.cc.block
+                payloads = cache_ops.pack_blocks(cfg, caches, n_blocks,
+                                                 self.cc.block)
+                if payloads:
+                    self.cc.store(prompt[: n_blocks * self.cc.block],
+                                  payloads, engine=self._ems_tag)
             return first, caches, res
         finally:
             self.load -= len(prompt)
@@ -190,16 +264,20 @@ class DecodeEngine:
                  interleave: bool = False, n_micro: int = 2,
                  decode_chunk: int = 1, mtp_fused: bool = False,
                  device: DeviceLike = None):
-        if use_mtp or mtp_fused:
-            raise NotImplementedError(
-                "MTP speculative decoding arrives with a later slice of the "
-                "port")
         self.device = resolve_device(device)
         check_on(self.device, params.embed, "params")
         self.params, self.cfg = params, cfg
         self.b, self.capacity = max_batch, capacity
-        self.use_mtp = False
+        self.moe_fn = moe_fn
+        self.use_mtp = use_mtp
+        self.mtp_params = mtp_params
         self.decode_chunk = max(1, int(decode_chunk))
+        self.mtp_fused = bool(mtp_fused) and use_mtp
+        if self.mtp_fused and not mtp_mod.can_fuse_verify(cfg, capacity):
+            warnings.warn("fused MTP verification needs a causal/MLA "
+                          "non-ring cache; falling back to the two-forward "
+                          "verify", stacklevel=2)
+            self.mtp_fused = False
         self.cache_len = torch.zeros((max_batch,), dtype=torch.int32,
                                      device=self.device)
         # In the dtypes decode produces (the SSM conv window of an f32 model
@@ -214,9 +292,12 @@ class DecodeEngine:
         self.slot_mgr = DecodeSlotManager(max_batch, capacity)
         self.iters = 0
         interleaver = MicrobatchInterleaver(n_micro if interleave else 1)
-        self.interleaved = interleaver.applicable(max_batch)
+        self.interleaved = (interleaver.applicable(max_batch)
+                            and not use_mtp)
         if interleave and not self.interleaved:
-            if n_micro < 2:
+            if use_mtp:
+                reason = "MTP speculative decoding steps are not interleavable"
+            elif n_micro < 2:
                 reason = f"n_micro={n_micro} means no pairing"
             else:
                 reason = (f"max_batch={max_batch} is not divisible by "
@@ -244,15 +325,19 @@ class DecodeEngine:
         """Continuous batching: the width of the next dispatch.
 
         Shrink from ``decode_chunk`` to where the next host sync can do
-        useful work: ``min(remaining)`` across active slots, and width 1
-        when an admission is pending and a slot is free, so the refill
-        lands at the earliest sync. The result snaps DOWN to the width
-        ladder -- never up, so no masked tail is dispatched on purpose."""
+        useful work: ``min(remaining)`` across active slots (under MTP a
+        slot needs at least ceil(remaining/2) iterations, so that is the
+        bound), and width 1 when an admission is pending and a slot is
+        free, so the refill lands at the earliest sync. The result snaps
+        DOWN to the width ladder -- never up, so no masked tail is
+        dispatched on purpose."""
         k = self.decode_chunk
         lefts = [info.payload.remaining
                  for _, info in self.slot_mgr.active_slots()]
         if lefts:
-            k = min(k, max(1, min(lefts)))
+            m = min(lefts)
+            need = max(1, (m + 1) // 2) if self.use_mtp else max(1, m)
+            k = min(k, need)
         if refill_pending and self.slot_mgr.free > 0:
             k = 1
         for w in reversed(self._chunk_widths):
@@ -272,6 +357,10 @@ class DecodeEngine:
         self.cache_len = _set(self.cache_len, slot, prompt_len)
         self.cur_tok = _set(self.cur_tok, slot, first_token)
         result.tokens.append(first_token)
+        if self.use_mtp:
+            d = mtp_mod.propose_draft(self.params, self.mtp_params, self.cfg,
+                                      self.cur_tok[slot: slot + 1])
+            self.draft_tok = _set(self.draft_tok, slot, d[0])
 
     @property
     def active(self) -> int:
@@ -321,34 +410,54 @@ class DecodeEngine:
         Returns ``(finished, iter_log)``; ``iter_log`` holds one
         ``(live_rids, finished_rids, tokens_by_rid, masked_rids)`` entry
         per device iteration dispatched, so the scheduler can attribute
-        virtual-clock time per iteration to the slots that did work.
+        virtual-clock time per iteration to the slots that did work -- and
+        credit the tokens each iteration committed (MTP: 1 + accepted).
         """
         if self.decode_chunk > 1:
             width = (self._effective_chunk(refill_pending) if continuous
                      else self.decode_chunk)
-            return self._step_chunked(width)
+            return (self._step_chunked_mtp(width) if self.use_mtp
+                    else self._step_chunked(width))
 
         self.iters += 1
         active_rids = [info.rid for _, info in self.slot_mgr.active_slots()]
-        logits, self.caches = self._step_fn(self.cur_tok[:, None],
-                                            self.caches, self.cache_len)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        self.cache_len = self.cache_len + 1
-        self.cur_tok = nxt
-        em = nxt.cpu().numpy()
+        if self.use_mtp:
+            emitted, accepted, x_next, d_next, self.caches, self.cache_len = \
+                mtp_mod.mtp_step(self.params, self.mtp_params, self.cfg,
+                                 self.cur_tok, self.draft_tok, self.caches,
+                                 self.cache_len, moe_fn=self.moe_fn,
+                                 fused_verify=self.mtp_fused)
+            self.cur_tok, self.draft_tok = x_next, d_next
+            # One host read: (B, 3) = emitted pair and acceptance.
+            out = torch.cat([emitted, accepted[:, None].to(emitted.dtype)],
+                            dim=1).cpu().numpy()
+            em, acc = out[:, :2], out[:, 2].astype(bool)
+        else:
+            logits, self.caches = self._step_fn(self.cur_tok[:, None],
+                                                self.caches, self.cache_len)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            self.cache_len = self.cache_len + 1
+            self.cur_tok = nxt
+            em = nxt.cpu().numpy()[:, None]
+            acc = np.zeros(self.b, bool)
 
         finished = []
         tokens_by_rid: dict = {}
         for i, info in list(self.slot_mgr.active_slots()):
             slot: _Slot = info.payload
             slot.result.decode_iters += 1
-            # Mirror the device-side cache growth with capacity enforcement.
-            self.slot_mgr.advance(i, 1)
+            # Mirror the device-side cache growth (MTP appends the accepted
+            # draft token too) with capacity enforcement.
+            self.slot_mgr.advance(i, 2 if (self.use_mtp and acc[i]) else 1)
+            new_toks = [int(em[i, 0])]
+            if self.use_mtp and acc[i] and slot.remaining > 1:
+                new_toks.append(int(em[i, 1]))
             committed = 0
-            if slot.remaining > 0:
-                slot.result.tokens.append(int(em[i]))
-                slot.remaining -= 1
-                committed = 1
+            for t in new_toks:
+                if slot.remaining > 0:
+                    slot.result.tokens.append(t)
+                    slot.remaining -= 1
+                    committed += 1
             tokens_by_rid[info.rid] = committed
             if slot.remaining <= 0:
                 finished.append(slot.result)
@@ -402,6 +511,74 @@ class DecodeEngine:
                 slot.remaining -= 1
                 live_rids.append(rid)
                 tokens_by_rid[rid] = 1
+                if slot.remaining <= 0:
+                    fin_this.append(slot.result)
+                    self.slot_mgr.release(i)
+            self.live_slot_iters += len(live_rids)
+            self.dead_slot_iters += len(masked_rids)
+            iter_log.append((live_rids, [r.rid for r in fin_this],
+                             tokens_by_rid, masked_rids))
+            finished.extend(fin_this)
+        self._raise_if_capacity_frozen(lv)
+        return finished, iter_log
+
+    def _step_chunked_mtp(self, width: int) -> Tuple[
+            List[RequestResult],
+            List[Tuple[List[int], List[int], dict, List[int]]]]:
+        """MTP fast path: ``width`` speculative iterations -- up to
+        ``2*width`` tokens -- per host sync (one host read of the chunk's
+        results). Per-iteration accept/reject ran on the device; here the
+        emitted runs are committed slot by slot, mirroring the per-step MTP
+        accounting (advance 2 on accept, credit the accepted draft token
+        only while the request still wants tokens). Live/masked attribution
+        follows the device ``lv`` mask as in :meth:`_step_chunked`."""
+        left = np.zeros((self.b,), np.int32)
+        resident = {}                   # slot index -> rid at dispatch time
+        for i, info in self.slot_mgr.active_slots():
+            left[i] = info.payload.remaining
+            resident[i] = info.rid
+        (emitted, accepted, live, self.cur_tok, self.draft_tok, self.caches,
+         self.cache_len) = model_mod.decode_loop_mtp(
+            self.params, self.mtp_params, self.cfg, self.cur_tok,
+            self.draft_tok, self.caches, self.cache_len, width,
+            steps_left=torch.from_numpy(left).to(self.device),
+            fused_verify=self.mtp_fused, moe_fn=self.moe_fn)
+        # One host read for the chunk: (B, width, 4) = emitted pair,
+        # acceptance, liveness.
+        out = torch.cat([emitted, accepted[..., None].to(emitted.dtype),
+                         live[..., None].to(emitted.dtype)],
+                        dim=-1).cpu().numpy()
+        em = out[..., :2]               # (B, width, 2)
+        acc = out[..., 2].astype(bool)  # (B, width)
+        lv = out[..., 3].astype(bool)   # (B, width)
+
+        finished: List[RequestResult] = []
+        iter_log: List[Tuple[List[int], List[int], dict, List[int]]] = []
+        for j in range(width):
+            self.iters += 1
+            live_rids: List[int] = []
+            masked_rids: List[int] = []
+            fin_this: List[RequestResult] = []
+            tokens_by_rid: dict = {}
+            for i, rid in resident.items():
+                if not lv[i, j]:
+                    masked_rids.append(rid)
+                    continue
+                info = self.slot_mgr.get(i)   # live => not yet released
+                slot: _Slot = info.payload
+                slot.result.decode_iters += 1
+                self.slot_mgr.advance(i, 2 if acc[i, j] else 1)
+                new_toks = [int(em[i, j, 0])]
+                if acc[i, j] and slot.remaining > 1:
+                    new_toks.append(int(em[i, j, 1]))
+                committed = 0
+                for t in new_toks:
+                    if slot.remaining > 0:
+                        slot.result.tokens.append(t)
+                        slot.remaining -= 1
+                        committed += 1
+                live_rids.append(rid)
+                tokens_by_rid[rid] = committed
                 if slot.remaining <= 0:
                     fin_this.append(slot.result)
                     self.slot_mgr.release(i)
@@ -480,8 +657,7 @@ class ServingSystem:
 
     ``device`` (CUDA by default; raises when CUDA is absent unless
     ``device="cpu"``) is where every engine runs; ``params`` must live
-    there. ``context_cache`` and ``use_mtp`` raise ``NotImplementedError``
-    until the EMS and MTP slices of the port land.
+    there.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, n_prefill: int = 2,
@@ -499,7 +675,7 @@ class ServingSystem:
                  ttft_budget_ms: Optional[float] = None,
                  stream_handoff: Optional[bool] = None,
                  stream_chunk: Optional[int] = None,
-                 context_cache: Optional[Any] = None,
+                 context_cache: Optional[ContextCache] = None,
                  use_mtp: bool = False, mtp_params=None,
                  mtp_fused: bool = False, moe_fn=None,
                  policy: Optional[str] = None,
@@ -520,17 +696,10 @@ class ServingSystem:
                  scheduler_config: Optional[SchedulerConfig] = None,
                  fault_injector: Optional[FaultInjector] = None,
                  device: DeviceLike = None):
-        if context_cache is not None:
-            raise NotImplementedError(
-                "the EMS context cache (mempool/context_cache, mempool/ems) "
-                "arrives with a later slice of the port")
-        if use_mtp:
-            raise NotImplementedError(
-                "MTP speculative decoding (core/mtp, decode_loop_mtp) "
-                "arrives with a later slice of the port")
         self.device = resolve_device(device)
         check_on(self.device, params.embed, "params")
         self.cfg = cfg
+        self.cc = context_cache
         overrides = {k: v for k, v in (
             ("policy", policy), ("tpot_budget_ms", tpot_budget_ms),
             ("admission", admission), ("interleave_microbatches", interleave),
@@ -556,8 +725,9 @@ class ServingSystem:
         ) if v is not None}
         # use_mtp is engine state, not policy: the scheduler's MTP cost
         # accounting must always match what the decode engine actually runs
-        # (no MTP in this port yet).
-        overrides["use_mtp"] = False
+        # (a provided scheduler_config cannot flip it -- reconfigure_scheduler
+        # enforces the same invariant later).
+        overrides["use_mtp"] = bool(use_mtp)
         sched_cfg = dataclasses.replace(
             scheduler_config or SchedulerConfig(), **overrides)
         if sched_cfg.autoscale and not (
@@ -589,8 +759,8 @@ class ServingSystem:
         def prefill_factory(i: int) -> PrefillEngine:
             # The joint controller's prefill grow path: an engine identical
             # to the roster's, numbered by its instance id.
-            return PrefillEngine(params, cfg, capacity, instance_id=i,
-                                 moe_fn=moe_fn, prefill_chunk=prefill_chunk,
+            return PrefillEngine(params, cfg, capacity, context_cache,
+                                 i, moe_fn, prefill_chunk=prefill_chunk,
                                  device=self.device)
 
         self.prefill_pool = PrefillPool(
@@ -603,16 +773,22 @@ class ServingSystem:
             # The autoscaler's grow path: a fresh engine identical to the
             # pool's, numbered by its engine id.
             return DecodeEngine(params, cfg, decode_batch, capacity,
-                                moe_fn, seed=seed,
+                                moe_fn, use_mtp, mtp_params, seed=seed,
                                 interleave=sched_cfg.interleave_microbatches,
                                 n_micro=sched_cfg.n_micro,
                                 decode_chunk=sched_cfg.decode_chunk,
+                                mtp_fused=mtp_fused,
                                 device=self.device)
 
         engines = [engine_factory(e) for e in range(decode_engines)]
+        # Affinity routing scores residency against the shared EMS index
+        # when the cache is an EMSService; a plain ContextCache keeps the
+        # advisory per-engine residency.
+        self._ems = context_cache if isinstance(context_cache, EMSService) \
+            else None
         self.pool = DecodePool(
             engines, make_decode_router(sched_cfg.decode_policy,
-                                        decode_engines),
+                                        decode_engines, ems=self._ems),
             engine_factory=engine_factory)
         self.decode = engines[0]       # single-engine compatibility alias
         self.faults = fault_injector
@@ -655,7 +831,8 @@ class ServingSystem:
             # Routing is pure control plane: swap the pool router in place
             # (a fresh policy instance — affinity/cursor state resets).
             self.pool.router = make_decode_router(new.decode_policy,
-                                                  self.pool.n)
+                                                  self.pool.n,
+                                                  ems=self._ems)
         self.scheduler = Scheduler(self.prefill_pool.n, self.pool.slot_mgrs,
                                    scheduler_config)
         # Engine liveness is pool state: carry parked engines (both roles)
@@ -761,8 +938,10 @@ class ServingSystem:
                 tdt += exc.seconds
         ready = prefill_done + tdt
         del result.tokens[-1:]   # pool.add re-appends the verified token
+        keys = tuple(self.cc.block_keys(replay)) \
+            if self.cc is not None and self.pool.router.uses_affinity else ()
         return _PendingAdmission(first, caches, len(replay), result,
-                                 remaining + 1, (),
+                                 remaining + 1, keys,
                                  ready_at=ready, recovered=True), \
             len(emitted) - 1
 
@@ -922,6 +1101,10 @@ class ServingSystem:
             pvictim = min(self.prefill_pool.live_ids,
                           key=lambda i: (self.prefills[i].load, -i))
             self.prefill_pool.retire_engine(pvictim)
+            if self._ems is not None:
+                # Retirement must not lose cached prefixes: demote the
+                # instance's dirty HBM blocks into the shared pool tier.
+                self._ems.drop_engine(self.prefills[pvictim]._ems_tag)
             sched.set_prefill_live(pvictim, False)
             engine, revived = pool.spawn_engine()
             if revived:
@@ -1220,9 +1403,10 @@ class ServingSystem:
             if any(item_ready(w) <= t for w in waiting):
                 return True
             return bool(pending) and pending[0].arrival <= t
-        # Worst-case decode cache growth: max_new - 1 iterations (an MTP
-        # accept on the final emitted token would add one more).
-        slack = 0
+        # Worst-case decode cache growth: max_new - 1 iterations, +1 slack
+        # for an MTP accept on the final emitted token.
+        slack = 1 if self.decode.use_mtp else 0
+        affinity = self.cc is not None and self.pool.router.uses_affinity
         rebalance_every = sched.config.decode_rebalance_every
         decode_turns = 0
         while pending or waiting or self.pool.active:
@@ -1240,6 +1424,12 @@ class ServingSystem:
                 trace = sched.on_arrival(req.rid, req.arrival,
                                          len(req.prompt),
                                          slo_class=req.slo_class)
+                if sched.config.hit_aware_admission and self.cc is not None:
+                    # Hit-aware admission: probe the shared cache index at
+                    # enqueue so the gate charges only the uncached suffix.
+                    # Non-mutating on EMS; the prefill reuse clamp below
+                    # re-derives the authoritative count.
+                    trace.cached_tokens = self.cc.probe_prefix(req.prompt)
                 # max_new <= 1 never decodes, so only the prompt must fit
                 # (in the prefill cache, which shares `capacity`).
                 need = len(req.prompt) if req.max_new_tokens <= 1 \
@@ -1276,10 +1466,12 @@ class ServingSystem:
                     res.transfer_seconds = self.transfer.transfer(
                         caches, rid=req.rid)
                     sched.on_transfer(trace, res.transfer_seconds)
+                keys = tuple(self.cc.block_keys(req.prompt)) if affinity \
+                    else ()
                 self._inflight[req.rid] = req
                 waiting.append(_PendingAdmission(first, caches,
                                                  len(req.prompt), res,
-                                                 req.max_new_tokens))
+                                                 req.max_new_tokens, keys))
             admit_waiting()
             # Brownout ladder tick: one pressure observation per loop turn.
             # Pressure = a gate-ready interactive request is still blocked
@@ -1375,4 +1567,9 @@ class ServingSystem:
                     events.append(pending[0].arrival)
                 sched.advance_clock(min(events))
         sync_transfer_counters()
+        if self.decode.use_mtp:
+            # Acceptance-rate feedback: fold the wave's measured draft
+            # acceptance into the cost model so the next wave's admission
+            # gate sizes its batch to observed, not assumed, speculation.
+            sched.feedback_mtp_acceptance()
         return results

@@ -3,6 +3,7 @@ the JAX package, its entry points run on CUDA unless told otherwise and
 never fall back to the CPU, and ``chip_smoke.py`` refuses to run without a
 card or without the package."""
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -13,13 +14,22 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke_variant
-from repro_torch.models import init_params, make_caches
+from repro_torch.core import init_mtp_params
+from repro_torch.launch import serve as serve_cli
+from repro_torch.mempool import EMSService, MemoryPool
+from repro_torch.models import build_plan, init_params, make_caches
 from repro_torch.serving import ServingSystem
 from repro_torch.serving.engine import DecodeEngine, PrefillEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+
+
+#: modules of the MTP / EMS / serve-CLI slice, which the walk above must
+#: keep covering
+SLICE_MODULES = ("core/mtp.py", "mempool/context_cache.py", "mempool/ems.py",
+                 "launch/serve.py", "launch/__init__.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -47,6 +57,11 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_modules_are_checked(module):
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -60,7 +75,8 @@ def cpu_model():
 
 @pytest.mark.parametrize("entry", ["init_params", "make_caches",
                                    "PrefillEngine", "DecodeEngine",
-                                   "ServingSystem"])
+                                   "ServingSystem", "init_mtp_params",
+                                   "serve_cli"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
                                                            cpu_model, entry):
     cfg, params = cpu_model
@@ -70,6 +86,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
         "PrefillEngine": lambda: PrefillEngine(params, cfg, 16),
         "DecodeEngine": lambda: DecodeEngine(params, cfg, 2, 16),
         "ServingSystem": lambda: ServingSystem(params, cfg, capacity=16),
+        "init_mtp_params": lambda: init_mtp_params(cfg),
+        "serve_cli": lambda: serve_cli.main(["--arch", "deepseek-r1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -82,12 +100,22 @@ def test_engine_refuses_params_on_another_device(cpu_model):
 
 
 def test_later_slices_raise(cpu_model):
+    """What a later slice brings raises, naming that slice; MTP and the EMS
+    context cache have landed and no longer do."""
     cfg, params = cpu_model
-    with pytest.raises(NotImplementedError, match="MTP"):
-        ServingSystem(params, cfg, capacity=16, use_mtp=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="EMS"):
-        ServingSystem(params, cfg, capacity=16, context_cache=object(),
-                      device="cpu")
+    for change, slice_name in ((dict(attention_kind="causal"), "GQA"),
+                               (dict(ssm_state=16, attn_every=2), "Zamba2"),
+                               (dict(frontend="vision_patches"), "frontends")):
+        with pytest.raises(NotImplementedError, match=slice_name):
+            build_plan(dataclasses.replace(cfg, **change))
+    with pytest.raises(NotImplementedError, match="GQA"):
+        serve_cli.main(["--arch", "qwen3-8b", "--device", "cpu"])
+    ServingSystem(params, cfg, capacity=16, use_mtp=True, mtp_fused=True,
+                  mtp_params=init_mtp_params(cfg, device="cpu"),
+                  context_cache=EMSService(MemoryPool(n_nodes=2),
+                                           block_tokens=8,
+                                           model_tag=cfg.name),
+                  device="cpu")
 
 
 def _run_smoke(cwd, script):
