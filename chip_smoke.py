@@ -99,8 +99,39 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 8c. cli: ``repro_torch.launch.serve.main`` in this process on the card
    (``--arch deepseek-r1 --mtp --mtp-fused --fit-draft --decode-chunk 4``,
    EMS on): it must finish, show ``reused>0`` for a later rid and fewer
-   iterations than tokens.
-9. serve-ssm: with the DeepSeek-R1 weights freed, Mamba2-780m at full
+   iterations than tokens; then the same with ``--arch qwen3-8b``
+   (``cli-dense``: GQA attention, no kernel).
+8d. serve-dense: with the DeepSeek-R1 weights freed, Qwen3-8B whole (36
+   layers, d_model 4096, 32 heads over 8 KV heads of 128, d_ff 12288,
+   vocab 151936, qk-norm; bf16 random weights from a seed) serves the
+   serve phase's traffic through the same ``ServingSystem``. GQA attention
+   is plain PyTorch (JAX's is plain ``jnp``): every request must finish
+   and no kernel may launch. Prefill time per request, TTFT/TPOT p50,
+   decode step p50, decode tokens/s, peak memory.
+8e. dense-agreement: three served prompts (DENSE_AGREE_RIDS) replayed
+   through ``decode_step`` at batch 1 against a full-sequence ``prefill``
+   over prompt + served tokens (logits within DENSE_AGREE_ATOL at every
+   position; served tokens equal to the prefill's argmax where its margin
+   exceeds DENSE_MARGIN); then the ring check at the config's own
+   ``sliding_window`` of 8192: two prompts of RING_PROMPT_LEN tokens and 32
+   new through ``ServingSystem(capacity=8480, decode_batch=2)``, whose
+   decode caches must be rings of 8192 slots, each request replayed from a
+   ring prefill and held the same way against a prefill past the window
+   (where the window mask applies).
+8f. int8-dense: the int8 phase's §4.5 path on Qwen3-8B's seven
+   INT8-policy projections of layer 0 (wq, wk, wv, wo, w_gate, w_up,
+   w_down) at M=8 and M=940: 14 ``int8-dense:`` rows, bit-identical to the
+   plain version, no padded path, and one summary line of their sums.
+8g. serve-olmoe, serve-olmoe-lep: with Qwen3's weights freed, OLMoE-1B-7B
+   whole (16 layers, d_model 2048, 16 heads, 64 experts x 1024, top-8;
+   bf16 random weights from a seed) serves the same traffic with
+   ``moe_capacity``, then with ``make_lep_moe_fn()`` at world size 1
+   (the dispatch-quantize kernel once per MoE call: 16 a forward). Every
+   request must finish; the share of LEP's tokens equal to the capacity
+   serve's is reported. Then ``dispatch_quant-olmoe:`` rows, the phase 6
+   check and timing at OLMoE's decode, fully filled and longest prefill
+   dispatch buffers (D = 2048) and an 8 x 2048 activation.
+9. serve-ssm: with the other models' weights freed, Mamba2-780m at full
    width and full depth (48 layers), bf16 random weights from a seed,
    serves the same traffic through the same ``ServingSystem``. Every
    request must finish, and the SSD-scan kernel must launch once per layer
@@ -132,9 +163,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    be at most SSM_BF16_RATIO times the bf16 prefill's.
 
 Each path phase (serve, serve-lep, int8, serve-mtp's two serves,
-serve-ems's two turns, cli, serve-ssm) sets every kernel's launch count to
-0 just before it and reads the counts just after; the MLA entry of the
-kernels line lists them by path. The last
+serve-ems's two turns, cli, serve-dense, the ring serve, int8-dense,
+serve-olmoe, serve-olmoe-lep, serve-ssm) sets every kernel's launch count
+to 0 just before it and reads the counts just after; the MLA,
+dispatch-quantize and INT8 GEMM entries of the kernels line list them by
+path. The last
 two lines of standard output are a ``{"kernels": [...]}`` JSON object (one
 entry per kernel; ``int8_matmul``'s times are sums over the int8 phase's
 cases) and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -304,6 +337,34 @@ SSM_HANDOFF_STEPS = 32       # decoded after a prefill of SSM_F32_TOKENS
 SSM_WINDOW_ATOL = 0.25
 SSM_FAULT_FACTOR = 10.0
 SSM_BF16_RATIO = 2.0
+# Qwen3-8B whole in bf16 (dense-agreement): decode replayed at batch 1
+# against a full-sequence prefill. Both compute one function; they round
+# differently (other matmul shapes, the K/V stored in f32 after a bf16
+# projection), and 36 layers of random weights carry the difference to
+# the logits, which have unit scale (an rms-normed state times a
+# fan-in-scaled head, |logit| up to ~5.4, where a bf16 ulp is 2^-5).
+# AGREE_ATOL (0.1, 4 layers) is not assumed to hold at 36: the worst
+# replay-vs-prefill error read on an H100 80GB HBM3 at 700 W was 0.0938
+# over the three replays and 0.0991 over the two ring requests (3 ulps;
+# the median 0.08: PERF.md, PR 19), within 0.1 but by a hair, and
+# DENSE_AGREE_ATOL is 1.5 times the worst. A served token (batch 8, or 2
+# in the ring check) and its batch-1 replay round differently too, by the
+# same order, so a served logit lies within 2 x DENSE_AGREE_ATOL of the
+# prefill's and a top-1/top-2 margin above DENSE_MARGIN = 4 x
+# DENSE_AGREE_ATOL cannot flip the token.
+DENSE_AGREE_ATOL = 0.15
+DENSE_MARGIN = 4 * DENSE_AGREE_ATOL
+DENSE_AGREE_RIDS = (7, 3, 6)     # the 265-, 448- and 615-token prompts
+# Ring check: prompts past Qwen3's sliding_window of 8192 (so the window
+# mask applies in prefill and the decode caches are rings that have
+# wrapped), 32 new tokens each, two requests in one decode batch.
+RING_PROMPT_LEN, RING_NEW, RING_REQS = 8448, 32, 2
+# int8-dense: Qwen3-8B's seven INT8-policy projections of layer 0.
+DENSE_INT8_PROJECTIONS = (
+    ("dense", "attn", "wq"), ("dense", "attn", "wk"), ("dense", "attn", "wv"),
+    ("dense", "attn", "wo"), ("dense", "mlp", "w_gate"),
+    ("dense", "mlp", "w_up"), ("dense", "mlp", "w_down"),
+)
 # Kernels whose build fails the run if ptxas reports a spill.
 SPILL_GATED = ("int8_gemm", "mla_decode_attention", "dispatch_quant")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -498,22 +559,20 @@ def dq_plan(torch, x, pack):
     return ops.plan_for(x, q)._asdict()
 
 
-def dispatch_quant_phase(torch, flush, cfg, prefill_tokens):
+def dq_served_rows(torch, flush, cfg, prefill_tokens, gen,
+                   tag="dispatch_quant"):
     """``dispatch_quantize`` against its plain PyTorch version at the LEP
-    dispatch buffers the serve-lep phase quantizes -- decode (8 tokens),
+    dispatch buffers a LEP serve of ``cfg`` quantizes -- decode (8 tokens),
     the same buffer with every row filled, and the longest prompt's
     prefill, with only the rows that tokens fill non-zero -- and at one
     activation shape (8 tokens, unpacked, as ``quantize_act_per_token``
-    calls it), each timed; then, untimed, at the DQ_RAGGED shapes (the
-    empty one must launch nothing) and at rows planted at rounding
-    boundaries."""
+    calls it), each checked and timed; one ``tag:`` row each. Inputs are
+    drawn from the CUDA generator ``gen``."""
     from repro_torch.core.lep import lep_capacity
     from repro_torch.kernels.dispatch_quant import ops
-    from repro_torch.kernels.dispatch_quant.ref import (
-        bf16_boundary_rows, dispatch_quantize_ref, f32_boundary_rows)
+    from repro_torch.kernels.dispatch_quant.ref import dispatch_quantize_ref
 
     k, e, d = cfg.num_experts_per_tok, cfg.num_experts, cfg.d_model
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = []
     for name, tokens in (("decode dispatch", 8),
                          ("prefill dispatch", prefill_tokens)):
@@ -541,9 +600,23 @@ def dispatch_quant_phase(torch, flush, cfg, prefill_tokens):
             x, pack=pack), 30, flush)
         row["bound_ms"], row["bound_by"] = dq_bound(rows, d, 2)
         row["bound_frac"] = row["bound_ms"] / row["graph_ms"]
-        log("dispatch_quant:", json.dumps(row))
+        log(f"{tag}:", json.dumps(row))
         out.append(row)
+    return out
 
+
+def dispatch_quant_phase(torch, flush, cfg, prefill_tokens):
+    """:func:`dq_served_rows` at the R1 cut's LEP buffers; then, untimed,
+    ``dispatch_quantize`` against its plain version at the DQ_RAGGED
+    shapes (the empty one must launch nothing) and at rows planted at
+    rounding boundaries."""
+    from repro_torch.kernels.dispatch_quant import ops
+    from repro_torch.kernels.dispatch_quant.ref import (bf16_boundary_rows,
+                                                        f32_boundary_rows)
+
+    d = cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = dq_served_rows(torch, flush, cfg, prefill_tokens, gen)
     ragged = []
     for name, rows, width, dtype, pack, offset in DQ_RAGGED:
         flat = torch.randn(rows * width + offset, device="cuda", generator=gen,
@@ -655,9 +728,9 @@ def check_int8_plan(ops, m, k, n, n_sm):
             "k_splits": plan.splits, "stages": plan.stages}
 
 
-def int8_phase(torch, flush, cfg, params, reqs):
-    """The §4.5 INT8 linear path on the served cut's INT8-policy
-    projections. Activations are captured from prefills of two served
+def int8_path_rows(torch, flush, cfg, params, reqs, projections, tag):
+    """The §4.5 INT8 linear path on ``projections`` ((segment, module,
+    weight) of layer 0). Activations are captured from prefills of two served
     prompts: ``calibrate_linear`` runs on the first (calibration), and
     ``quantized_matmul`` on the second's first 8 rows (decode-sized) and on
     all of its rows (its prompt length). Relative error against the bf16
@@ -669,14 +742,15 @@ def int8_phase(torch, flush, cfg, params, reqs):
     padded with zeros to 32), beside the bound. The weight stays K-major
     for ``_int_mm`` (cuBLAS's TN layout); if it refuses the view, a
     row-major copy made outside the timed region stands in and the row
-    says so."""
+    says so. One ``tag:`` row per product; returns (rows, the path's
+    kernel counts)."""
     from repro_torch.kernels.int8_gemm import ops
     from repro_torch.kernels.int8_gemm.ref import int8_matmul_ref
     from repro_torch.quant import (calibrate_linear, quantize_act_per_token,
                                    quantized_matmul)
 
     weights = {}
-    for seg, part, name in INT8_PROJECTIONS:
+    for seg, part, name in projections:
         label = name if seg == "moe" else f"{part}.{name}"
         weights[label] = getattr(getattr(params.segments[seg][0], part), name)
         if weights[label].shape[0] % ops.TMA_ALIGN:
@@ -758,12 +832,25 @@ def int8_phase(torch, flush, cfg, params, reqs):
             t_ops, t_bytes = int8_times(m, n, k)
             row["bound_ms"] = max(t_ops, t_bytes)
             row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-            log("int8:", json.dumps(row))
+            log(f"{tag}:", json.dumps(row))
             rows.append(row)
     if ops.PADDED_CALLS:
         raise AssertionError(f"{ops.PADDED_CALLS} served INT8 products took "
                              f"the wrapper's padded path")
+    return rows, counts
 
+
+def int8_phase(torch, flush, cfg, params, reqs):
+    """:func:`int8_path_rows` on the R1 cut's INT8_PROJECTIONS (20
+    products); then the INT8 GEMM against its plain version at the
+    INT8_RAGGED shapes, and the int8 tensor-core instructions of each
+    kernel function."""
+    from repro_torch.kernels.int8_gemm import ops
+    from repro_torch.kernels.int8_gemm.ref import int8_matmul_ref
+
+    rows, counts = int8_path_rows(torch, flush, cfg, params, reqs,
+                                  INT8_PROJECTIONS, "int8")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     ragged = []
     for m, k, n, dtype, offset in INT8_RAGGED:
@@ -914,15 +1001,22 @@ def serve_phase(torch, cfg, params, moe_fn=None, dev="cuda", *, reqs=None,
             raise AssertionError(f"rid {r.rid}: token out of range")
     n_steps = dec.iters - iters0
     # Mamba2: one SSD scan per layer of every prefill; MLA: one decode
-    # attention per layer of every decode step.
-    name, per, what = (("ssd_scan", len(prefill_done), "prefills")
-                       if cfg.is_ssm else
-                       ("mla_attention", mla_per_iter * n_steps,
-                        f"{mla_per_iter} x decode iterations"))
-    launches = counts[name]
-    if launches != per * cfg.num_layers or (launches == 0) != (per == 0):
-        raise AssertionError(f"{name} launches {launches} != {what} {per} x "
-                             f"{cfg.num_layers} layers")
+    # attention per layer of every decode step. GQA attention is plain
+    # PyTorch (as in JAX): no kernel but LEP's dispatch-quantize may launch.
+    if cfg.is_ssm or cfg.attention_kind == "mla":
+        name, per, what = (("ssd_scan", len(prefill_done), "prefills")
+                           if cfg.is_ssm else
+                           ("mla_attention", mla_per_iter * n_steps,
+                            f"{mla_per_iter} x decode iterations"))
+        launches = counts[name]
+        if launches != per * cfg.num_layers or (launches == 0) != (per == 0):
+            raise AssertionError(f"{name} launches {launches} != {what} "
+                                 f"{per} x {cfg.num_layers} layers")
+    else:
+        quiet = [k for k in KERNEL_MODULES
+                 if k != "dispatch_quant" or moe_fn is None]
+        if any(counts[k] for k in quiet):
+            raise AssertionError(f"a GQA serve launched a kernel: {counts}")
     results = sorted(results, key=lambda r: r.rid)      # prompt_lens order
     finish = {rid: t1 for _, t1, rids in steps for rid in rids}
     ttft = [prefill_done[r.rid] - t_start for r in results]
@@ -973,6 +1067,11 @@ def serve_lep_phase(torch, cfg, params, base_tokens, dev="cuda"):
         raise AssertionError(f"dispatch_quantize launches "
                              f"{counts['dispatch_quant']} != moe_fn calls "
                              f"{len(calls)}")
+    # One MoE call per MoE layer of every forward (a prefill or a step).
+    forwards = summary["requests"] + summary["decode_steps"]
+    if len(calls) != (cfg.num_layers - cfg.first_k_dense) * forwards:
+        raise AssertionError(f"{len(calls)} moe_fn calls for {forwards} "
+                             f"forwards")
     same = sum(a == b for rid in tokens
                for a, b in zip(tokens[rid], base_tokens[rid]))
     total = sum(len(t) for t in tokens.values())
@@ -1450,7 +1549,7 @@ def serve_ems_phase(torch, cfg, params, first_tokens, dev="cuda"):
     return out, {"turn1": c1, "turn2": c2}
 
 
-def cli_phase(torch, dev="cuda"):
+def cli_phase(torch, arch="deepseek-r1", dev="cuda"):
     """``repro_torch.launch.serve.main`` in this process, on the card:
     the arch's smoke variant with fused MTP, a draft head fitted on the
     served prompts, 4 iterations a sync and the EMS cache on (the CLI's
@@ -1460,7 +1559,7 @@ def cli_phase(torch, dev="cuda"):
     import io
     from repro_torch.launch import serve
 
-    argv = ["--arch", "deepseek-r1", "--mtp", "--mtp-fused", "--fit-draft",
+    argv = ["--arch", arch, "--mtp", "--mtp-fused", "--fit-draft",
             "--decode-chunk", "4", "--device", dev]
     buf = io.StringIO()
     reset_counts()
@@ -1491,6 +1590,180 @@ def cli_phase(torch, dev="cuda"):
             "kernel_launches": counts,
             "lines": [ln for ln in text.splitlines()
                       if ln.startswith(("SLO summary", "ems:", "transfer:"))]}
+
+
+# ---------------------------------------------------------------------------
+# Qwen3-8B whole (serve-dense, dense-agreement, int8-dense) and OLMoE-1B-7B
+# whole (serve-olmoe, serve-olmoe-lep)
+# ---------------------------------------------------------------------------
+
+
+def dense_config():
+    from repro_torch.configs import get_config
+    # Whole: 36 layers, d_model 4096, 32 heads over 8 KV heads of 128,
+    # d_ff 12288, vocab 151936, qk-norm; sliding_window 8192.
+    return get_config("qwen3-8b")
+
+
+def olmoe_config():
+    from repro_torch.configs import get_config
+    # Whole: 16 layers, d_model 2048, 16 heads, 64 experts x 1024, top-8.
+    return get_config("olmoe-1b-7b")
+
+
+def init_model(torch, cfg, what):
+    """``init_params`` of ``cfg`` from SEED on the card, logged as
+    ``init-<what>:``."""
+    from repro_torch.models import init_params
+
+    ti = time.perf_counter()
+    params = init_params(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"init-{what}: {sum(p.numel() for p in params.parameters()) / 1e9:.3f}"
+        f" B parameters in {time.perf_counter() - ti:.1f} s")
+    return params
+
+
+def free_model(torch) -> None:
+    """Return a freed model's memory to the card, so that the next model's
+    peak memory is its own (the engines of earlier serves sit in reference
+    cycles through their instrumented methods)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_replay(torch, cfg, params, prompt, served, capacity, dev="cuda"):
+    """The decode path's logits for ``served`` (the prompt's prefill, then
+    the served tokens teacher-forced through ``decode_step`` at batch 1)
+    and a full-sequence ``prefill`` over prompt + served tokens, both
+    (len(served), V) in f32."""
+    from repro_torch.models import decode_step, prefill
+
+    def tok(ids):
+        return torch.tensor(ids, dtype=torch.int32, device=dev)
+
+    logits, caches = prefill(params, cfg, {"tokens": tok([prompt])},
+                             capacity, cache_dtype=torch.float32)
+    replay = [logits[0, -1].float()]
+    del logits
+    for i, t in enumerate(served[:-1]):
+        lg, caches = decode_step(params, cfg, tok([[t]]), caches,
+                                 tok([len(prompt) + i]))
+        replay.append(lg[0].float())
+    del caches
+    ref_logits, _ = prefill(params, cfg, {"tokens": tok([prompt + served[:-1]])},
+                            capacity, cache_dtype=torch.float32)
+    ref = ref_logits[0, len(prompt) - 1:].float()
+    return torch.stack(replay), ref
+
+
+def new_dense_stats():
+    return {"atol": DENSE_AGREE_ATOL, "margin": DENSE_MARGIN, "positions": 0,
+            "max_abs_logit_err": 0.0, "logit_err_p50": None,
+            "tokens_checked": 0, "replay_argmax_equal_served": 0,
+            "_errs": []}
+
+
+def hold_dense(stats, what, served, replay, ref):
+    """Replay logits within DENSE_AGREE_ATOL of the prefill's at every
+    position, and each served token the prefill's argmax wherever its
+    top-1/top-2 margin exceeds DENSE_MARGIN. Adds to ``stats``."""
+    err = (replay - ref).abs().amax(dim=-1)
+    top2 = ref.topk(2, dim=-1)
+    gap = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+    best = top2.indices[:, 0].tolist()
+    stats["positions"] += len(served)
+    stats["_errs"] += err.tolist()
+    stats["max_abs_logit_err"] = max(stats["_errs"])
+    stats["replay_argmax_equal_served"] += sum(
+        a == b for a, b in zip(replay.argmax(-1).tolist(), served))
+    worst = float(err.max())
+    if worst > DENSE_AGREE_ATOL:
+        raise AssertionError(f"{what}: decode replay vs prefill max |dlogit| "
+                             f"{worst:.4f} > {DENSE_AGREE_ATOL}")
+    for i, (g, b) in enumerate(zip(gap, best)):
+        if g > DENSE_MARGIN:
+            stats["tokens_checked"] += 1
+            if served[i] != b:
+                raise AssertionError(f"{what} position {i}: served "
+                                     f"{served[i]}, prefill argmax {b} "
+                                     f"(margin {g:.4f})")
+
+
+def close_dense(stats, what):
+    if stats["tokens_checked"] == 0:
+        raise AssertionError(f"{what}: no position had a margin to check "
+                             "tokens at")
+    stats["logit_err_p50"] = statistics.median(stats.pop("_errs"))
+    return stats
+
+
+def dense_agreement_phase(torch, cfg, params, reqs, served, dev="cuda"):
+    """Replay check: DENSE_AGREE_RIDS' served prompts through ``decode_step``
+    against a full-sequence ``prefill`` over prompt + served tokens."""
+    stats = new_dense_stats()
+    for rid in DENSE_AGREE_RIDS:
+        prompt, toks = reqs[rid].prompt, served[rid]
+        replay, ref = dense_replay(torch, cfg, params, prompt, toks,
+                                   len(prompt) + len(toks), dev)
+        hold_dense(stats, f"rid {rid}", toks, replay, ref)
+    stats["rids"] = list(DENSE_AGREE_RIDS)
+    return close_dense(stats, "dense-agreement")
+
+
+def ring_phase(torch, cfg, params, dev="cuda"):
+    """Ring check at the config's own ``sliding_window``: RING_REQS prompts
+    of RING_PROMPT_LEN tokens (past the window) and RING_NEW new each,
+    served through ``ServingSystem(capacity=RING_PROMPT_LEN + RING_NEW,
+    decode_batch=RING_REQS)``. The decode caches must be rings of
+    ``sliding_window`` slots and no kernel may launch. Each request is then
+    replayed at batch 1 through ``decode_step`` from a ring prefill and held
+    with the served tokens against a teacher-forced ``prefill`` over prompt
+    + served tokens (s > window: the window mask applies), as in the
+    dense-agreement phase."""
+    import numpy as np
+    from repro_torch.serving import Request, ServingSystem
+
+    rng = np.random.RandomState(SEED + 20)
+    reqs = [Request(i, [int(t) for t in rng.randint(0, cfg.vocab_size,
+                                                     RING_PROMPT_LEN)],
+                    RING_NEW) for i in range(RING_REQS)]
+    capacity = RING_PROMPT_LEN + RING_NEW
+    system = ServingSystem(params, cfg, n_prefill=1, decode_batch=RING_REQS,
+                           capacity=capacity, device=dev)
+    slots = sorted({c.k.shape[2] for c in system.decode.caches.values()})
+    if slots != [cfg.sliding_window]:
+        raise AssertionError(f"decode caches of {slots} slots, not rings of "
+                             f"{cfg.sliding_window}")
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = system.serve(reqs)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the ring serve launched a kernel: {counts}")
+    if len(results) != RING_REQS or any(r.shed or len(r.tokens) != RING_NEW
+                                        for r in results):
+        raise AssertionError("not every ring request finished")
+    out = {"requests": RING_REQS, "prompt_len": RING_PROMPT_LEN,
+           "max_new_tokens": RING_NEW, "capacity": capacity,
+           "sliding_window": cfg.sliding_window, "ring_slots": slots[0],
+           "serve_wall_s": wall, "kernel_launches": counts,
+           "depth": cfg.num_layers}
+    if dev == "cuda":
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del system
+    stats = new_dense_stats()
+    for r in sorted(results, key=lambda r: r.rid):
+        prompt = reqs[r.rid].prompt
+        replay, ref = dense_replay(torch, cfg, params, prompt, r.tokens,
+                                   capacity, dev)
+        hold_dense(stats, f"ring rid {r.rid}", r.tokens, replay, ref)
+    out.update(close_dense(stats, "ring"))
+    return out
 
 
 def ssd_bound(b, s, h, p, n, q):
@@ -2026,19 +2299,61 @@ def main(argv=None) -> int:
     log(f"serve-ems: phase {time.perf_counter() - tp:.1f} s")
     cli = cli_phase(torch)
     log(f"cli: {json.dumps(cli)} on {device}")
-
-    # Mamba2-780m, whole: the DeepSeek-R1 weights go first, so the serve's
-    # peak memory is the model's own (the engines of the earlier serves sit
-    # in reference cycles through their instrumented methods).
+    cli_dense = cli_phase(torch, "qwen3-8b")
+    log(f"cli-dense: {json.dumps(cli_dense)} on {device}")
+    if any(cli_dense["kernel_launches"].values()):
+        raise AssertionError(f"the GQA CLI launched a kernel: {cli_dense}")
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_model(torch)
+
+    # Qwen3-8B, whole: serve-dense, dense-agreement, int8-dense.
+    qcfg = dense_config()
+    qparams = init_model(torch, qcfg, "dense")
+    qreqs = serve_requests(qcfg)
+    dense, dense_counts, _, dense_tokens = serve_phase(torch, qcfg, qparams,
+                                                       reqs=qreqs)
+    log(f"serve-dense: {json.dumps(dense)} on {device}")
+    tp = time.perf_counter()
+    dense_agree = dense_agreement_phase(torch, qcfg, qparams, qreqs,
+                                        dense_tokens)
+    log(f"dense-agreement: {json.dumps(dense_agree)}")
+    ring = ring_phase(torch, qcfg, qparams)
+    log(f"dense-agreement ring: {json.dumps(ring)}")
+    log(f"dense-agreement: phase {time.perf_counter() - tp:.1f} s")
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    dense_int8_rows, dense_int8_counts = int8_path_rows(
+        torch, flush, qcfg, qparams, qreqs, DENSE_INT8_PROJECTIONS,
+        "int8-dense")
+    del flush
+    log("int8-dense: " + json.dumps({
+        "cases": len(dense_int8_rows), "kernel_launches": dense_int8_counts,
+        **{f"{key}_sum": sum(r[key] for r in dense_int8_rows)
+           for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                       "library_ms")}}))
+    del qparams
+    free_model(torch)
+
+    # OLMoE-1B-7B, whole: moe_capacity, then LEP at world size 1.
+    ocfg = olmoe_config()
+    oparams = init_model(torch, ocfg, "olmoe")
+    olmoe, _, _, olmoe_tokens = serve_phase(torch, ocfg, oparams)
+    log(f"serve-olmoe: {json.dumps(olmoe)} on {device}")
+    olmoe_lep, olmoe_lep_counts = serve_lep_phase(torch, ocfg, oparams,
+                                                  olmoe_tokens)
+    log(f"serve-olmoe-lep: {json.dumps(olmoe_lep)} on {device}")
+    log("serve-olmoe-lep beside serve-olmoe: " + json.dumps({
+        key: [olmoe[key], olmoe_lep[key]]
+        for key in ("ttft_p50_s", "tpot_p50_s", "decode_tokens_per_s")}))
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    olmoe_dq = dq_served_rows(torch, flush, ocfg, max(olmoe["prompt_lens"]),
+                              torch.Generator(device="cuda").manual_seed(SEED),
+                              tag="dispatch_quant-olmoe")
+    del flush, oparams
+    free_model(torch)
+
+    # Mamba2-780m, whole, after the other models' weights are freed.
     scfg = ssm_config()
-    ti = time.perf_counter()
-    sparams = init_params(scfg, seed=SEED)
-    torch.cuda.synchronize()
-    log(f"init-ssm: {sum(p.numel() for p in sparams.parameters()) / 1e9:.3f} "
-        f"B parameters in {time.perf_counter() - ti:.1f} s")
+    sparams = init_model(torch, scfg, "ssm")
     ssm_serve, ssm_counts, _, ssm_tokens = serve_phase(torch, scfg, sparams)
     log(f"serve-ssm: {json.dumps(ssm_serve)} on {device}")
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -2071,7 +2386,8 @@ def main(argv=None) -> int:
             "serve-mtp fused": mtp_counts["fused"]["mla_attention"],
             "serve-ems turn 1": ems_counts["turn1"]["mla_attention"],
             "serve-ems turn 2": ems_counts["turn2"]["mla_attention"],
-            "cli": cli["kernel_launches"]["mla_attention"]},
+            "cli": cli["kernel_launches"]["mla_attention"],
+            "serve-dense": dense_counts["mla_attention"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
         "graph_ms": main_row["graph_ms"],
@@ -2086,7 +2402,13 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/dispatch_quant.cu",
         "replaces": "src/repro/kernels/dispatch_quant/dispatch_quant.py:29",
         "launches": lep_counts["dispatch_quant"],
-        "max_abs_err": max(r["max_abs_err"] for r in dq_rows + dq_ragged),
+        "launches_by_path": {
+            "serve-lep": lep_counts["dispatch_quant"],
+            "serve-olmoe-lep": olmoe_lep_counts["dispatch_quant"],
+            "int8": int8_counts["dispatch_quant"],
+            "int8-dense": dense_int8_counts["dispatch_quant"]},
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in dq_rows + dq_ragged + olmoe_dq),
         "ms": dq_row["ms"],
         "graph_ms": dq_row["graph_ms"],
         "plain_ms": dq_row["plain_ms"],
@@ -2100,7 +2422,10 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/int8_gemm.cu",
         "replaces": "src/repro/kernels/int8_gemm/int8_gemm.py:39",
         "launches": int8_counts["int8_gemm"],
-        "max_abs_err": max(r["max_abs_err"] for r in int8_rows + int8_ragged),
+        "launches_by_path": {"int8": int8_counts["int8_gemm"],
+                             "int8-dense": dense_int8_counts["int8_gemm"]},
+        "max_abs_err": max(r["max_abs_err"] for r in int8_rows + int8_ragged
+                           + dense_int8_rows),
         "ms": int8_total["ms"],
         "graph_ms": int8_total["graph_ms"],
         "plain_ms": int8_total["plain_ms"],

@@ -1,6 +1,8 @@
 """Architecture configs. Importing this package registers every config
-ported so far (the paper's own DeepSeek-R1 and Mamba2-780m; the other
-families arrive with their slices of the port)."""
+ported so far: the paper's own DeepSeek-R1, Mamba2-780m, and the dense and
+GQA-MoE families (Qwen3-8B, Qwen2.5-3B, Granite-3-2B, Phi-3-medium,
+OLMoE-1B-7B, Kimi K2). Zamba2 and the frontends arrive with their slices of
+the port."""
 from repro_torch.configs.base import (  # noqa: F401
     INPUT_SHAPES,
     InputShape,
@@ -12,4 +14,13 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 # Registration side effects.
-from repro_torch.configs import deepseek_r1, mamba2_780m  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    deepseek_r1,
+    granite_3_2b,
+    kimi_k2_1t_a32b,
+    mamba2_780m,
+    olmoe_1b_7b,
+    phi3_medium_14b,
+    qwen2_5_3b,
+    qwen3_8b,
+)

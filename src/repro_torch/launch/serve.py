@@ -50,12 +50,6 @@ from repro_torch.serving.scheduler import ROUTERS
 #: the reference's architectures that the port cannot build yet, by the
 #: slice of the port that brings them (ROADMAP.md queue 1)
 UNPORTED_ARCHS = {
-    "granite-3-2b": "GQA attention and the dense architectures",
-    "phi3-medium-14b": "GQA attention and the dense architectures",
-    "qwen2.5-3b": "GQA attention and the dense architectures",
-    "qwen3-8b": "GQA attention and the dense architectures",
-    "olmoe-1b-7b": "GQA attention and the dense architectures",
-    "kimi-k2-1t-a32b": "GQA attention and the dense architectures",
     "zamba2-1.2b": "Zamba2 hybrids",
     "internvl2-2b": "frontends",
     "hubert-xlarge": "frontends",

@@ -1,3 +1,4 @@
+from repro_torch.models.attention import KVCache  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401
     Model,
     build_plan,

@@ -28,7 +28,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.models.attention import (NEG_INF, _pick_chunk, _positions_of,
-                                          block_skip_enabled, update_cache)
+                                          block_skip_enabled, extend_positions,
+                                          update_cache, write_tokens)
 from repro_torch.models.layers import apply_rope, rms_norm, weight
 
 
@@ -208,30 +209,9 @@ def mla_extend(p: MLA, x: torch.Tensor, cache: torch.Tensor, offset,
     kvr = cfg.kv_lora_rank
     cap = cache.shape[1]
     offset = torch.as_tensor(offset, dtype=torch.int32, device=x.device)
-    steps = torch.arange(s, dtype=torch.int32, device=x.device)
-    if offset.ndim == 0:
-        positions = (offset + steps).expand(b, s)
-    else:
-        positions = offset[:, None] + steps[None]
+    positions = extend_positions(offset, b, s)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(p, x, cfg, positions)
-
-    new_entry = torch.cat([c_kv, k_rope], dim=-1).to(cache.dtype)
-    if offset.ndim == 0:
-        # dynamic_update_slice semantics: the start is clamped into range.
-        start = torch.clamp(offset, 0, max(cap - s, 0))
-        cache[:, (start + steps).long()] = new_entry
-    else:
-        # Out-of-bounds positions are dropped. One token at a time, each
-        # row's entry goes to its (clamped) position or the row's old value
-        # is written back: no two writes of a call share an index, and no
-        # boolean mask makes the host wait for the device.
-        rows = torch.arange(b, device=x.device)
-        keep = positions < cap
-        idx = positions.clamp(max=cap - 1).long()
-        for j in range(s):
-            old = cache[rows, idx[:, j]]
-            cache[rows, idx[:, j]] = torch.where(keep[:, j, None],
-                                                 new_entry[:, j], old)
+    write_tokens(cache, torch.cat([c_kv, k_rope], dim=-1), offset, positions)
 
     wk = p.wk_b.reshape(kvr, h, nope)
     q_lat = torch.einsum("bshe,rhe->bshr", q_nope.float(), wk.float())

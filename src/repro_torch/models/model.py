@@ -1,5 +1,6 @@
 """Model assembly for the families ported so far: dense and MoE segments
-with MLA attention (the paper's DeepSeek-R1), and the attention-free Mamba2
+with MLA attention (the paper's DeepSeek-R1) or GQA attention (Qwen3,
+Qwen2.5, Granite, Phi-3, OLMoE, Kimi K2), and the attention-free Mamba2
 SSM.
 
 The model is organized as *segments* of structurally identical layers, as
@@ -23,8 +24,9 @@ verification). MoE execution is pluggable via ``moe_fn``; the
 default is the single-device capacity implementation.
 
 Caches keep the JAX layout: per MLA segment ``{"mla": (L,B,S,kvr+rope),
-"length": int32 tensor}``, per Mamba segment ``SSMState(h (L,B,H,P,N) f32,
-conv (L,B,K-1,C), length)``.
+"length": int32 tensor}``, per GQA segment ``KVCache(k, v (L,B,S,KV,hd),
+length)`` (``S = sliding_window`` for a ring), per Mamba segment
+``SSMState(h (L,B,H,P,N) f32, conv (L,B,K-1,C), length)``.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import rms_norm, swiglu, weight
 from repro_torch.models.mamba2 import SSMState
 
@@ -64,11 +67,7 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: Zamba2-style hybrids (the shared attention block, "
             "SSM state with batch on axis 2) arrive with the Zamba2 slice of "
-            "the port, after GQA attention")
-    if not cfg.is_ssm and cfg.attention_kind != "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.attention_kind} attention arrives with the "
-            "GQA-attention and dense-architecture slice of the port")
+            "the port")
     if cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.frontend} frontend arrives with the "
@@ -112,8 +111,8 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer: a Mamba2 block for ``mamba_tail`` segments, else MLA
-    attention, then the MLP or the MoE."""
+    """One layer: a Mamba2 block for ``mamba_tail`` segments, else MLA or
+    GQA attention, then the MLP or the MoE."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device: torch.device,
                  dtype: torch.dtype,
@@ -123,7 +122,9 @@ class Block(nn.Module):
         if kind == "mamba_tail":
             self.mamba = mamba_mod.Mamba(cfg, device, dtype, generator)
             return
-        self.attn = mla_mod.init_mla_params(cfg, device, dtype, generator)
+        self.attn = (mla_mod.init_mla_params(cfg, device, dtype, generator)
+                     if cfg.attention_kind == "mla" else
+                     attn_mod.Attention(cfg, device, dtype, generator))
         if kind == "moe":
             self.moe = moe_mod.init_moe_params(cfg, device, dtype, generator)
         else:
@@ -187,9 +188,25 @@ def unembed(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _attn_block_prefill(pl_attn, x, cfg, positions):
+    """Returns (x + attention, the MLA latent or the GQA (k, v))."""
     h = rms_norm(x, pl_attn.ln, cfg.norm_eps)
-    out, latent = mla_mod.mla_prefill(pl_attn, h, cfg, positions)
-    return x + out, latent
+    if cfg.attention_kind == "mla":
+        out, latent = mla_mod.mla_prefill(pl_attn, h, cfg, positions)
+        return x + out, latent
+    out, kv = attn_mod.attention_prefill(pl_attn, h, cfg, positions)
+    return x + out, kv
+
+
+def _attn_block_decode(pl_attn, x, cfg, cache_k, cache_v, cache_len, ring):
+    """One token of attention, written into layer caches in place (MLA:
+    ``cache_k`` is the latent buffer and ``cache_v`` is unused)."""
+    h = rms_norm(x, pl_attn.ln, cfg.norm_eps)
+    if cfg.attention_kind == "mla":
+        out, _ = mla_mod.mla_decode(pl_attn, h, cache_k, cache_len, cfg)
+    else:
+        out, _, _ = attn_mod.attention_decode(pl_attn, h, cache_k, cache_v,
+                                              cache_len, cfg, ring)
+    return x + out
 
 
 def _mlp_block(pl_mlp, x, cfg):
@@ -226,19 +243,53 @@ def make_caches(cfg: ModelConfig, batch: int, capacity: int,
         if seg.kind == "mamba_tail":
             caches[seg.name] = mamba_mod.make_ssm_state(cfg, seg.n_layers,
                                                         batch, dev)
-        else:
+        elif cfg.attention_kind == "mla":
             caches[seg.name] = {
                 "mla": mla_mod.make_mla_cache(cfg, seg.n_layers, batch,
                                               capacity, dtype, dev),
                 "length": torch.zeros((), dtype=torch.int32, device=dev)}
+        else:
+            # A ring of sliding_window slots when capacity exceeds it.
+            caches[seg.name] = attn_mod.make_cache(cfg, seg.n_layers, batch,
+                                                   capacity, dtype, dev)
     return caches
 
 
 def cache_batch_axes(cfg: ModelConfig) -> Dict[str, Any]:
     """Batch-axis index of every cache leaf, in the make_caches structure
     (None = unbatched bookkeeping leaf, e.g. the length)."""
-    return {seg.name: SSMState(1, 1, None) if seg.kind == "mamba_tail"
-            else {"mla": 1, "length": None} for seg in build_plan(cfg)}
+    def axes(seg):
+        if seg.kind == "mamba_tail":
+            return SSMState(1, 1, None)
+        if cfg.attention_kind == "mla":
+            return {"mla": 1, "length": None}
+        return KVCache(1, 1, None)
+    return {seg.name: axes(seg) for seg in build_plan(cfg)}
+
+
+def _is_ring_cache(cfg: ModelConfig, cache) -> bool:
+    """A GQA cache is decoded into as a ring when its buffer holds exactly
+    ``sliding_window`` slots (as in JAX: a plain cache whose capacity
+    equals the window is treated as a ring too, which is harmless). An MLA
+    latent cache never is."""
+    return (cfg.attention_kind != "mla" and bool(cfg.sliding_window)
+            and cache.k.shape[2] == cfg.sliding_window)
+
+
+def _seq_buffers(cfg: ModelConfig, cache) -> List[torch.Tensor]:
+    """The per-token buffers of an attention segment's cache: the MLA
+    latent, or K and V."""
+    if cfg.attention_kind == "mla":
+        return [cache["mla"]]
+    return [cache.k, cache.v]
+
+
+def _with_buffers(cfg: ModelConfig, cache, length: torch.Tensor):
+    """An attention segment's cache holding ``cache``'s buffers and
+    ``length``."""
+    if cfg.attention_kind == "mla":
+        return {**cache, "length": length}
+    return KVCache(cache.k, cache.v, length)
 
 
 def _with_lengths(cfg: ModelConfig, caches: Dict[str, Any],
@@ -250,16 +301,20 @@ def _with_lengths(cfg: ModelConfig, caches: Dict[str, Any],
         c = out[seg.name]
         out[seg.name] = (SSMState(c.h, c.conv, length)
                          if seg.kind == "mamba_tail"
-                         else {**c, "length": length})
+                         else _with_buffers(cfg, c, length))
     return out
 
 
 def _cache_capacity(cfg: ModelConfig, caches: Dict[str, Any]
                     ) -> Optional[int]:
-    """Token capacity of the tightest sequence buffer (None when nothing
-    bounds decode length: a pure SSM)."""
-    caps = [caches[seg.name]["mla"].shape[2] for seg in build_plan(cfg)
-            if seg.kind != "mamba_tail"]
+    """Token capacity of the tightest non-ring sequence buffer (None when
+    nothing bounds decode length: a pure SSM, or rings only)."""
+    caps = []
+    for seg in build_plan(cfg):
+        c = caches[seg.name]
+        if seg.kind == "mamba_tail" or _is_ring_cache(cfg, c):
+            continue
+        caps.append(_seq_buffers(cfg, c)[0].shape[2])
     return min(caps) if caps else None
 
 
@@ -298,9 +353,10 @@ def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
                 caches: Dict[str, Any], cache_len,
                 moe_fn: Optional[MoeFn] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """tokens: (B, 1) int. Writes each layer's new latent entry (at
-    ``cache_len``, scalar or (B,)) or new SSM state into ``caches`` in place
-    and returns (logits (B, V), caches with ``length = cache_len + 1``)."""
+    """tokens: (B, 1) int. Writes each layer's new latent or K/V entry (at
+    ``cache_len``, scalar or (B,); at ``cache_len % sliding_window`` in a
+    ring) or new SSM state into ``caches`` in place and returns (logits
+    (B, V), caches with ``length = cache_len + 1``)."""
     moe_fn = moe_fn or moe_mod.moe_capacity
     x = params.embed[tokens].to(_dtype(cfg))                    # (B,1,D)
     cache_len = _as_len(cache_len, x.device)
@@ -311,13 +367,14 @@ def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
                 params.segments[seg.name], x, caches[seg.name], cache_len,
                 cfg)
             continue
-        mla_cache = caches[seg.name]["mla"]
+        c = caches[seg.name]
+        bufs = _seq_buffers(cfg, c)
+        ring = _is_ring_cache(cfg, c)
         for li, blk in enumerate(params.segments[seg.name]):
-            hin = rms_norm(x, blk.attn.ln, cfg.norm_eps)
-            out, _ = mla_mod.mla_decode(blk.attn, hin, mla_cache[li],
-                                        cache_len, cfg)
-            x = _ffn(blk, x + out, cfg, moe_fn)
-        new_caches[seg.name] = {"mla": mla_cache, "length": cache_len + 1}
+            x = _attn_block_decode(blk.attn, x, cfg, bufs[0][li],
+                                   bufs[-1][li], cache_len, ring)
+            x = _ffn(blk, x, cfg, moe_fn)
+        new_caches[seg.name] = _with_buffers(cfg, c, cache_len + 1)
     logits = unembed(params, cfg, x[:, 0:1, :])[:, 0, :]
     return logits, new_caches
 
@@ -351,9 +408,11 @@ def _mamba_decode_segment(blocks, x: torch.Tensor, state: SSMState,
 
 def _save_frozen(cfg: ModelConfig, caches, cache_len: torch.Tensor,
                  frozen: Optional[List[int]], span: int = 1):
-    """What a step may overwrite in a slot that must stay frozen. MLA: every
-    slot's latent rows at its ``span`` write positions from ``cache_len``
-    (clamped into the buffer), chosen on the device. Mamba: the whole state
+    """What a step may overwrite in a slot that must stay frozen. MLA and
+    GQA: every slot's latent (or K and V) rows at its ``span`` write
+    positions from ``cache_len`` -- ``(cache_len + k) % sliding_window`` in
+    a ring, else clamped into the buffer (a per-request write past it is
+    dropped) -- chosen on the device. Mamba: the whole state
     of the slots ``frozen`` (host indices), and only theirs: at full width a
     Mamba state is hundreds of MB; ``frozen=None`` (the host cannot name
     them: MTP's acceptance decides) saves every slot's state."""
@@ -367,12 +426,14 @@ def _save_frozen(cfg: ModelConfig, caches, cache_len: torch.Tensor,
                 idx = torch.tensor(frozen, device=c.h.device)
                 saved[seg.name] = (idx, c.h[:, idx], c.conv[:, idx])
         else:
-            t = c["mla"]
-            rows = torch.arange(t.shape[1], device=t.device)
-            saved[seg.name] = [
-                (rows, idx, t[:, rows, idx].clone()) for idx in
-                ((cache_len + k).clamp(max=t.shape[2] - 1).long()
-                 for k in range(span))]
+            bufs = _seq_buffers(cfg, c)
+            cap = bufs[0].shape[2]
+            ring = _is_ring_cache(cfg, c)
+            rows = torch.arange(bufs[0].shape[1], device=bufs[0].device)
+            slots = [attn_mod.decode_slot(cache_len + k, cap, ring)
+                     .clamp(max=cap - 1).long() for k in range(span)]
+            saved[seg.name] = [(t, rows, idx, t[:, rows, idx].clone())
+                               for idx in slots for t in bufs]
     return saved
 
 
@@ -395,10 +456,9 @@ def _restore_frozen(cfg: ModelConfig, caches, saved,
                 c.h[:, idx] = h_old
                 c.conv[:, idx] = conv_old
         else:
-            t = c["mla"]
-            for rows, idx, old in saved[seg.name]:
-                t[:, rows, idx] = torch.where(live[None, :, None],
-                                              t[:, rows, idx], old)
+            for t, rows, idx, old in saved[seg.name]:
+                keep = live.reshape((1, -1) + (1,) * (old.ndim - 2))
+                t[:, rows, idx] = torch.where(keep, t[:, rows, idx], old)
 
 
 def decode_loop(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
@@ -419,7 +479,7 @@ def decode_loop(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     is live at step j iff ``j < min(steps_left[i], capacity - cache_len[i])``.
     An SSM step overwrites a slot's whole state, so for a Mamba segment one
     host read before the loop names each step's frozen slots and only
-    those are copied; an MLA row is selected on the device.)
+    those are copied; an MLA or K/V row is selected on the device.)
 
     tokens: (B,) int32; cache_len: (B,) int32 (scalars are broadcast);
     steps_left: (B,) tokens each slot still wants (default ``n_steps``).
@@ -500,7 +560,7 @@ def decode_loop_mtp(params: Model, mtp: Any, cfg: ModelConfig,
     writes fit (``cache_len + 2 <= capacity``); frozen slots keep their
     token, draft, cache rows and ``cache_len`` bit-exactly. Liveness depends
     on acceptance, so it stays on the device: the two rows an iteration may
-    write in each slot (MLA) are saved and restored by a select, and no
+    write in each slot (MLA, K/V) are saved and restored by a select, and no
     iteration reads anything back to the host. (A Mamba state is saved
     whole; a rejected draft's SSM update is not rolled back, as in the JAX
     package.)
@@ -573,9 +633,12 @@ def prefill_continue(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     ``offset .. offset+S-1`` against caches whose first ``offset`` positions
     are valid, writing their entries in place. ``offset`` may be per-request
     (B,). With ``offset=0`` on a fresh cache this is a bounded-shape prefill
-    chunk. Returns (logits (B, S, V), caches). MLA archs only: SSM state is
-    not token-addressable."""
-    if cfg.is_ssm:
+    chunk. Returns (logits (B, S, V), caches). Causal-attention and MLA
+    archs only: SSM state is not token-addressable. Callers must not pass
+    a wrapped ring cache (serving gates this path on
+    :func:`supports_prefill_continue`)."""
+    if cfg.is_ssm or cfg.is_hybrid or cfg.attention_kind not in ("causal",
+                                                                 "mla"):
         raise NotImplementedError(
             "prefill_continue requires a causal-attention or MLA arch")
     moe_fn = moe_fn or moe_mod.moe_capacity
@@ -584,13 +647,18 @@ def prefill_continue(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     offset = _as_len(offset, x.device)
     new_caches: Dict[str, Any] = {}
     for seg in build_plan(cfg):
-        mla_cache = caches[seg.name]["mla"]
+        c = caches[seg.name]
+        bufs = _seq_buffers(cfg, c)
         for li, blk in enumerate(params.segments[seg.name]):
             hin = rms_norm(x, blk.attn.ln, cfg.norm_eps)
-            out, _ = mla_mod.mla_extend(blk.attn, hin, mla_cache[li], offset,
-                                        cfg)
+            if cfg.attention_kind == "mla":
+                out, _ = mla_mod.mla_extend(blk.attn, hin, bufs[0][li],
+                                            offset, cfg)
+            else:
+                out, _, _ = attn_mod.attention_extend(
+                    blk.attn, hin, bufs[0][li], bufs[1][li], offset, cfg)
             x = _ffn(blk, x + out, cfg, moe_fn)
-        new_caches[seg.name] = {"mla": mla_cache, "length": offset + s}
+        new_caches[seg.name] = _with_buffers(cfg, c, offset + s)
     return unembed(params, cfg, x), new_caches
 
 
@@ -599,12 +667,26 @@ def prefill_continue(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _write_kv(buf: torch.Tensor, new: torch.Tensor, s: int) -> None:
+    """Write one layer's fresh latent, K or V (B,S,...) into its buffer
+    (B,cap,...) in place. A GQA ring (``s > cap``) keeps the last ``cap``
+    tokens, token p at slot ``p % cap``, as ``attention_decode`` writes
+    them."""
+    cap = buf.shape[1]
+    if s <= cap:
+        buf[:, :s] = new.to(buf.dtype)
+    else:
+        buf.copy_(torch.roll(new[:, -cap:].to(buf.dtype), shifts=s % cap,
+                             dims=1))
+
+
 def prefill(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             capacity: int, moe_fn: Optional[MoeFn] = None,
             cache_dtype: torch.dtype = torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the prompt; return (logits (B,S,V), caches padded to capacity).
-    A Mamba segment's state holds the final ``h`` and the conv window
+    A GQA ring cache keeps the prompt's last ``sliding_window`` tokens. A
+    Mamba segment's state holds the final ``h`` and the conv window
     rounded to bfloat16, as the JAX package stores it."""
     moe_fn = moe_fn or moe_mod.moe_capacity
     x = embed_inputs(params, cfg, batch)
@@ -626,10 +708,14 @@ def prefill(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 x = x + out
             caches[seg.name] = SSMState(st.h, st.conv, length)
             continue
-        buf = caches[seg.name]["mla"]
+        c = caches[seg.name]
+        bufs = _seq_buffers(cfg, c)
         for li, blk in enumerate(params.segments[seg.name]):
-            x, latent = _attn_block_prefill(blk.attn, x, cfg, positions)
-            buf[li, :, :s] = latent.to(cache_dtype)
+            x, fresh = _attn_block_prefill(blk.attn, x, cfg, positions)
+            if cfg.attention_kind == "mla":
+                fresh = [fresh]
+            for buf, new in zip(bufs, fresh):
+                _write_kv(buf[li], new, s)
             x = _ffn(blk, x, cfg, moe_fn)
-        caches[seg.name]["length"] = length
+        caches[seg.name] = _with_buffers(cfg, c, length)
     return unembed(params, cfg, x), caches

@@ -1,11 +1,13 @@
 """Structure-aware batch-axis ops over model cache trees.
 
 Caches built by ``models.model.make_caches`` hold per segment an MLA latent
-buffer (L, B, S, W) and a ``length`` leaf, or an ``SSMState`` (h, conv,
-length); these helpers slice/insert per-request rows for continuous
-batching and migration, and serialize per-token blocks of the MLA buffers
-for KV handoff (SSM state is not sliceable by token, as in the JAX
-package). Inserts write into the destination tensors
+buffer (L, B, S, W) and a ``length`` leaf, a ``KVCache`` (k, v (L, B, S,
+KV, hd), length), or an ``SSMState`` (h, conv, length); these helpers
+slice/insert per-request rows for continuous batching and migration, and
+serialize per-token blocks of the MLA or K/V buffers for KV handoff (SSM
+state is not sliceable by token, as in the JAX package). A K/V payload is
+the pair ``(k, v)``, so its leaves ravel K before V, segment by segment,
+as ``jax.tree.leaves`` ravels JAX's. Inserts write into the destination tensors
 in place (the JAX package returns new buffers); slices return copies, so a
 later in-place decode step never changes a slice already taken.
 """
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import KVCache
 from repro_torch.models.model import build_plan
 from repro_torch.models.model import cache_batch_axes as _model_cache_batch_axes
 from repro_torch.tree import array_bytes, array_nbytes, tree_leaves, tree_map
@@ -60,14 +63,18 @@ def _seq_start(start: int, length: int, cap: int) -> int:
 
 def seq_slice(cfg: ModelConfig, caches, start: int, length: int):
     """``length`` tokens of sequence state from offset ``start`` (a view of
-    each MLA segment's buffer) -- the payload unit of chunked handoff."""
+    each MLA segment's buffer, or a ``(k, v)`` pair of views) -- the
+    payload unit of chunked handoff."""
+    def take(buf):
+        return buf.narrow(2, _seq_start(start, length, buf.shape[2]), length)
+
     out = {}
     for seg in build_plan(cfg):
         if seg.kind == "mamba_tail":
             continue
-        buf = caches[seg.name]["mla"]
-        out[seg.name] = buf.narrow(
-            2, _seq_start(start, length, buf.shape[2]), length)
+        c = caches[seg.name]
+        out[seg.name] = (take(c["mla"]) if cfg.attention_kind == "mla"
+                         else (take(c.k), take(c.v)))
     return out
 
 
@@ -78,11 +85,14 @@ def seq_insert(cfg: ModelConfig, caches, payload: Dict[str, Any], start: int):
         if seg.name not in payload:
             continue
         c = caches[seg.name]
-        pl = payload[seg.name]
-        buf = c["mla"]
-        buf.narrow(2, _seq_start(start, pl.shape[2], buf.shape[2]),
-                   pl.shape[2]).copy_(pl)
-        new[seg.name] = {**c, "mla": buf}
+        pairs = ([(c["mla"], payload[seg.name])]
+                 if cfg.attention_kind == "mla"
+                 else list(zip((c.k, c.v), payload[seg.name])))
+        for buf, pl in pairs:
+            buf.narrow(2, _seq_start(start, pl.shape[2], buf.shape[2]),
+                       pl.shape[2]).copy_(pl)
+        new[seg.name] = (dict(c) if cfg.attention_kind == "mla"
+                         else KVCache(c.k, c.v, c.length))
     return new
 
 

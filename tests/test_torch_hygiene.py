@@ -100,16 +100,17 @@ def test_engine_refuses_params_on_another_device(cpu_model):
 
 
 def test_later_slices_raise(cpu_model):
-    """What a later slice brings raises, naming that slice; MTP and the EMS
-    context cache have landed and no longer do."""
+    """What a later slice brings raises, naming that slice; MTP, the EMS
+    context cache and GQA attention have landed and no longer do."""
     cfg, params = cpu_model
-    for change, slice_name in ((dict(attention_kind="causal"), "GQA"),
+    for change, slice_name in ((dict(attention_kind="bidirectional",
+                                     frontend="audio_frames"), "frontends"),
                                (dict(ssm_state=16, attn_every=2), "Zamba2"),
                                (dict(frontend="vision_patches"), "frontends")):
         with pytest.raises(NotImplementedError, match=slice_name):
             build_plan(dataclasses.replace(cfg, **change))
-    with pytest.raises(NotImplementedError, match="GQA"):
-        serve_cli.main(["--arch", "qwen3-8b", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Zamba2"):
+        serve_cli.main(["--arch", "zamba2-1.2b", "--device", "cpu"])
     ServingSystem(params, cfg, capacity=16, use_mtp=True, mtp_fused=True,
                   mtp_params=init_mtp_params(cfg, device="cpu"),
                   context_cache=EMSService(MemoryPool(n_nodes=2),

@@ -22,6 +22,7 @@ from repro.models import mla as j_mla
 from repro.models import model as j_model
 from repro.models import moe as j_moe
 from repro_torch.configs import get_config as port_get_config
+from repro_torch.configs import list_configs as port_list_configs
 from repro_torch.configs import smoke_variant as port_smoke
 from repro_torch.convert import params_from_jax_numpy
 from repro_torch.models import attention as t_attn
@@ -78,10 +79,15 @@ def _port_caches(jcaches):
 
 
 def test_config_copy_matches_jax():
-    assert dataclasses.asdict(port_get_config("deepseek-r1")) == \
-        dataclasses.asdict(jax_get_config("deepseek-r1"))
-    assert dataclasses.asdict(port_smoke(port_get_config("deepseek-r1"))) == \
-        dataclasses.asdict(smoke("deepseek-r1"))
+    """Every config the port registers (eight so far) is JAX's, and so is
+    its smoke variant."""
+    archs = port_list_configs()
+    assert len(archs) == 8 and "qwen3-8b" in archs
+    for arch in archs:
+        assert dataclasses.asdict(port_get_config(arch)) == \
+            dataclasses.asdict(jax_get_config(arch))
+        assert dataclasses.asdict(port_smoke(port_get_config(arch))) == \
+            dataclasses.asdict(smoke(arch))
 
 
 def test_layers():
@@ -340,8 +346,9 @@ def test_cache_structure(r1):
 
 def test_other_families_name_their_slice(r1):
     _, tcfg, _, _ = r1
-    with pytest.raises(NotImplementedError, match="GQA"):
-        t_model.build_plan(dataclasses.replace(tcfg, attention_kind="causal"))
+    with pytest.raises(NotImplementedError, match="frontend"):
+        t_model.build_plan(dataclasses.replace(
+            tcfg, attention_kind="bidirectional", frontend="audio_frames"))
     with pytest.raises(NotImplementedError, match="Zamba2"):
         t_model.build_plan(dataclasses.replace(tcfg, ssm_state=16,
                                                attn_every=2))

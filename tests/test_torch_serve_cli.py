@@ -67,8 +67,8 @@ def test_flags_and_defaults_equal_jax_plus_device(monkeypatch, capsys):
 
 
 def test_unported_arch_names_its_slice():
-    with pytest.raises(NotImplementedError, match="GQA attention"):
-        t_serve.main(["--arch", "qwen3-8b", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="frontends"):
+        t_serve.main(["--arch", "hubert-xlarge", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="Zamba2"):
         t_serve.main(["--arch", "zamba2-1.2b", "--device", "cpu"])
     with pytest.raises(KeyError):
@@ -115,6 +115,46 @@ def test_cli_prints_jax_lines_on_shared_weights(monkeypatch, capsys):
     got = capsys.readouterr().out
     assert _lines(got) == _lines(want)
     assert "ems: hit_rate=" in got and "decode pool:" in got
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-2b"])
+def test_cli_prints_jax_lines_on_gqa_archs(monkeypatch, capsys, arch):
+    """The same on two GQA archs (qk-norm; tied embeddings): fused MTP
+    with the EMS cache on and a two-engine cache-affinity pool print the
+    JAX CLI's lines."""
+    argv = ["--arch", arch, "--n-requests", "4", "--prompt-len", "16",
+            "--max-new", "5", "--mtp", "--mtp-fused", "--decode-chunk", "4",
+            "--decode-engines", "2", "--decode-router", "cache_affinity",
+            "--trace"]
+    _jax_main(monkeypatch, argv)
+    want = capsys.readouterr().out
+    monkeypatch.undo()
+
+    def same_params(cfg, seed=0, device=None):
+        jp = j_init_params(jax.random.PRNGKey(seed), _jax_cfg(cfg))
+        return params_from_jax_numpy(jax.tree.map(np.asarray, jp), cfg, device)
+
+    def same_head(cfg, seed=0, device=None):
+        jm = j_mtp.init_mtp_params(jax.random.PRNGKey(seed), _jax_cfg(cfg))
+        return mtp_from_jax_numpy(jax.tree.map(np.asarray, jm), cfg, device)
+
+    monkeypatch.setattr(t_serve, "init_params", same_params)
+    monkeypatch.setattr(t_serve, "init_mtp_params", same_head)
+    t_serve.main(argv + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    assert _lines(got) == _lines(want)
+    assert got.count("rid=") == 4 and "ems: hit_rate=" in got
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi3-medium-14b",
+                                  "olmoe-1b-7b", "kimi-k2-1t-a32b"])
+def test_cli_serves_the_other_gqa_archs(capsys, arch):
+    """Every dense and GQA-MoE arch serves through the CLI on the CPU."""
+    t_serve.main(["--arch", arch, "--device", "cpu", "--n-requests", "3",
+                  "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert out.count("rid=") == 3
+    assert "SLO summary (virtual clock): completed=3" in out
 
 
 def test_cli_fit_draft_serves_on_cpu(capsys):
