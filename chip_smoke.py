@@ -161,13 +161,41 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    clear); and in bf16, the
    served requests replayed, whose error against the float32 prefill may
    be at most SSM_BF16_RATIO times the bf16 prefill's.
+12. serve-zamba: with Mamba2's weights freed, Zamba2-1.2B whole (38 Mamba2
+   layers in 6 groups of 6, each followed by the one shared attention
+   block with its own K/V, then a tail of 2; d_model 2048, 64 SSM heads of
+   64, N = 64; bf16 random weights from a seed) serves the same traffic
+   through the same ``ServingSystem``. Every request must finish, and the
+   SSD-scan kernel must launch once per Mamba layer of every prefill
+   (38 x 8), no other kernel. The sizes it holds (``zamba-sizes:``),
+   prefill time per request, TTFT/TPOT p50, decode step p50, decode
+   tokens/s and peak memory.
+13. zamba-agreement: Zamba2 decode against prefill on three served
+   prompts, in float32 after a prefill of their first 160 tokens (from
+   prefill's state with float32 conv windows within ZAMBA_F32_ATOL, from
+   its own bf16 windows within ZAMBA_WINDOW_ATOL; a zeroed group K/V and
+   two groups' swapped SSM states planted, far outside); float32 served
+   and replayed; bf16 replayed (at most ZAMBA_BF16_RATIO times the bf16
+   prefill's error against the float32 one).
+14. ssd_scan-zamba: the kernel against its plain version at Zamba2's
+   widths (B=1, H=64, P=64, N=64, Q=128) at S=1019 and S=448, timed as in
+   phase 10, the first also stage by stage.
+15. cli-zamba: the CLI in this process at ``--arch zamba2-1.2b`` (smoke
+   width): every request finishes, none reuses a prefix, and the SSD scan
+   launches once per layer of every prefill, no other kernel.
+16. forward: one model at a time at full width: Zamba2 over the 1019-token
+   prompt (``forward``'s logits bit-equal to ``prefill``'s; 2 x 38 SSD
+   scans); InternVL2-2B (1.89 B parameters) over 256 patch embeddings and
+   512 tokens (bit-equal to ``prefill``, then VLM_DECODE_STEPS decode steps
+   within DENSE_AGREE_ATOL of a forward over the longer sequence);
+   HuBERT-XLarge (1.26 B) over 1024 audio frames (finite logits). No
+   kernel but the SSD scan may launch.
 
 Each path phase (serve, serve-lep, int8, serve-mtp's two serves,
 serve-ems's two turns, cli, serve-dense, the ring serve, int8-dense,
-serve-olmoe, serve-olmoe-lep, serve-ssm) sets every kernel's launch count
-to 0 just before it and reads the counts just after; the MLA,
-dispatch-quantize and INT8 GEMM entries of the kernels line list them by
-path. The last
+serve-olmoe, serve-olmoe-lep, serve-ssm, serve-zamba, cli-zamba, forward)
+sets every kernel's launch count to 0 just before it and reads the counts
+just after; the kernels line lists each kernel's by path. The last
 two lines of standard output are a ``{"kernels": [...]}`` JSON object (one
 entry per kernel; ``int8_matmul``'s times are sums over the int8 phase's
 cases) and ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -337,6 +365,51 @@ SSM_HANDOFF_STEPS = 32       # decoded after a prefill of SSM_F32_TOKENS
 SSM_WINDOW_ATOL = 0.25
 SSM_FAULT_FACTOR = 10.0
 SSM_BF16_RATIO = 2.0
+# Zamba2-1.2B whole (zamba-agreement): decode after a prefill of the first
+# ZAMBA_F32_TOKENS of three served prompts against a full prefill, as
+# ssm-agreement's handoff does, over 38 Mamba2 layers and 6 applications
+# of the shared attention block.
+# - In float32 from prefill's state with float32 conv windows (the state
+#   prefill computes, before the bf16 rounding the JAX package stores the
+#   windows with): the kernel's SSM state and the shared K/V handed to
+#   decode_step compute the prefill's function in another order, f32
+#   round-off grown by random weights; SSM_F32_ATOL's derivation holds and
+#   ZAMBA_F32_ATOL = SSM_F32_ATOL.
+# - From prefill's own state (its conv windows in bf16, as in JAX): the
+#   rounding (2^-9 relative) enters the next three tokens' inputs of every
+#   Mamba layer, and the layers grow it: on an H100 80GB HBM3 at 700 W it
+#   read 0.197 at the handoff and 0.111-0.167 in the served replays
+#   (PERF.md); ZAMBA_WINDOW_ATOL is 1.5 times the worst. The same
+#   state with float32 windows read 4.2e-4.
+# - Planted faults, on the float32-window state: one group's shared K/V
+#   zeroed, and groups 0 and 1 holding each other's SSM state (a state
+#   restored to the wrong group). Each must err by more than
+#   ZAMBA_FAULT_FACTOR x ZAMBA_F32_ATOL, the tolerance of the check that
+#   holds the state they are planted in (they read 0.978 and 5.76).
+# - float32 served and replayed, and bf16 replayed against the bf16 and the
+#   f32 prefill, as ssm-agreement holds Mamba2 (the bf16 bound measured by
+#   ZAMBA_BF16_RATIO for the same reason as SSM_BF16_RATIO).
+ZAMBA_AGREE_RIDS = (7, 3, 6)     # the 265-, 448- and 615-token prompts
+ZAMBA_F32_TOKENS = 160           # one chunk of 128 and a ragged one of 32
+ZAMBA_HANDOFF_STEPS = 32
+ZAMBA_F32_ATOL = SSM_F32_ATOL
+ZAMBA_WINDOW_ATOL = 0.3
+ZAMBA_FAULT_FACTOR = 100.0
+ZAMBA_BF16_RATIO = 2.0
+# (name, B, S, H, P, N): the SSD scan at Zamba2's served widths (64 heads of
+# 64, state N = 64: half the kernel's 128-column state tile) at the two
+# served prompt lengths that phase 10 times.
+ZAMBA_SSD_CASES = (("zamba S=1019", 1, 1019, 64, 64, 64),
+                   ("zamba S=448", 1, 448, 64, 64, 64))
+# forward: one model at a time at full width. Zamba2 over the longest
+# served prompt; InternVL2-2B over 256 patch embeddings (one 448 px tile)
+# and 512 tokens, then VLM_DECODE_STEPS greedy decode steps held against a
+# forward over the longer sequence within DENSE_AGREE_ATOL (bf16 GQA decode
+# against a full-sequence pass, as dense-agreement holds Qwen3-8B over 36
+# layers; InternVL2 has 24); HuBERT-XLarge over 1024 audio frames.
+FORWARD_RID = 4                  # the 1019-token prompt
+VLM_TOKENS, VLM_DECODE_STEPS = 512, 4
+AUDIO_FRAMES = 1024
 # Qwen3-8B whole in bf16 (dense-agreement): decode replayed at batch 1
 # against a full-sequence prefill. Both compute one function; they round
 # differently (other matmul shapes, the K/V stored in f32 after a bf16
@@ -1003,15 +1076,21 @@ def serve_phase(torch, cfg, params, moe_fn=None, dev="cuda", *, reqs=None,
     # Mamba2: one SSD scan per layer of every prefill; MLA: one decode
     # attention per layer of every decode step. GQA attention is plain
     # PyTorch (as in JAX): no kernel but LEP's dispatch-quantize may launch.
-    if cfg.is_ssm or cfg.attention_kind == "mla":
+    # A Zamba2 hybrid: one SSD scan per Mamba layer (every layer) of every
+    # prefill, and no other kernel (its shared attention is GQA).
+    if cfg.is_ssm or cfg.is_hybrid or cfg.attention_kind == "mla":
+        ssd = cfg.is_ssm or cfg.is_hybrid
         name, per, what = (("ssd_scan", len(prefill_done), "prefills")
-                           if cfg.is_ssm else
+                           if ssd else
                            ("mla_attention", mla_per_iter * n_steps,
                             f"{mla_per_iter} x decode iterations"))
         launches = counts[name]
         if launches != per * cfg.num_layers or (launches == 0) != (per == 0):
             raise AssertionError(f"{name} launches {launches} != {what} "
                                  f"{per} x {cfg.num_layers} layers")
+        if ssd and any(counts[k] for k in KERNEL_MODULES if k != name):
+            raise AssertionError(f"an SSM serve launched another kernel: "
+                                 f"{counts}")
     else:
         quiet = [k for k in KERNEL_MODULES
                  if k != "dispatch_quant" or moe_fn is None]
@@ -1549,18 +1628,15 @@ def serve_ems_phase(torch, cfg, params, first_tokens, dev="cuda"):
     return out, {"turn1": c1, "turn2": c2}
 
 
-def cli_phase(torch, arch="deepseek-r1", dev="cuda"):
-    """``repro_torch.launch.serve.main`` in this process, on the card:
-    the arch's smoke variant with fused MTP, a draft head fitted on the
-    served prompts, 4 iterations a sync and the EMS cache on (the CLI's
-    default). It must finish, reuse the shared prefix in a later request,
-    and take fewer iterations than tokens."""
+def run_cli(argv):
+    """``repro_torch.launch.serve.main(argv)`` in this process, every kernel
+    count set to 0 just before it and read just after. Returns (printed
+    text, counts, wall seconds, per-request rows (rid, reused, computed,
+    iterations, tokens))."""
     import contextlib
     import io
     from repro_torch.launch import serve
 
-    argv = ["--arch", arch, "--mtp", "--mtp-fused", "--fit-draft",
-            "--decode-chunk", "4", "--device", dev]
     buf = io.StringIO()
     reset_counts()
     t0 = time.perf_counter()
@@ -1573,6 +1649,18 @@ def cli_phase(torch, arch="deepseek-r1", dev="cuda"):
                       r"iters=(\d+) tokens=\[([^\]]*)\]", text)
     if not rows:
         raise AssertionError(f"cli printed no request line:\n{text}")
+    return text, counts, wall, rows
+
+
+def cli_phase(torch, arch="deepseek-r1", dev="cuda"):
+    """``repro_torch.launch.serve.main`` in this process, on the card:
+    the arch's smoke variant with fused MTP, a draft head fitted on the
+    served prompts, 4 iterations a sync and the EMS cache on (the CLI's
+    default). It must finish, reuse the shared prefix in a later request,
+    and take fewer iterations than tokens."""
+    argv = ["--arch", arch, "--mtp", "--mtp-fused", "--fit-draft",
+            "--decode-chunk", "4", "--device", dev]
+    text, counts, wall, rows = run_cli(argv)
     reused = {int(r[0]): int(r[1]) for r in rows}
     iters = sum(int(r[3]) for r in rows)
     tokens = sum(len(r[4].split(",")) for r in rows)
@@ -1937,6 +2025,62 @@ def ssd_inputs(torch, gen, b, s, h, p, n):
     return x, dt, a_log, bm, cm
 
 
+def ssd_check(torch, args, q, ref_fn, what, name):
+    """``ssd_scan`` on ``args`` against ``ref_fn`` (y and the final state
+    within SSD_TOL); raises on a disagreement."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    y, hf = ops.ssd_scan(*args, chunk=q)
+    torch.cuda.synchronize()
+    yr, hr = ref_fn(*args)
+    err = max((y - yr).abs().max().item(), (hf - hr).abs().max().item())
+    if not (torch.isfinite(y).all() and torch.isfinite(hf).all() and all(
+            torch.allclose(got, ref, rtol=SSD_TOL,
+                           atol=SSD_ATOL_REL * ref.abs().max().item())
+            for got, ref in ((y, yr), (hf, hr)))):
+        raise AssertionError(f"ssd_scan disagrees with {what} ({name}): "
+                             f"max |err| {err:.3e}")
+    return {"max_abs_err": err, "max_abs_y": yr.abs().max().item(),
+            "max_abs_h": hr.abs().max().item()}
+
+
+def ssd_case_row(torch, flush, gen, name, b, s, h, p, n, q, timed):
+    """One SSD case on seeded inputs: the kernel against its plain version;
+    if ``timed``, the distance of each from a float64 evaluation, median
+    CUDA-event times of the kernel, of its CUDA-graph replay and of the
+    plain version, and each stage kernel's device time; and the bound.
+    Returns (row, inputs)."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    args = ssd_inputs(torch, gen, b, s, h, p, n)
+    row = {"case": name, "B": b, "S": s, "H": h, "P": p, "N": n, "Q": q,
+           **ssd_check(torch, args, q, lambda *a: ssd_chunked(*a, q),
+                       "its plain version", name)}
+    if timed:
+        # Distance of the kernel and of the plain version from a float64
+        # evaluation, per unit of the largest output.
+        y64 = ssd_chunked(*(a.double() for a in args), q)[0]
+        scale = y64.abs().max().item()
+        for key, fn in (("kernel_vs_f64", ops.ssd_scan),
+                        ("plain_vs_f64", ssd_chunked)):
+            row[key] = ((fn(*args, chunk=q)[0].double() - y64).abs()
+                        .max().item() / scale)
+
+        def scan():
+            return ops.ssd_scan(*args, chunk=q)
+
+        row["ms"] = timed_ms(torch, scan, 30, flush)
+        row["graph_ms"] = timed_ms(torch, graph_of(torch, scan).replay,
+                                   30, flush)
+        row["stage_ms"] = ssd_stage_ms(torch, scan, flush)
+        row["plain_ms"] = timed_ms(torch, lambda: ssd_chunked(
+            *args, chunk=q), 10, flush)
+    row["bound_ms"], row["bound_by"], row["bound_fp32_ms"] = ssd_bound(
+        b, s, h, p, n, q)
+    return row, args
+
+
 def ssd_scan_phase(torch, flush, q):
     """``ssd_scan`` against its plain PyTorch version (y and the final
     state within SSD_TOL) at SSD_CASES, the timed ones with median
@@ -1944,51 +2088,13 @@ def ssd_scan_phase(torch, flush, q):
     first one also stage by stage (``ssd_stage_rows``); then one small case
     against the token recurrence ``ssd_reference``."""
     from repro_torch.kernels.ssd_scan import ops
-    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
     from repro_torch.models.mamba2 import ssd_reference
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-
-    def check(name, args, ref_fn, what):
-        y, hf = ops.ssd_scan(*args, chunk=q)
-        torch.cuda.synchronize()
-        yr, hr = ref_fn(*args)
-        err = max((y - yr).abs().max().item(), (hf - hr).abs().max().item())
-        if not (torch.isfinite(y).all() and torch.isfinite(hf).all() and all(
-                torch.allclose(got, ref, rtol=SSD_TOL,
-                               atol=SSD_ATOL_REL * ref.abs().max().item())
-                for got, ref in ((y, yr), (hf, hr)))):
-            raise AssertionError(f"ssd_scan disagrees with {what} ({name}): "
-                                 f"max |err| {err:.3e}")
-        return {"max_abs_err": err, "max_abs_y": yr.abs().max().item(),
-                "max_abs_h": hr.abs().max().item()}
-
     rows = []
     for name, b, s, h, p, n, timed in SSD_CASES:
-        args = ssd_inputs(torch, gen, b, s, h, p, n)
-        row = {"case": name, "B": b, "S": s, "H": h, "P": p, "N": n, "Q": q,
-               **check(name, args, lambda *a: ssd_chunked(*a, q),
-                       "its plain version")}
-        if timed:
-            # Distance of the kernel and of the plain version from a float64
-            # evaluation, per unit of the largest output.
-            y64 = ssd_chunked(*(a.double() for a in args), q)[0]
-            scale = y64.abs().max().item()
-            for key, fn in (("kernel_vs_f64", ops.ssd_scan),
-                            ("plain_vs_f64", ssd_chunked)):
-                row[key] = ((fn(*args, chunk=q)[0].double() - y64).abs()
-                            .max().item() / scale)
-            def scan():
-                return ops.ssd_scan(*args, chunk=q)
-
-            row["ms"] = timed_ms(torch, scan, 30, flush)
-            row["graph_ms"] = timed_ms(torch, graph_of(torch, scan).replay,
-                                       30, flush)
-            row["stage_ms"] = ssd_stage_ms(torch, scan, flush)
-            row["plain_ms"] = timed_ms(torch, lambda: ssd_chunked(
-                *args, chunk=q), 10, flush)
-        row["bound_ms"], row["bound_by"], row["bound_fp32_ms"] = ssd_bound(
-            b, s, h, p, n, q)
+        row, args = ssd_case_row(torch, flush, gen, name, b, s, h, p, n, q,
+                                 timed)
         log("ssd_scan:", json.dumps(row))
         rows.append(row)
         if len(rows) == 1:                # the served S = 1019, stage by stage
@@ -2004,12 +2110,141 @@ def ssd_scan_phase(torch, flush, q):
                                  f"{sass}")
     b, s, h, p, n = SSD_ORACLE_CASE
     row = {"case": "vs ssd_reference", "B": b, "S": s, "H": h, "P": p,
-           "N": n, "Q": q, **check(
-               "vs ssd_reference", ssd_inputs(torch, gen, b, s, h, p, n),
-               ssd_reference, "the token recurrence")}
+           "N": n, "Q": q, **ssd_check(
+               torch, ssd_inputs(torch, gen, b, s, h, p, n), q,
+               ssd_reference, "the token recurrence", "vs ssd_reference")}
     log("ssd_scan:", json.dumps(row))
     rows.append(row)
     return rows
+
+
+def ssd_scan_zamba_phase(torch, flush, q):
+    """``ssd_scan`` at Zamba2's served widths (ZAMBA_SSD_CASES: H=64, P=64,
+    N=64, half the kernel's 128-column state tile), timed and checked as
+    the ssd_scan phase's served rows, the first also stage by stage."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = []
+    for name, b, s, h, p, n in ZAMBA_SSD_CASES:
+        row, args = ssd_case_row(torch, flush, gen, name, b, s, h, p, n, q,
+                                 True)
+        log("ssd_scan-zamba:", json.dumps(row))
+        rows.append(row)
+        if len(rows) == 1:
+            for stage in ssd_stage_rows(torch, ops, args, q):
+                log("ssd_scan-zamba-stage:",
+                    json.dumps({"case": name, **stage}))
+    return rows
+
+
+def dev_tokens(torch, ids, dev="cuda"):
+    return torch.tensor(ids, dtype=torch.int32, device=dev)
+
+
+def replay_logits(torch, p, c, prompt, toks, dev="cuda"):
+    """Logits of ``prefill(prompt)`` at its last position, then of each
+    token of ``toks[:-1]`` teacher-forced through ``decode_step`` (batch 1,
+    f32 caches)."""
+    from repro_torch.models import decode_step, prefill
+
+    n = len(toks)
+    logits, caches = prefill(p, c, {"tokens": dev_tokens(torch, [prompt], dev)},
+                             len(prompt) + n, cache_dtype=torch.float32)
+    out = [logits[0, -1].float()]
+    for i, t_ in enumerate(toks[:-1]):
+        lg, caches = decode_step(p, c, dev_tokens(torch, [[t_]], dev), caches,
+                                 dev_tokens(torch, [len(prompt) + i], dev))
+        out.append(lg[0].float())
+    return torch.stack(out)
+
+
+def whole_logits(torch, p, c, prompt, toks, dev="cuda"):
+    """``prefill`` over prompt + toks[:-1], from the prompt's last position
+    on: the reference for ``replay_logits``."""
+    from repro_torch.models import prefill
+
+    return prefill(p, c, {"tokens": dev_tokens(torch, [prompt + toks[:-1]],
+                                               dev)},
+                   len(prompt) + len(toks), cache_dtype=torch.float32
+                   )[0][0, len(prompt) - 1:].float()
+
+
+def f32_served_check(torch, cfg32, p32, reqs, rids, atol, window_atol,
+                     what, tag, dev="cuda"):
+    """The requests ``rids`` served through ``ServingSystem`` in float32,
+    each replayed at batch 1: the replay's logits within ``window_atol`` of
+    a ``prefill`` over prompt + served tokens, and each served token the
+    replay's argmax wherever the replay's margin exceeds 2 x ``atol`` (at
+    least one such position over all requests). Logged as ``<tag>:``."""
+    from repro_torch.serving import Request, ServingSystem
+
+    system = ServingSystem(p32, cfg32, n_prefill=1, decode_batch=8,
+                           capacity=2048, device=dev)
+    served32 = {r.rid: r.tokens for r in system.serve(
+        [Request(rid, reqs[rid].prompt, reqs[rid].max_new_tokens)
+         for rid in rids])}
+    del system
+    f32s = {"requests": len(rids), "window_atol": window_atol,
+            "positions": 0, "per_request": []}
+    for rid in rids:
+        prompt, toks = reqs[rid].prompt, served32[rid]
+        if len(toks) != reqs[rid].max_new_tokens:
+            raise AssertionError(f"f32 serve: rid {rid} finished with "
+                                 f"{len(toks)} tokens")
+        rep = replay_logits(torch, p32, cfg32, prompt, toks, dev)
+        ref_w = whole_logits(torch, p32, cfg32, prompt, toks, dev)
+        top2 = rep.topk(2, dim=-1)
+        clear = (top2.values[:, 0] - top2.values[:, 1]) > 2 * atol
+        row = {"rid": rid, "prompt": len(prompt),
+               "max_abs_logit_err": (rep - ref_w).abs().max().item(),
+               "tokens_checked": int(clear.sum()),
+               "tokens_differing": int(
+                   (clear & (dev_tokens(torch, toks, dev)
+                             != top2.indices[:, 0])).sum())}
+        f32s["per_request"].append(row)
+        f32s["positions"] += len(toks)
+    log(f"{tag}: {json.dumps(f32s)}")
+    for row in f32s["per_request"]:
+        if not row["max_abs_logit_err"] <= window_atol:
+            raise AssertionError(f"rid {row['rid']}: f32 {what} decode after "
+                                 f"prefill errs by {row['max_abs_logit_err']:.3e}"
+                                 f" > {window_atol}")
+        if row["tokens_differing"]:
+            raise AssertionError(f"rid {row['rid']}: {row['tokens_differing']}"
+                                 " served f32 tokens differ from the replay's "
+                                 "argmax at a clear margin")
+    if not sum(r["tokens_checked"] for r in f32s["per_request"]):
+        raise AssertionError("f32 serve: no position had a margin to check "
+                             "tokens at")
+    return f32s
+
+
+def bf16_ratio_check(torch, cfg, params, cfg32, p32, reqs, served, rids,
+                     ratio, what, dev="cuda"):
+    """Each bf16-served request of ``rids`` replayed at batch 1: against the
+    float32 ``prefill`` over prompt + served tokens, the replay's largest
+    logit error may be at most ``ratio`` times the bf16 ``prefill``'s."""
+    bf = {"requests": len(rids), "ratio": ratio, "positions": 0,
+          "per_request": []}
+    for rid in rids:
+        prompt, toks = reqs[rid].prompt, served[rid]
+        rep = replay_logits(torch, params, cfg, prompt, toks, dev)
+        ref16, ref32 = (whole_logits(torch, p, c, prompt, toks, dev)
+                        for p, c in ((params, cfg), (p32, cfg32)))
+        row = {"rid": rid,
+               "decode_vs_prefill": (rep - ref16).abs().max().item(),
+               "decode_vs_f32": (rep - ref32).abs().max().item(),
+               "prefill_vs_f32": (ref16 - ref32).abs().max().item()}
+        bf["per_request"].append(row)
+        bf["positions"] += len(toks)
+        allowed = ratio * row["prefill_vs_f32"]
+        if not row["decode_vs_f32"] <= allowed:
+            raise AssertionError(f"rid {rid}: bf16 {what} decode errs by "
+                                 f"{row['decode_vs_f32']:.4f} against f32, "
+                                 f"more than {ratio} x the bf16 prefill's "
+                                 f"{row['prefill_vs_f32']:.4f}")
+    return bf
 
 
 def ssm_agreement_phase(torch, cfg, params, reqs, served, dev="cuda"):
@@ -2053,30 +2288,9 @@ def ssm_agreement_phase(torch, cfg, params, reqs, served, dev="cuda"):
     import copy
     from repro_torch.models import decode_step, make_caches, prefill
     from repro_torch.models.mamba2 import SSMState
-    from repro_torch.serving import Request, ServingSystem
 
     def tok(ids):
-        return torch.tensor(ids, dtype=torch.int32, device=dev)
-
-    def replay(p, c, prompt, toks):
-        """Logits of ``prefill(prompt)`` at its last position, then of each
-        token of ``toks[:-1]`` teacher-forced through ``decode_step``."""
-        n = len(toks)
-        logits, caches = prefill(p, c, {"tokens": tok([prompt])},
-                                 len(prompt) + n, cache_dtype=torch.float32)
-        out = [logits[0, -1].float()]
-        for i, t_ in enumerate(toks[:-1]):
-            lg, caches = decode_step(p, c, tok([[t_]]), caches,
-                                     tok([len(prompt) + i]))
-            out.append(lg[0].float())
-        return torch.stack(out)
-
-    def whole(p, c, prompt, toks):
-        """``prefill`` over prompt + toks[:-1], from the prompt's last
-        position on: the reference for ``replay``."""
-        return prefill(p, c, {"tokens": tok([prompt + toks[:-1]])},
-                       len(prompt) + len(toks), cache_dtype=torch.float32
-                       )[0][0, len(prompt) - 1:].float()
+        return dev_tokens(torch, ids, dev)
 
     # float32, from a zero state, over T + K tokens; the state after T is
     # kept for the handoff below.
@@ -2152,67 +2366,283 @@ def ssm_agreement_phase(torch, cfg, params, reqs, served, dev="cuda"):
 
     # float32, served: the same requests through ServingSystem, each
     # replayed at batch 1.
-    system = ServingSystem(p32, cfg32, n_prefill=1, decode_batch=8,
-                           capacity=2048, device=dev)
-    served32 = {r.rid: r.tokens for r in system.serve(
-        [Request(rid, reqs[rid].prompt, reqs[rid].max_new_tokens)
-         for rid in SSM_AGREE_RIDS])}
-    del system
-    f32s = {"requests": len(SSM_AGREE_RIDS), "window_atol": SSM_WINDOW_ATOL,
-            "positions": 0, "per_request": []}
-    for rid in SSM_AGREE_RIDS:
-        prompt, toks = reqs[rid].prompt, served32[rid]
-        if len(toks) != reqs[rid].max_new_tokens:
-            raise AssertionError(f"f32 serve: rid {rid} finished with "
-                                 f"{len(toks)} tokens")
-        rep = replay(p32, cfg32, prompt, toks)
-        ref_w = whole(p32, cfg32, prompt, toks)
-        top2 = rep.topk(2, dim=-1)
-        clear = (top2.values[:, 0] - top2.values[:, 1]) > 2 * SSM_F32_ATOL
-        row = {"rid": rid, "prompt": len(prompt),
-               "max_abs_logit_err": (rep - ref_w).abs().max().item(),
-               "tokens_checked": int(clear.sum()),
-               "tokens_differing": int(
-                   (clear & (tok(toks) != top2.indices[:, 0])).sum())}
-        f32s["per_request"].append(row)
-        f32s["positions"] += len(toks)
-    log(f"ssm-agreement f32 served: {json.dumps(f32s)}")
-    for row in f32s["per_request"]:
-        if not row["max_abs_logit_err"] <= SSM_WINDOW_ATOL:
-            raise AssertionError(f"rid {row['rid']}: f32 Mamba2 decode after "
-                                 f"prefill errs by {row['max_abs_logit_err']:.3e}"
-                                 f" > {SSM_WINDOW_ATOL}")
-        if row["tokens_differing"]:
-            raise AssertionError(f"rid {row['rid']}: {row['tokens_differing']}"
-                                 " served f32 tokens differ from the replay's "
-                                 "argmax at a clear margin")
-    if not sum(r["tokens_checked"] for r in f32s["per_request"]):
-        raise AssertionError("f32 serve: no position had a margin to check "
-                             "tokens at")
-    stats["f32_served"] = f32s
+    stats["f32_served"] = f32_served_check(
+        torch, cfg32, p32, reqs, SSM_AGREE_RIDS, SSM_F32_ATOL,
+        SSM_WINDOW_ATOL, "Mamba2", "ssm-agreement f32 served", dev)
 
     # bfloat16, replaying the served requests.
-    bf = {"requests": len(SSM_AGREE_RIDS), "ratio": SSM_BF16_RATIO,
-          "positions": 0, "per_request": []}
-    for rid in SSM_AGREE_RIDS:
-        prompt, toks = reqs[rid].prompt, served[rid]
-        rep = replay(params, cfg, prompt, toks)
-        ref16, ref32 = (whole(p, c, prompt, toks)
-                        for p, c in ((params, cfg), (p32, cfg32)))
-        row = {"rid": rid,
-               "decode_vs_prefill": (rep - ref16).abs().max().item(),
-               "decode_vs_f32": (rep - ref32).abs().max().item(),
-               "prefill_vs_f32": (ref16 - ref32).abs().max().item()}
-        bf["per_request"].append(row)
-        bf["positions"] += len(toks)
-        allowed = SSM_BF16_RATIO * row["prefill_vs_f32"]
-        if not row["decode_vs_f32"] <= allowed:
-            raise AssertionError(f"rid {rid}: bf16 Mamba2 decode errs by "
-                                 f"{row['decode_vs_f32']:.4f} against f32, "
-                                 f"more than {SSM_BF16_RATIO} x the bf16 "
-                                 f"prefill's {row['prefill_vs_f32']:.4f}")
-    stats["bf16"] = bf
+    stats["bf16"] = bf16_ratio_check(torch, cfg, params, cfg32, p32, reqs,
+                                     served, SSM_AGREE_RIDS, SSM_BF16_RATIO,
+                                     "Mamba2", dev)
     return stats
+
+
+# ---------------------------------------------------------------------------
+# Zamba2-1.2B whole (serve-zamba, zamba-agreement, ssd_scan-zamba,
+# cli-zamba) and the forward phase (Zamba2, InternVL2-2B, HuBERT-XLarge)
+# ---------------------------------------------------------------------------
+
+
+def zamba_config():
+    from repro_torch.configs import get_config
+    # Whole: 38 Mamba2 layers (6 groups of 6 and a tail of 2), d_model
+    # 2048, 64 SSM heads of 64, N = 64; one shared block of 32 heads of 64,
+    # d_ff 8192, sliding window 8192; vocab 32000, tied embeddings.
+    return get_config("zamba2-1.2b")
+
+
+def zamba_sizes(cfg, params, batch=8, capacity=2048) -> dict:
+    """Bytes the served Zamba2 holds on the card, from its shapes: bf16
+    weights, and the decode engine's f32 caches at ``batch`` slots
+    (the group SSM state, the tail's, the shared K/V of every group)."""
+    from repro_torch.models import build_plan
+
+    din = cfg.d_model * cfg.ssm_expand
+    h_layer = batch * cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+    conv_layer = batch * (cfg.ssm_conv - 1) * (din + 2 * cfg.ssm_state) * 4
+    out = {"weights_bytes": sum(p.numel() * p.element_size()
+                                for p in params.parameters())}
+    for seg in build_plan(cfg):
+        out[f"{seg.name}_state_bytes"] = seg.n_layers * (h_layer + conv_layer)
+        if seg.kind == "mamba_groups":
+            out["shared_kv_bytes"] = (2 * seg.n_groups * batch * capacity
+                                      * cfg.num_kv_heads * cfg.head_dim * 4)
+    return out
+
+
+def exact_window_prefill(torch, params, cfg, batch, capacity):
+    """``prefill`` with float32 conv windows: the state prefill computes,
+    without the bf16 rounding the JAX package stores the windows with (its
+    ``make_caches`` patched for the call)."""
+    from repro_torch.models import model as model_mod
+
+    make = model_mod.make_caches
+
+    def f32_windows(*args, **kw):
+        caches = make(*args, **kw)
+        for seg in model_mod.build_plan(cfg):
+            c = caches[seg.name]
+            if seg.kind == "mamba_groups":
+                c["ssm"]["conv"] = c["ssm"]["conv"].float()
+            elif seg.kind == "mamba_tail":
+                caches[seg.name] = c._replace(conv=c.conv.float())
+        return caches
+
+    model_mod.make_caches = f32_windows
+    try:
+        return model_mod.prefill(params, cfg, batch, capacity,
+                                 cache_dtype=torch.float32)
+    finally:
+        model_mod.make_caches = make
+
+
+def zamba_agreement_phase(torch, cfg, params, reqs, served, dev="cuda"):
+    """Zamba2 decode (the recurrence and the shared block's one-token
+    attention) against full-sequence prefill (the SSD kernel and the
+    block's prefill attention), on the served prompts of ZAMBA_AGREE_RIDS.
+
+    float32, the handoff: ``prefill`` over the first ZAMBA_F32_TOKENS, then
+    the next ZAMBA_HANDOFF_STEPS through ``decode_step``, against a prefill
+    over all of them: within ZAMBA_F32_ATOL from prefill's state with
+    float32 conv windows (``exact_window_prefill``), within
+    ZAMBA_WINDOW_ATOL from prefill's own state (bf16 windows, as in JAX).
+    Two planted faults on the float32-window state -- group 1's shared K/V
+    zeroed, groups 0 and 1 holding each other's SSM state -- must err by
+    more than ZAMBA_FAULT_FACTOR x ZAMBA_F32_ATOL.
+
+    float32, served, and bfloat16, replayed: as ssm-agreement
+    (``f32_served_check``, ``bf16_ratio_check``) with ZAMBA_F32_ATOL,
+    ZAMBA_WINDOW_ATOL and ZAMBA_BF16_RATIO."""
+    import copy
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.tree import tree_map
+
+    def tok(ids):
+        return dev_tokens(torch, ids, dev)
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = copy.deepcopy(params).float()
+    t, k = ZAMBA_F32_TOKENS, ZAMBA_HANDOFF_STEPS
+    seqs = tok([reqs[rid].prompt[:t + k] for rid in ZAMBA_AGREE_RIDS])
+    ref = prefill(p32, cfg32, {"tokens": seqs}, t + k,
+                  cache_dtype=torch.float32)[0].float()
+    head = {"tokens": seqs[:, :t]}
+    own = prefill(p32, cfg32, head, t + k, cache_dtype=torch.float32)[1]
+    exact = exact_window_prefill(torch, p32, cfg32, head, t + k)[1]
+
+    def handoff_err(caches, plant=None):
+        c = tree_map(lambda x: x.clone(), caches)
+        if plant is not None:
+            plant(c["mamba_groups"])
+        out = []
+        for i in range(t, t + k):
+            lg, c = decode_step(p32, cfg32, seqs[:, i:i + 1], c, tok(i))
+            out.append(lg.float())
+        return (torch.stack(out, 1) - ref[:, t:]).abs().max().item()
+
+    def zero_group_kv(g):
+        g["shared_kv"].k[1].zero_()
+        g["shared_kv"].v[1].zero_()
+
+    def swap_group_state(g):
+        for x in (g["ssm"]["h"], g["ssm"]["conv"]):
+            x[[0, 1]] = x[[1, 0]]
+
+    hand = {"prefix": t, "steps": k, "atol": ZAMBA_F32_ATOL,
+            "window_atol": ZAMBA_WINDOW_ATOL,
+            "f32_windows": handoff_err(exact),
+            "prefill_state": handoff_err(own),
+            "fault_zeroed_group_kv": handoff_err(exact, zero_group_kv),
+            "fault_swapped_group_state": handoff_err(exact,
+                                                     swap_group_state)}
+    log(f"zamba-agreement f32 handoff: {json.dumps(hand)}")
+    if not hand["f32_windows"] <= ZAMBA_F32_ATOL:
+        raise AssertionError(f"Zamba2 f32 decode from prefill's state with "
+                             f"f32 windows errs by {hand['f32_windows']:.3e}"
+                             f" > {ZAMBA_F32_ATOL}")
+    if not hand["prefill_state"] <= ZAMBA_WINDOW_ATOL:
+        raise AssertionError(f"Zamba2 f32 decode from prefill's state errs "
+                             f"by {hand['prefill_state']:.3e} > "
+                             f"{ZAMBA_WINDOW_ATOL}")
+    for key in ("fault_zeroed_group_kv", "fault_swapped_group_state"):
+        if not hand[key] > ZAMBA_FAULT_FACTOR * ZAMBA_F32_ATOL:
+            raise AssertionError(f"planted fault {key} errs by only "
+                                 f"{hand[key]:.3e}: the check cannot see it")
+    stats = {"f32_handoff": hand}
+    stats["f32_served"] = f32_served_check(
+        torch, cfg32, p32, reqs, ZAMBA_AGREE_RIDS, ZAMBA_F32_ATOL,
+        ZAMBA_WINDOW_ATOL, "Zamba2", "zamba-agreement f32 served", dev)
+    stats["bf16"] = bf16_ratio_check(
+        torch, cfg, params, cfg32, p32, reqs, served, ZAMBA_AGREE_RIDS,
+        ZAMBA_BF16_RATIO, "Zamba2", dev)
+    return stats
+
+
+def cli_zamba_phase(torch, dev="cuda"):
+    """The CLI at ``--arch zamba2-1.2b`` (its smoke variant) in this
+    process, on the card: every request must finish with nothing reused
+    (a hybrid has no token-sliceable cache), and the SSD-scan kernel must
+    launch once per Mamba layer of every prefill, no other kernel."""
+    from repro_torch.configs import get_config, smoke_variant
+
+    cfg = smoke_variant(get_config("zamba2-1.2b"))
+    argv = ["--arch", "zamba2-1.2b", "--decode-chunk", "4", "--device", dev]
+    text, counts, wall, rows = run_cli(argv)
+    n_req = len(rows)
+    if f"completed={n_req}," not in text or n_req != 6:
+        raise AssertionError(f"cli-zamba: not every request finished:\n"
+                             f"{text}")
+    if any(int(r[1]) for r in rows):
+        raise AssertionError(f"cli-zamba reused a prefix: {rows}")
+    if counts["ssd_scan"] != n_req * cfg.num_layers or any(
+            counts[k] for k in KERNEL_MODULES if k != "ssd_scan"):
+        raise AssertionError(f"cli-zamba launches {counts} != ssd_scan "
+                             f"{n_req} prefills x {cfg.num_layers} layers")
+    return {"argv": argv, "wall_s": wall, "requests": n_req,
+            "tokens": sum(len(r[4].split(",")) for r in rows),
+            "kernel_launches": counts,
+            "lines": [ln for ln in text.splitlines()
+                      if ln.startswith(("SLO summary", "transfer:"))]}
+
+
+def forward_row(torch, name, logits, ref=None):
+    """What a forward phase reports of ``logits`` (finite, and its largest
+    difference from ``ref`` when given)."""
+    row = {"model": name, "shape": list(logits.shape),
+           "finite": bool(torch.isfinite(logits).all())}
+    if not row["finite"]:
+        raise AssertionError(f"forward {name}: non-finite logits")
+    if ref is not None:
+        row["max_abs_vs_prefill"] = (logits.float() - ref.float()).abs(
+            ).max().item()
+    return row
+
+
+def forward_zamba(torch, cfg, params, prompt, dev="cuda"):
+    """``forward`` over one served prompt, against ``prefill``'s logits
+    (the same code path without the cache writes: bit-equal)."""
+    from repro_torch.models import forward, prefill
+
+    batch = {"tokens": dev_tokens(torch, [prompt], dev)}
+    t0 = time.perf_counter()
+    logits, aux = forward(params, cfg, batch)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ref = prefill(params, cfg, batch, len(prompt))[0]
+    row = {**forward_row(torch, cfg.name, logits, ref), "tokens": len(prompt),
+           "forward_s": wall, "aux_loss": float(aux["aux_loss"])}
+    if row["max_abs_vs_prefill"] != 0:
+        raise AssertionError(f"Zamba2 forward differs from prefill: {row}")
+    return row
+
+
+def forward_vlm(torch, dev="cuda"):
+    """InternVL2-2B whole: ``forward`` over VLM prefix embeddings + tokens
+    against ``prefill`` (bit-equal), then VLM_DECODE_STEPS greedy
+    ``decode_step``s, each step's logits within DENSE_AGREE_ATOL of a
+    ``forward`` over the longer sequence."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, prefill
+
+    cfg = get_config("internvl2-2b")
+    params = init_model(torch, cfg, "vlm")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = cfg.num_prefix_embeddings
+    prefix = torch.randn(1, p, cfg.d_model, device=dev, generator=gen
+                         ).to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (1, VLM_TOKENS), device=dev,
+                         generator=gen, dtype=torch.int32)
+    batch = {"prefix_emb": prefix, "tokens": toks}
+    s = p + VLM_TOKENS
+    logits = forward(params, cfg, batch)[0]
+    ref, caches = prefill(params, cfg, batch, s + VLM_DECODE_STEPS)
+    row = {**forward_row(torch, cfg.name, logits, ref),
+           "parameters": sum(x.numel() for x in params.parameters()),
+           "prefix_embeddings": p, "tokens": VLM_TOKENS}
+    if row["max_abs_vs_prefill"] != 0:
+        raise AssertionError(f"InternVL2 forward differs from prefill: {row}")
+    nxt = ref[:, -1].argmax(-1).to(torch.int32)
+    gen_toks, steps = [], []
+    for i in range(VLM_DECODE_STEPS):
+        gen_toks.append(int(nxt))
+        lg, caches = decode_step(params, cfg, nxt[:, None], caches,
+                                 dev_tokens(torch, s + i, dev))
+        steps.append(lg[0].float())
+        nxt = lg.argmax(-1).to(torch.int32)
+    longer = forward(params, cfg, {"prefix_emb": prefix, "tokens": torch.cat(
+        [toks, dev_tokens(torch, [gen_toks], dev)], 1)})[0][0, s:].float()
+    row["decode_steps"] = VLM_DECODE_STEPS
+    row["decode_vs_forward"] = (torch.stack(steps) - longer).abs().max(
+        ).item()
+    row["atol"] = DENSE_AGREE_ATOL
+    del params, caches
+    free_model(torch)
+    if not row["decode_vs_forward"] <= DENSE_AGREE_ATOL:
+        raise AssertionError(f"InternVL2 decode vs forward: {row}")
+    return row
+
+
+def forward_audio(torch, dev="cuda"):
+    """HuBERT-XLarge whole, encoder-only: ``forward`` over AUDIO_FRAMES
+    frame embeddings; finite logits over its 504 targets."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward
+
+    cfg = get_config("hubert-xlarge")
+    params = init_model(torch, cfg, "audio")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    frames = torch.randn(1, AUDIO_FRAMES, cfg.d_model, device=dev,
+                         generator=gen).to(torch.bfloat16)
+    logits = forward(params, cfg, {"frames": frames})[0]
+    row = {**forward_row(torch, cfg.name, logits),
+           "parameters": sum(x.numel() for x in params.parameters()),
+           "frames": AUDIO_FRAMES}
+    if row["shape"] != [1, AUDIO_FRAMES, cfg.vocab_size]:
+        raise AssertionError(f"HuBERT logits of shape {row['shape']}")
+    del params
+    free_model(torch)
+    return row
 
 
 def main(argv=None) -> int:
@@ -2364,6 +2794,54 @@ def main(argv=None) -> int:
     ssm_agree = ssm_agreement_phase(torch, scfg, sparams, serve_requests(scfg),
                                     ssm_tokens)
     log(f"ssm-agreement: {json.dumps(ssm_agree)}")
+    del sparams
+    free_model(torch)
+
+    # Zamba2-1.2B, whole, after Mamba2's weights are freed.
+    zcfg = zamba_config()
+    zparams = init_model(torch, zcfg, "zamba")
+    log(f"zamba-sizes: {json.dumps(zamba_sizes(zcfg, zparams))}")
+    zreqs = serve_requests(zcfg)
+    tp = time.perf_counter()
+    zamba, zamba_counts, _, zamba_tokens = serve_phase(torch, zcfg, zparams,
+                                                       reqs=zreqs)
+    log(f"serve-zamba: {json.dumps(zamba)} on {device}")
+    log(f"serve-zamba: phase {time.perf_counter() - tp:.1f} s")
+    tp = time.perf_counter()
+    zamba_agree = zamba_agreement_phase(torch, zcfg, zparams, zreqs,
+                                        zamba_tokens)
+    log(f"zamba-agreement: {json.dumps(zamba_agree)}")
+    log(f"zamba-agreement: phase {time.perf_counter() - tp:.1f} s")
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    tp = time.perf_counter()
+    zamba_ssd_rows = ssd_scan_zamba_phase(torch, flush, zcfg.ssm_chunk)
+    log(f"ssd_scan-zamba: phase {time.perf_counter() - tp:.1f} s")
+    del flush
+    tp = time.perf_counter()
+    cli_zamba = cli_zamba_phase(torch)
+    log(f"cli-zamba: {json.dumps(cli_zamba)} on {device}")
+    log(f"cli-zamba: phase {time.perf_counter() - tp:.1f} s")
+
+    # forward: Zamba2, then InternVL2-2B and HuBERT-XLarge, one at a time.
+    tp = time.perf_counter()
+    reset_counts()
+    fwd = [forward_zamba(torch, zcfg, zparams, zreqs[FORWARD_RID].prompt)]
+    fwd_counts = read_counts()
+    if fwd_counts != {**{k: 0 for k in KERNEL_MODULES},
+                      "ssd_scan": 2 * zcfg.num_layers}:
+        raise AssertionError(f"Zamba2 forward + prefill launched "
+                             f"{fwd_counts}, not 2 x {zcfg.num_layers} "
+                             "SSD scans alone")
+    del zparams
+    free_model(torch)
+    reset_counts()
+    fwd += [forward_vlm(torch), forward_audio(torch)]
+    if any(read_counts().values()):
+        raise AssertionError(f"a GQA forward launched a kernel: "
+                             f"{read_counts()}")
+    for row in fwd:
+        log(f"forward: {json.dumps(row)} on {device}")
+    log(f"forward: phase {time.perf_counter() - tp:.1f} s")
 
     main_row = rows[-1]
     dq_row = dq_rows[0]                   # the decode dispatch buffer
@@ -2439,13 +2917,24 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:74",
         "launches": ssm_counts["ssd_scan"],
-        "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
+        "launches_by_path": {
+            "serve-ssm": ssm_counts["ssd_scan"],
+            "serve-zamba": zamba_counts["ssd_scan"],
+            "cli-zamba": cli_zamba["kernel_launches"]["ssd_scan"],
+            "forward": fwd_counts["ssd_scan"]},
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in ssd_rows + zamba_ssd_rows),
         "ms": ssd_rows[0]["ms"],
+        "graph_ms": ssd_rows[0]["graph_ms"],
         "plain_ms": ssd_rows[0]["plain_ms"],
         "bound_ms": ssd_rows[0]["bound_ms"],
         "bound_by": ssd_rows[0]["bound_by"],
         "bound_fp32_ms": ssd_rows[0]["bound_fp32_ms"],
         "library_ms": None,
+        # Zamba2's served widths (H=64, P=64, N=64) at S=1019.
+        "zamba": {key: zamba_ssd_rows[0][key] for key in (
+            "S", "H", "P", "N", "max_abs_err", "ms", "graph_ms", "plain_ms",
+            "bound_ms", "bound_by", "bound_fp32_ms")},
     }]
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(device)

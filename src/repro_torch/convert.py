@@ -1,9 +1,13 @@
 """Carry the JAX package's weights and quantized tensors into the port.
 
 The JAX ``init_params`` pytree (``repro/models/model.py:113``) stacks each
-segment's layer weights on a leading axis. :func:`params_from_jax_numpy`
-takes that tree with numpy arrays at the leaves and unstacks it into one
-module per layer, so both sides of a test run the same weights;
+segment's layer weights on a leading axis (a hybrid's ``mamba_groups``
+too: its scan reshapes that axis to (groups, per_group), so group ``i``,
+layer ``j`` is index ``i * per_group + j``, the port's layer order), and a
+hybrid's ``shared_attn`` leaves carry a leading axis of 1.
+:func:`params_from_jax_numpy` takes that tree with numpy arrays at the
+leaves and unstacks it into one module per layer, so both sides of a test
+run the same weights;
 :func:`param_tree` goes the other way and lays a port model's weights out
 as that tree. :func:`mtp_from_jax_numpy` carries the draft head of
 ``repro/core/mtp.py`` across. :func:`quantized_linear_from_jax_numpy` and
@@ -20,7 +24,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mtp import MTPHead
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import Model, build_plan
+from repro_torch.models.model import MAMBA_KINDS, Model, build_plan
 from repro_torch.models.moe import MoE
 from repro_torch.quant.int8 import QuantizedLinear
 
@@ -59,13 +63,17 @@ def params_from_jax_numpy(tree: Dict[str, Any], cfg: ModelConfig,
             for part in _parts(seg.kind):
                 _load_module(getattr(blk, part), seg_tree[part], li,
                              f"{what}.{part}")
+    if cfg.is_hybrid:
+        for part in _parts("dense"):
+            _load_module(getattr(model.shared_attn, part),
+                         tree["shared_attn"][part], 0, f"shared_attn.{part}")
     return model
 
 
 def _parts(kind: str):
     """The sub-modules of a layer of segment kind ``kind``, under the JAX
     tree's keys."""
-    if kind == "mamba_tail":
+    if kind in MAMBA_KINDS:
         return ("mamba",)
     return ("attn", "moe" if kind == "moe" else "mlp")
 
@@ -132,23 +140,29 @@ def quantized_tree_from_jax_numpy(tree: Any, device: DeviceLike = None) -> Any:
     return walk(tree)
 
 
+def _stacked(blocks, kind: str) -> Dict[str, Any]:
+    """The weights of layers ``blocks`` of segment kind ``kind`` under the
+    JAX tree's keys, each stacked on a leading layer axis."""
+    out = {}
+    for part in _parts(kind):
+        params = [dict(getattr(b, part).named_parameters(recurse=False))
+                  for b in blocks]
+        out[part] = {name: torch.stack([p[name].data for p in params])
+                     for name in params[0]}
+    return out
+
+
 def param_tree(model: Model) -> Dict[str, Any]:
     """The weights of ``model`` in the JAX ``init_params`` layout: nested
     dicts under the same keys, each segment's per-layer weights stacked on
-    a leading axis (a copy)."""
+    a leading axis, a hybrid's shared block on an axis of 1 (a copy)."""
     cfg = model.cfg
     tree: Dict[str, Any] = {"embed": model.embed.data,
                             "final_norm": model.final_norm.data}
     if not cfg.tie_embeddings:
         tree["lm_head"] = model.lm_head.data
-    segments = {}
-    for seg in build_plan(cfg):
-        blocks = model.segments[seg.name]
-        segments[seg.name] = {
-            part: {name: torch.stack([dict(getattr(b, part).named_parameters(
-                recurse=False))[name].data for b in blocks])
-                for name, _ in getattr(blocks[0], part).named_parameters(
-                    recurse=False)}
-            for part in _parts(seg.kind)}
-    tree["segments"] = segments
+    tree["segments"] = {seg.name: _stacked(model.segments[seg.name], seg.kind)
+                        for seg in build_plan(cfg)}
+    if cfg.is_hybrid:
+        tree["shared_attn"] = _stacked([model.shared_attn], "dense")
     return tree

@@ -24,8 +24,10 @@
 The flags, their defaults and the printed lines are the JAX package's
 (``repro/launch/serve.py``); ``--device`` (default ``cuda``) is the one
 addition. The model is the arch's smoke variant with random weights from
-seed 0 (the draft head from seed 1). An arch whose slice of the port has
-not landed raises ``NotImplementedError`` naming that slice.
+seed 0 (the draft head from seed 1). Every config of the JAX package
+builds; an arch the JAX CLI cannot serve fails here with the same
+exception (``hubert-xlarge``, an encoder over audio frames, has no tokens
+to embed: ``KeyError: 'frames'``).
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, list_configs, smoke_variant
+from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core import init_mtp_params
 from repro_torch.device import resolve_device
 from repro_torch.mempool import EMSService, MemoryPool
@@ -46,25 +48,6 @@ from repro_torch.serving import Request, ServingSystem
 from repro_torch.serving.faults import FaultInjector, FaultPlan
 from repro_torch.serving.pool import DECODE_ROUTERS
 from repro_torch.serving.scheduler import ROUTERS
-
-#: the reference's architectures that the port cannot build yet, by the
-#: slice of the port that brings them (ROADMAP.md queue 1)
-UNPORTED_ARCHS = {
-    "zamba2-1.2b": "Zamba2 hybrids",
-    "internvl2-2b": "frontends",
-    "hubert-xlarge": "frontends",
-}
-
-
-def build_config(arch: str):
-    """The smoke variant of ``arch``, as the JAX CLI builds it; an arch the
-    port cannot build yet raises ``NotImplementedError`` naming its slice."""
-    if arch in UNPORTED_ARCHS:
-        raise NotImplementedError(
-            f"{arch} arrives with the {UNPORTED_ARCHS[arch]} slice of the "
-            f"port; it serves {list_configs()} so far")
-    return smoke_variant(get_config(arch))
-
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
@@ -211,7 +194,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = build_config(args.arch)
+    cfg = smoke_variant(get_config(args.arch))
     params = init_params(cfg, seed=0, device=dev)
     cc = None
     if not args.no_cache:

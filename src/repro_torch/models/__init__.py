@@ -7,6 +7,8 @@ from repro_torch.models.model import (  # noqa: F401
     decode_loop_mtp,
     decode_ready_caches,
     decode_step,
+    embed_inputs,
+    forward,
     init_params,
     make_caches,
     prefill,

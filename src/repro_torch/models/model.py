@@ -1,32 +1,39 @@
-"""Model assembly for the families ported so far: dense and MoE segments
-with MLA attention (the paper's DeepSeek-R1) or GQA attention (Qwen3,
-Qwen2.5, Granite, Phi-3, OLMoE, Kimi K2), and the attention-free Mamba2
-SSM.
+"""Model assembly for every family of the JAX package: dense and MoE
+segments with MLA attention (the paper's DeepSeek-R1) or GQA attention
+(Qwen3, Qwen2.5, Granite, Phi-3, OLMoE, Kimi K2), the attention-free Mamba2
+SSM, the Zamba2 hybrid, and the two frontends (InternVL2's patch prefix,
+HuBERT's bidirectional encoder over audio frames).
 
 The model is organized as *segments* of structurally identical layers, as
 in the JAX package: ``moe`` configs run ``[dense x first_k_dense] + [moe x
-(L - k)]``, ``ssm`` configs ``[mamba x L]``, others ``[dense x L]``. Where
-JAX stacks a segment's weights on a leading layer axis and runs
-``lax.scan``, the port keeps one module per layer and loops over them in
-Python. Where JAX ``jit``s a step and donates
+(L - k)]``, ``ssm`` configs ``[mamba x L]``, hybrids ``[mamba groups of
+attn_every, each followed by one *shared* attention block] + [mamba
+tail]``, others ``[dense x L]``. Where JAX stacks a segment's weights on a
+leading layer axis and runs ``lax.scan``, the port keeps one module per
+layer and loops over them in Python. Where JAX ``jit``s a step and donates
 the cache buffers, the port runs eagerly and writes caches in place: a
 decode or continuation step mutates the latent (or SSM state) tensors of
 the caches it is given and returns a new dict that holds those same
 tensors.
 
-Entry points: ``prefill`` (full sequence + cache materialization),
-``decode_step`` (one token), ``decode_loop`` (N greedy steps with per-slot
-done/capacity masks), ``decode_loop_mtp`` (N MTP speculative iterations,
-up to 2N tokens per host sync) and ``prefill_continue`` (teacher-forced
-continuation against an existing cache: the EMS-reuse suffix, the
-bounded-shape prefill chunk and, with per-request offsets, the MTP fused
-verification). MoE execution is pluggable via ``moe_fn``; the
-default is the single-device capacity implementation.
+Entry points: ``forward`` (full sequence, no cache), ``prefill`` (full
+sequence + cache materialization), ``decode_step`` (one token),
+``decode_loop`` (N greedy steps with per-slot done/capacity masks),
+``decode_loop_mtp`` (N MTP speculative iterations, up to 2N tokens per
+host sync) and ``prefill_continue`` (teacher-forced continuation against
+an existing cache: the EMS-reuse suffix, the bounded-shape prefill chunk
+and, with per-request offsets, the MTP fused verification). MoE execution
+is pluggable via ``moe_fn``; the default is the single-device capacity
+implementation.
 
 Caches keep the JAX layout: per MLA segment ``{"mla": (L,B,S,kvr+rope),
 "length": int32 tensor}``, per GQA segment ``KVCache(k, v (L,B,S,KV,hd),
 length)`` (``S = sliding_window`` for a ring), per Mamba segment
-``SSMState(h (L,B,H,P,N) f32, conv (L,B,K-1,C), length)``.
+``SSMState(h (L,B,H,P,N) f32, conv (L,B,K-1,C), length)``, and per hybrid
+group segment ``{"ssm": {"h": (G,per_group,B,H,P,N) f32, "conv":
+(G,per_group,B,K-1,C), "length"}, "length", "shared_kv": KVCache((G,B,S,
+KV,hd) x2, length)}`` -- the shared block's weights are one set, but each
+group keeps its own K/V.
 """
 from __future__ import annotations
 
@@ -58,24 +65,27 @@ MoeFn = Callable[[nn.Module, torch.Tensor, ModelConfig],
 @dataclasses.dataclass(frozen=True)
 class Segment:
     name: str
-    kind: str        # dense | moe | mamba_tail
-    n_layers: int
+    kind: str        # dense | moe | mamba_groups | mamba_tail
+    n_layers: int    # layers in this segment (groups*per_group for mamba_groups)
+    per_group: int = 0
+
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // self.per_group
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_hybrid:
-        raise NotImplementedError(
-            f"{cfg.name}: Zamba2-style hybrids (the shared attention block, "
-            "SSM state with batch on axis 2) arrive with the Zamba2 slice of "
-            "the port")
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend arrives with the "
-            "frontends slice of the port")
+MAMBA_KINDS = ("mamba_groups", "mamba_tail")
 
 
 def build_plan(cfg: ModelConfig) -> List[Segment]:
-    _check_supported(cfg)
+    if cfg.is_hybrid:
+        groups = cfg.num_layers // cfg.attn_every
+        tail = cfg.num_layers % cfg.attn_every
+        plan = [Segment("mamba_groups", "mamba_groups",
+                        groups * cfg.attn_every, cfg.attn_every)]
+        if tail:
+            plan.append(Segment("mamba_tail", "mamba_tail", tail))
+        return plan
     if cfg.is_ssm:
         return [Segment("mamba", "mamba_tail", cfg.num_layers)]
     if cfg.is_moe:
@@ -111,15 +121,15 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """One layer: a Mamba2 block for ``mamba_tail`` segments, else MLA or
-    GQA attention, then the MLP or the MoE."""
+    """One layer: a Mamba2 block in a Mamba segment, else MLA or GQA
+    attention, then the MLP or the MoE."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device: torch.device,
                  dtype: torch.dtype,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.kind = kind
-        if kind == "mamba_tail":
+        if kind in MAMBA_KINDS:
             self.mamba = mamba_mod.Mamba(cfg, device, dtype, generator)
             return
         self.attn = (mla_mod.init_mla_params(cfg, device, dtype, generator)
@@ -133,8 +143,9 @@ class Block(nn.Module):
 
 class Model(nn.Module):
     """All weights of a model: embedding, per-segment layer lists, final
-    norm and LM head. Built uninitialized without a generator (for
-    :mod:`repro_torch.convert` to load into)."""
+    norm and LM head, and for a hybrid the one ``shared_attn`` block
+    (attention and MLP) that runs after every group. Built uninitialized
+    without a generator (for :mod:`repro_torch.convert` to load into)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  generator: Optional[torch.Generator] = None):
@@ -154,6 +165,8 @@ class Model(nn.Module):
                 [Block(cfg, seg.kind, device, dtype, generator)
                  for _ in range(seg.n_layers)])
             for seg in plan})
+        if cfg.is_hybrid:
+            self.shared_attn = Block(cfg, "dense", device, dtype, generator)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -173,7 +186,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 
 def embed_inputs(params: Model, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return params.embed[batch["tokens"]]
+    """The input embeddings: audio ``frames`` (B,S,D) as they are, else the
+    token embeddings, after a VLM's ``prefix_emb`` (B,P,D) when given."""
+    if cfg.frontend == "audio_frames":
+        return batch["frames"].to(_dtype(cfg))
+    x = params.embed[batch["tokens"]]
+    if cfg.frontend == "vision_patches" and "prefix_emb" in batch:
+        x = torch.cat([batch["prefix_emb"].to(x.dtype), x], dim=1)
+    return x
 
 
 def unembed(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -236,13 +256,25 @@ def make_caches(cfg: ModelConfig, batch: int, capacity: int,
                 dtype: torch.dtype = torch.bfloat16,
                 device: DeviceLike = None) -> Dict[str, Any]:
     """Zero caches. An SSM state ignores ``capacity`` and ``dtype``: its
-    ``h`` is float32 and its conv window bfloat16, as in the JAX package."""
+    ``h`` is float32 and its conv window bfloat16, as in the JAX package.
+    A hybrid's shared K/V is a ring of ``sliding_window`` slots when
+    capacity exceeds the window, as a GQA cache is."""
     dev = resolve_device(device)
     caches: Dict[str, Any] = {}
     for seg in build_plan(cfg):
         if seg.kind == "mamba_tail":
             caches[seg.name] = mamba_mod.make_ssm_state(cfg, seg.n_layers,
                                                         batch, dev)
+        elif seg.kind == "mamba_groups":
+            g = seg.n_groups
+            st = mamba_mod.make_ssm_state(cfg, g * seg.per_group, batch, dev)
+            caches[seg.name] = {
+                "ssm": {"h": st.h.unflatten(0, (g, seg.per_group)),
+                        "conv": st.conv.unflatten(0, (g, seg.per_group)),
+                        "length": st.length},
+                "length": torch.zeros((), dtype=torch.int32, device=dev),
+                "shared_kv": attn_mod.make_cache(cfg, g, batch, capacity,
+                                                 dtype, dev)}
         elif cfg.attention_kind == "mla":
             caches[seg.name] = {
                 "mla": mla_mod.make_mla_cache(cfg, seg.n_layers, batch,
@@ -257,10 +289,14 @@ def make_caches(cfg: ModelConfig, batch: int, capacity: int,
 
 def cache_batch_axes(cfg: ModelConfig) -> Dict[str, Any]:
     """Batch-axis index of every cache leaf, in the make_caches structure
-    (None = unbatched bookkeeping leaf, e.g. the length)."""
+    (None = unbatched bookkeeping leaf, e.g. the length). A hybrid group's
+    SSM state has batch on axis 2, after the group and layer axes."""
     def axes(seg):
         if seg.kind == "mamba_tail":
             return SSMState(1, 1, None)
+        if seg.kind == "mamba_groups":
+            return {"ssm": {"h": 2, "conv": 2, "length": None},
+                    "length": None, "shared_kv": KVCache(1, 1, None)}
         if cfg.attention_kind == "mla":
             return {"mla": 1, "length": None}
         return KVCache(1, 1, None)
@@ -276,9 +312,17 @@ def _is_ring_cache(cfg: ModelConfig, cache) -> bool:
             and cache.k.shape[2] == cfg.sliding_window)
 
 
+def _seq_cache(seg: Segment, cache):
+    """The per-token part of a segment's cache: the attention segment's own,
+    a hybrid group segment's shared K/V, None for a Mamba tail."""
+    if seg.kind == "mamba_groups":
+        return cache["shared_kv"]
+    return None if seg.kind == "mamba_tail" else cache
+
+
 def _seq_buffers(cfg: ModelConfig, cache) -> List[torch.Tensor]:
-    """The per-token buffers of an attention segment's cache: the MLA
-    latent, or K and V."""
+    """The per-token buffers of an attention cache: the MLA latent, or K
+    and V."""
     if cfg.attention_kind == "mla":
         return [cache["mla"]]
     return [cache.k, cache.v]
@@ -292,6 +336,14 @@ def _with_buffers(cfg: ModelConfig, cache, length: torch.Tensor):
     return KVCache(cache.k, cache.v, length)
 
 
+def _group_cache(c, h, conv, ssm_length, length):
+    """A hybrid group segment's cache: the state ``h`` and ``conv`` with
+    ``ssm_length``, the shared K/V buffers of ``c`` with ``length``."""
+    kv = c["shared_kv"]
+    return {"ssm": {"h": h, "conv": conv, "length": ssm_length},
+            "length": length, "shared_kv": KVCache(kv.k, kv.v, length)}
+
+
 def _with_lengths(cfg: ModelConfig, caches: Dict[str, Any],
                   length: torch.Tensor) -> Dict[str, Any]:
     """Caches with every bookkeeping ``length`` leaf set to ``length``
@@ -299,9 +351,13 @@ def _with_lengths(cfg: ModelConfig, caches: Dict[str, Any],
     out = dict(caches)
     for seg in build_plan(cfg):
         c = out[seg.name]
-        out[seg.name] = (SSMState(c.h, c.conv, length)
-                         if seg.kind == "mamba_tail"
-                         else _with_buffers(cfg, c, length))
+        if seg.kind == "mamba_tail":
+            out[seg.name] = SSMState(c.h, c.conv, length)
+        elif seg.kind == "mamba_groups":
+            out[seg.name] = _group_cache(c, c["ssm"]["h"], c["ssm"]["conv"],
+                                         length, length)
+        else:
+            out[seg.name] = _with_buffers(cfg, c, length)
     return out
 
 
@@ -311,11 +367,18 @@ def _cache_capacity(cfg: ModelConfig, caches: Dict[str, Any]
     nothing bounds decode length: a pure SSM, or rings only)."""
     caps = []
     for seg in build_plan(cfg):
-        c = caches[seg.name]
-        if seg.kind == "mamba_tail" or _is_ring_cache(cfg, c):
+        c = _seq_cache(seg, caches[seg.name])
+        if c is None or _is_ring_cache(cfg, c):
             continue
         caps.append(_seq_buffers(cfg, c)[0].shape[2])
     return min(caps) if caps else None
+
+
+def _ssm_state(seg: Segment, cache) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A Mamba segment's (h, conv) tensors."""
+    if seg.kind == "mamba_groups":
+        return cache["ssm"]["h"], cache["ssm"]["conv"]
+    return cache.h, cache.conv
 
 
 def _conv_step_dtype(cfg: ModelConfig, conv: torch.Tensor) -> torch.dtype:
@@ -330,13 +393,18 @@ def decode_ready_caches(cfg: ModelConfig, caches: Dict[str, Any]
     """Caches in the dtypes a decode step produces, so that steps can write
     into them in place from the first one (the counterpart of the JAX
     package's ``decode_ready_caches``; the upcast is exact). Only the SSM
-    conv window changes."""
+    conv windows change."""
     out = dict(caches)
     for seg in build_plan(cfg):
         c = out[seg.name]
         if seg.kind == "mamba_tail":
             out[seg.name] = SSMState(
                 c.h, c.conv.to(_conv_step_dtype(cfg, c.conv)), c.length)
+        elif seg.kind == "mamba_groups":
+            conv = c["ssm"]["conv"]
+            out[seg.name] = _group_cache(
+                c, c["ssm"]["h"], conv.to(_conv_step_dtype(cfg, conv)),
+                c["ssm"]["length"], c["length"])
     return out
 
 
@@ -356,49 +424,64 @@ def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens: (B, 1) int. Writes each layer's new latent or K/V entry (at
     ``cache_len``, scalar or (B,); at ``cache_len % sliding_window`` in a
     ring) or new SSM state into ``caches`` in place and returns (logits
-    (B, V), caches with ``length = cache_len + 1``)."""
+    (B, V), caches with ``length = cache_len + 1``; a hybrid group's SSM
+    ``length`` is its own plus one, as in the JAX package)."""
     moe_fn = moe_fn or moe_mod.moe_capacity
     x = params.embed[tokens].to(_dtype(cfg))                    # (B,1,D)
     cache_len = _as_len(cache_len, x.device)
     new_caches: Dict[str, Any] = {}
     for seg in build_plan(cfg):
+        blocks, c = params.segments[seg.name], caches[seg.name]
         if seg.kind == "mamba_tail":
-            x, new_caches[seg.name] = _mamba_decode_segment(
-                params.segments[seg.name], x, caches[seg.name], cache_len,
-                cfg)
-            continue
-        c = caches[seg.name]
-        bufs = _seq_buffers(cfg, c)
-        ring = _is_ring_cache(cfg, c)
-        for li, blk in enumerate(params.segments[seg.name]):
-            x = _attn_block_decode(blk.attn, x, cfg, bufs[0][li],
-                                   bufs[-1][li], cache_len, ring)
-            x = _ffn(blk, x, cfg, moe_fn)
-        new_caches[seg.name] = _with_buffers(cfg, c, cache_len + 1)
+            conv = _step_conv(cfg, c.conv)
+            x = _mamba_decode_layers(blocks, x, c.h, conv, cfg)
+            new_caches[seg.name] = SSMState(c.h, conv, cache_len + 1)
+        elif seg.kind == "mamba_groups":
+            h, conv = c["ssm"]["h"], _step_conv(cfg, c["ssm"]["conv"])
+            kv = c["shared_kv"]
+            ring = _is_ring_cache(cfg, kv)
+            pg, shared = seg.per_group, params.shared_attn
+            for gi in range(seg.n_groups):
+                x = _mamba_decode_layers(blocks[gi * pg:(gi + 1) * pg], x,
+                                         h[gi], conv[gi], cfg)
+                x = _attn_block_decode(shared.attn, x, cfg, kv.k[gi],
+                                       kv.v[gi], cache_len, ring)
+                x = _ffn(shared, x, cfg, moe_fn)
+            new_caches[seg.name] = _group_cache(
+                c, h, conv, c["ssm"]["length"] + 1, cache_len + 1)
+        else:
+            bufs = _seq_buffers(cfg, c)
+            ring = _is_ring_cache(cfg, c)
+            for li, blk in enumerate(blocks):
+                x = _attn_block_decode(blk.attn, x, cfg, bufs[0][li],
+                                       bufs[-1][li], cache_len, ring)
+                x = _ffn(blk, x, cfg, moe_fn)
+            new_caches[seg.name] = _with_buffers(cfg, c, cache_len + 1)
     logits = unembed(params, cfg, x[:, 0:1, :])[:, 0, :]
     return logits, new_caches
 
 
-def _mamba_decode_segment(blocks, x: torch.Tensor, state: SSMState,
-                          cache_len: torch.Tensor, cfg: ModelConfig
-                          ) -> Tuple[torch.Tensor, SSMState]:
-    """One token through every Mamba layer of a segment, each layer's new
-    ``h`` and conv window written into ``state``'s tensors in place. A conv
-    window still in prefill's bfloat16 while the step computes in float32
-    is upcast once (exactly) into a new tensor, and the step writes there:
-    the tensors it writes always have the dtype the step produces, so an
-    in-place write never rounds (a decode engine's caches are already
-    :func:`decode_ready_caches`)."""
-    h, conv = state.h, state.conv
+def _step_conv(cfg: ModelConfig, conv: torch.Tensor) -> torch.Tensor:
+    """The conv window a decode step writes: ``conv`` itself, or -- still
+    in prefill's bfloat16 while the step computes in float32 -- an exact
+    upcast copy. The tensors a step writes thus always have the dtype it
+    produces, so an in-place write never rounds (a decode engine's caches
+    are already :func:`decode_ready_caches`)."""
     step_dtype = _conv_step_dtype(cfg, conv)
-    if conv.dtype != step_dtype:
-        conv = conv.to(step_dtype)
+    return conv if conv.dtype == step_dtype else conv.to(step_dtype)
+
+
+def _mamba_decode_layers(blocks, x: torch.Tensor, h: torch.Tensor,
+                         conv: torch.Tensor, cfg: ModelConfig
+                         ) -> torch.Tensor:
+    """One token through Mamba layers ``blocks``, layer ``li``'s new state
+    written into ``h[li]`` and ``conv[li]`` in place."""
     for li, blk in enumerate(blocks):
         hin = rms_norm(x, blk.mamba.ln, cfg.norm_eps)
         out, h[li], conv[li] = mamba_mod.mamba_decode(blk.mamba, hin, h[li],
                                                       conv[li], cfg)
         x = x + out
-    return x, SSMState(h, conv, cache_len + 1)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -406,59 +489,68 @@ def _mamba_decode_segment(blocks, x: torch.Tensor, state: SSMState,
 # ---------------------------------------------------------------------------
 
 
+def _ssm_batch_axis(seg: Segment) -> int:
+    return 2 if seg.kind == "mamba_groups" else 1
+
+
 def _save_frozen(cfg: ModelConfig, caches, cache_len: torch.Tensor,
                  frozen: Optional[List[int]], span: int = 1):
     """What a step may overwrite in a slot that must stay frozen. MLA and
-    GQA: every slot's latent (or K and V) rows at its ``span`` write
-    positions from ``cache_len`` -- ``(cache_len + k) % sliding_window`` in
-    a ring, else clamped into the buffer (a per-request write past it is
-    dropped) -- chosen on the device. Mamba: the whole state
-    of the slots ``frozen`` (host indices), and only theirs: at full width a
-    Mamba state is hundreds of MB; ``frozen=None`` (the host cannot name
-    them: MTP's acceptance decides) saves every slot's state."""
-    saved = {}
+    GQA (a hybrid's shared K/V included): every slot's latent (or K and V)
+    rows at its ``span`` write positions from ``cache_len`` --
+    ``(cache_len + k) % sliding_window`` in a ring, else clamped into the
+    buffer (a per-request write past it is dropped) -- chosen on the
+    device. Mamba: the whole state of the slots ``frozen`` (host indices),
+    and only theirs: at full width a Mamba state is hundreds of MB;
+    ``frozen=None`` (the host cannot name them: MTP's acceptance decides)
+    saves every slot's state. Returns (SSM states by segment, rows)."""
+    states, rows_saved = {}, []
     for seg in build_plan(cfg):
         c = caches[seg.name]
-        if seg.kind == "mamba_tail":
+        if seg.kind in MAMBA_KINDS:
+            h, conv = _ssm_state(seg, c)
+            ax = _ssm_batch_axis(seg)
             if frozen is None:
-                saved[seg.name] = (None, c.h.clone(), c.conv.clone())
+                states[seg.name] = (None, h.clone(), conv.clone())
             elif frozen:
-                idx = torch.tensor(frozen, device=c.h.device)
-                saved[seg.name] = (idx, c.h[:, idx], c.conv[:, idx])
-        else:
-            bufs = _seq_buffers(cfg, c)
-            cap = bufs[0].shape[2]
-            ring = _is_ring_cache(cfg, c)
-            rows = torch.arange(bufs[0].shape[1], device=bufs[0].device)
-            slots = [attn_mod.decode_slot(cache_len + k, cap, ring)
-                     .clamp(max=cap - 1).long() for k in range(span)]
-            saved[seg.name] = [(t, rows, idx, t[:, rows, idx].clone())
-                               for idx in slots for t in bufs]
-    return saved
+                idx = torch.tensor(frozen, device=h.device)
+                states[seg.name] = (idx, h.index_select(ax, idx),
+                                    conv.index_select(ax, idx))
+        kv = _seq_cache(seg, c)
+        if kv is None:
+            continue
+        bufs = _seq_buffers(cfg, kv)
+        cap = bufs[0].shape[2]
+        ring = _is_ring_cache(cfg, kv)
+        rows = torch.arange(bufs[0].shape[1], device=bufs[0].device)
+        slots = [attn_mod.decode_slot(cache_len + k, cap, ring)
+                 .clamp(max=cap - 1).long() for k in range(span)]
+        rows_saved += [(t, rows, idx, t[:, rows, idx].clone())
+                       for idx in slots for t in bufs]
+    return states, rows_saved
 
 
 def _restore_frozen(cfg: ModelConfig, caches, saved,
                     live: torch.Tensor) -> None:
+    states, rows_saved = saved
     for seg in build_plan(cfg):
-        if seg.name not in saved:
+        if seg.name not in states:
             continue
-        c = caches[seg.name]
-        if seg.kind == "mamba_tail":
-            idx, h_old, conv_old = saved[seg.name]
+        idx, h_old, conv_old = states[seg.name]
+        ax = _ssm_batch_axis(seg)
+        for new, old in zip(_ssm_state(seg, caches[seg.name]),
+                            (h_old, conv_old)):
             # exact: a step may have upcast the window from bf16 to f32
-            conv_old = conv_old.to(c.conv.dtype)
+            old = old.to(new.dtype)
             if idx is None:
-                c.h.copy_(torch.where(live[None, :, None, None, None], c.h,
-                                      h_old))
-                c.conv.copy_(torch.where(live[None, :, None, None], c.conv,
-                                         conv_old))
+                shape = [1] * new.ndim
+                shape[ax] = -1
+                new.copy_(torch.where(live.reshape(shape), new, old))
             else:
-                c.h[:, idx] = h_old
-                c.conv[:, idx] = conv_old
-        else:
-            for t, rows, idx, old in saved[seg.name]:
-                keep = live.reshape((1, -1) + (1,) * (old.ndim - 2))
-                t[:, rows, idx] = torch.where(keep, t[:, rows, idx], old)
+                new.index_copy_(ax, idx, old)
+    for t, rows, idx, old in rows_saved:
+        keep = live.reshape((1, -1) + (1,) * (old.ndim - 2))
+        t[:, rows, idx] = torch.where(keep, t[:, rows, idx], old)
 
 
 def decode_loop(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
@@ -511,7 +603,7 @@ def decode_loop(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     caches = _with_lengths(cfg, caches, cache_len)
     n_live = steps_left if cap is None else torch.minimum(
         steps_left, (cap - cache_len).clamp(min=0))
-    n_live_host = n_live.tolist() if cfg.is_ssm else None
+    n_live_host = n_live.tolist() if cfg.is_ssm or cfg.is_hybrid else None
     tok = tokens.to(torch.int32)
     emitted, lives = [], []
     for j in range(n_steps):
@@ -663,7 +755,7 @@ def prefill_continue(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Prefill (full sequence + cache materialization)
+# Full-sequence execution (forward / prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -680,14 +772,95 @@ def _write_kv(buf: torch.Tensor, new: torch.Tensor, s: int) -> None:
                              dims=1))
 
 
+def _mamba_prefill_layers(blocks, x: torch.Tensor, cfg: ModelConfig,
+                          h: Optional[torch.Tensor] = None,
+                          conv: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mamba layers ``blocks`` over the full sequence; with a state, layer
+    ``li``'s final ``h`` and conv window written into ``h[li]`` and
+    ``conv[li]`` (the window rounded to ``conv``'s bfloat16)."""
+    for li, blk in enumerate(blocks):
+        hin = rms_norm(x, blk.mamba.ln, cfg.norm_eps)
+        out, hs, cs = mamba_mod.mamba_prefill(blk.mamba, hin, cfg)
+        if h is not None:
+            h[li], conv[li] = hs, cs
+        x = x + out
+    return x
+
+
+def _seg_full(seg: Segment, params: Model, x: torch.Tensor,
+              cfg: ModelConfig, moe_fn: MoeFn, positions: torch.Tensor,
+              cache=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One segment over the full sequence, for ``forward`` (``cache`` None)
+    and ``prefill`` (its zero cache, written in place: every layer's latent
+    or K/V, a Mamba layer's final state, a hybrid group's shared K/V in
+    that group's slice). Returns (x, the segment's MoE aux loss)."""
+    blocks = params.segments[seg.name]
+    s = x.shape[1]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if seg.kind == "mamba_tail":
+        state = () if cache is None else (cache.h, cache.conv)
+        return _mamba_prefill_layers(blocks, x, cfg, *state), aux
+    if seg.kind == "mamba_groups":
+        pg, shared = seg.per_group, params.shared_attn
+        for gi in range(seg.n_groups):
+            state = () if cache is None else (cache["ssm"]["h"][gi],
+                                              cache["ssm"]["conv"][gi])
+            x = _mamba_prefill_layers(blocks[gi * pg:(gi + 1) * pg], x, cfg,
+                                      *state)
+            x, fresh = _attn_block_prefill(shared.attn, x, cfg, positions)
+            if cache is not None:
+                for buf, new in zip(_seq_buffers(cfg, cache["shared_kv"]),
+                                    fresh):
+                    _write_kv(buf[gi], new, s)
+            x = _mlp_block(shared.mlp, x, cfg)
+        return x, aux
+    bufs = None if cache is None else _seq_buffers(cfg, cache)
+    for li, blk in enumerate(blocks):
+        x, fresh = _attn_block_prefill(blk.attn, x, cfg, positions)
+        if bufs is not None:
+            for buf, new in zip(bufs, [fresh] if cfg.attention_kind == "mla"
+                                else fresh):
+                _write_kv(buf[li], new, s)
+        if blk.kind == "moe":
+            x, a = _moe_block(blk.moe, x, cfg, moe_fn)
+            aux = aux + a["aux_loss"]
+        else:
+            x = _mlp_block(blk.mlp, x, cfg)
+    return x, aux
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    b, s, _ = x.shape
+    return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+
+def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            moe_fn: Optional[MoeFn] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence forward without a cache: (logits (B,S,V), {"aux_loss":
+    the MoE load-balance loss summed over layers}). ``batch`` holds
+    ``tokens`` (B,S), audio ``frames`` (B,S,D), or a VLM's ``tokens`` with
+    ``prefix_emb`` (B,P,D), whose positions come first in the logits."""
+    moe_fn = moe_fn or moe_mod.moe_capacity
+    x = embed_inputs(params, cfg, batch)
+    positions = _positions(x)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg in build_plan(cfg):
+        x, aux = _seg_full(seg, params, x, cfg, moe_fn, positions)
+        aux_total = aux_total + aux
+    return unembed(params, cfg, x), {"aux_loss": aux_total}
+
+
 def prefill(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             capacity: int, moe_fn: Optional[MoeFn] = None,
             cache_dtype: torch.dtype = torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the prompt; return (logits (B,S,V), caches padded to capacity).
-    A GQA ring cache keeps the prompt's last ``sliding_window`` tokens. A
-    Mamba segment's state holds the final ``h`` and the conv window
-    rounded to bfloat16, as the JAX package stores it."""
+    A GQA ring cache (a hybrid's shared K/V too) keeps the prompt's last
+    ``sliding_window`` tokens. A Mamba layer's state holds the final ``h``
+    and the conv window rounded to bfloat16 whatever ``cache_dtype`` is, as
+    the JAX package stores it."""
     moe_fn = moe_fn or moe_mod.moe_capacity
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
@@ -696,26 +869,10 @@ def prefill(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     if cap is not None and s > cap:
         raise ValueError(f"prompt of {s} tokens exceeds the cache capacity "
                          f"{capacity}")
-    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    positions = _positions(x)
     for seg in build_plan(cfg):
-        length = torch.tensor(s, dtype=torch.int32, device=x.device)
-        if seg.kind == "mamba_tail":
-            st = caches[seg.name]
-            for li, blk in enumerate(params.segments[seg.name]):
-                hin = rms_norm(x, blk.mamba.ln, cfg.norm_eps)
-                out, st.h[li], st.conv[li] = mamba_mod.mamba_prefill(
-                    blk.mamba, hin, cfg)
-                x = x + out
-            caches[seg.name] = SSMState(st.h, st.conv, length)
-            continue
-        c = caches[seg.name]
-        bufs = _seq_buffers(cfg, c)
-        for li, blk in enumerate(params.segments[seg.name]):
-            x, fresh = _attn_block_prefill(blk.attn, x, cfg, positions)
-            if cfg.attention_kind == "mla":
-                fresh = [fresh]
-            for buf, new in zip(bufs, fresh):
-                _write_kv(buf[li], new, s)
-            x = _ffn(blk, x, cfg, moe_fn)
-        caches[seg.name] = _with_buffers(cfg, c, length)
+        x, _ = _seg_full(seg, params, x, cfg, moe_fn, positions,
+                         caches[seg.name])
+    caches = _with_lengths(cfg, caches, torch.tensor(s, dtype=torch.int32,
+                                                     device=x.device))
     return unembed(params, cfg, x), caches

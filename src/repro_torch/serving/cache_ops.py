@@ -2,10 +2,13 @@
 
 Caches built by ``models.model.make_caches`` hold per segment an MLA latent
 buffer (L, B, S, W) and a ``length`` leaf, a ``KVCache`` (k, v (L, B, S,
-KV, hd), length), or an ``SSMState`` (h, conv, length); these helpers
-slice/insert per-request rows for continuous batching and migration, and
-serialize per-token blocks of the MLA or K/V buffers for KV handoff (SSM
-state is not sliceable by token, as in the JAX package). A K/V payload is
+KV, hd), length), an ``SSMState`` (h, conv, length), or a hybrid group's
+SSM state (batch on axis 2) beside its shared ``KVCache``; these helpers
+slice/insert per-request rows for continuous batching and migration
+(following ``cache_batch_axes``), and serialize per-token blocks of the
+MLA or K/V buffers of dense and MoE segments for KV handoff. As in the JAX
+package, no other segment has a token payload: SSM state is not sliceable
+by token, and a hybrid's shared K/V is skipped with it. A K/V payload is
 the pair ``(k, v)``, so its leaves ravel K before V, segment by segment,
 as ``jax.tree.leaves`` ravels JAX's. Inserts write into the destination tensors
 in place (the JAX package returns new buffers); slices return copies, so a
@@ -70,7 +73,7 @@ def seq_slice(cfg: ModelConfig, caches, start: int, length: int):
 
     out = {}
     for seg in build_plan(cfg):
-        if seg.kind == "mamba_tail":
+        if seg.kind not in ("dense", "moe"):
             continue
         c = caches[seg.name]
         out[seg.name] = (take(c["mla"]) if cfg.attention_kind == "mla"

@@ -292,11 +292,16 @@ class DecodeEngine:
         self.slot_mgr = DecodeSlotManager(max_batch, capacity)
         self.iters = 0
         interleaver = MicrobatchInterleaver(n_micro if interleave else 1)
+        # Hybrid caches nest SSM state with batch on axis 2, which the
+        # microbatch split (batch = axis 1 for rank>=3) would mis-slice.
         self.interleaved = (interleaver.applicable(max_batch)
-                            and not use_mtp)
+                            and not use_mtp and not cfg.is_hybrid)
         if interleave and not self.interleaved:
             if use_mtp:
                 reason = "MTP speculative decoding steps are not interleavable"
+            elif cfg.is_hybrid:
+                reason = ("hybrid-architecture caches are not microbatch-"
+                          "splittable (SSM state batch axis)")
             elif n_micro < 2:
                 reason = f"n_micro={n_micro} means no pairing"
             else:

@@ -26,10 +26,12 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
 
-#: modules of the MTP / EMS / serve-CLI slice, which the walk above must
-#: keep covering
+#: modules of the MTP / EMS / serve-CLI slice and of the Zamba2 and
+#: frontends slice, which the walk above must keep covering
 SLICE_MODULES = ("core/mtp.py", "mempool/context_cache.py", "mempool/ems.py",
-                 "launch/serve.py", "launch/__init__.py")
+                 "launch/serve.py", "launch/__init__.py",
+                 "configs/zamba2_1_2b.py", "configs/internvl2_2b.py",
+                 "configs/hubert_xlarge.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -100,17 +102,21 @@ def test_engine_refuses_params_on_another_device(cpu_model):
 
 
 def test_later_slices_raise(cpu_model):
-    """What a later slice brings raises, naming that slice; MTP, the EMS
-    context cache and GQA attention have landed and no longer do."""
+    """What a later slice brings raises, naming that slice (the 2-D LEP
+    modes); MTP, the EMS context cache, GQA attention, the Zamba2 hybrid
+    and the frontends have landed and no longer do."""
     cfg, params = cpu_model
-    for change, slice_name in ((dict(attention_kind="bidirectional",
-                                     frontend="audio_frames"), "frontends"),
-                               (dict(ssm_state=16, attn_every=2), "Zamba2"),
-                               (dict(frontend="vision_patches"), "frontends")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            build_plan(dataclasses.replace(cfg, **change))
-    with pytest.raises(NotImplementedError, match="Zamba2"):
-        serve_cli.main(["--arch", "zamba2-1.2b", "--device", "cpu"])
+    from repro_torch.core import lep
+    with pytest.raises(NotImplementedError, match="4 cards"):
+        lep.make_lep_moe_fn(ffn_gather="tokens")
+    for change, kinds in ((dict(attention_kind="bidirectional",
+                                frontend="audio_frames"), ["dense", "moe"]),
+                          (dict(ssm_state=16, attn_every=2),
+                           ["mamba_groups"]),
+                          (dict(frontend="vision_patches"), ["dense", "moe"])):
+        assert [s.kind for s in build_plan(
+            dataclasses.replace(cfg, **change))] == kinds
+    assert not hasattr(serve_cli, "UNPORTED_ARCHS")
     ServingSystem(params, cfg, capacity=16, use_mtp=True, mtp_fused=True,
                   mtp_params=init_mtp_params(cfg, device="cpu"),
                   context_cache=EMSService(MemoryPool(n_nodes=2),

@@ -79,10 +79,10 @@ def _port_caches(jcaches):
 
 
 def test_config_copy_matches_jax():
-    """Every config the port registers (eight so far) is JAX's, and so is
-    its smoke variant."""
+    """Every config the port registers (all eleven of JAX's) is JAX's, and
+    so is its smoke variant."""
     archs = port_list_configs()
-    assert len(archs) == 8 and "qwen3-8b" in archs
+    assert len(archs) == 11 and "zamba2-1.2b" in archs
     for arch in archs:
         assert dataclasses.asdict(port_get_config(arch)) == \
             dataclasses.asdict(jax_get_config(arch))
@@ -345,20 +345,23 @@ def test_cache_structure(r1):
 
 
 def test_other_families_name_their_slice(r1):
-    _, tcfg, _, _ = r1
-    with pytest.raises(NotImplementedError, match="frontend"):
-        t_model.build_plan(dataclasses.replace(
-            tcfg, attention_kind="bidirectional", frontend="audio_frames"))
-    with pytest.raises(NotImplementedError, match="Zamba2"):
-        t_model.build_plan(dataclasses.replace(tcfg, ssm_state=16,
-                                               attn_every=2))
-    # Pure SSM configs are ported: one Mamba segment.
+    """Every family builds the JAX package's segment plan: the frontends
+    and the hybrid no longer name a slice of the port that is to come."""
+    cfg, tcfg, _, _ = r1
+    for change in (dict(attention_kind="bidirectional",
+                        frontend="audio_frames"),
+                   dict(ssm_state=16, attn_every=2),
+                   dict(ssm_state=16, attn_every=2, num_layers=5),
+                   dict(ssm_state=16, num_heads=0),
+                   dict(frontend="vision_patches")):
+        plan = t_model.build_plan(dataclasses.replace(tcfg, **change))
+        assert [dataclasses.astuple(s) for s in plan] == \
+            [dataclasses.astuple(s) for s in j_model.build_plan(
+                dataclasses.replace(cfg, **change))]
+    # Pure SSM configs: one Mamba segment.
     plan = t_model.build_plan(dataclasses.replace(tcfg, ssm_state=16,
                                                   num_heads=0))
     assert [(s.name, s.kind) for s in plan] == [("mamba", "mamba_tail")]
-    with pytest.raises(NotImplementedError, match="frontend"):
-        t_model.build_plan(dataclasses.replace(tcfg,
-                                               frontend="vision_patches"))
 
 
 def test_init_params_shapes_match_jax(r1):

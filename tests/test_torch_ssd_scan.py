@@ -223,10 +223,12 @@ def test_each_stage_matches_its_direct_formula(stage):
 
 
 # (b, S, H, P, N, chunk): the served widths at S = 1019 and the shapes of
-# the card's ssd_scan phase.
+# the card's ssd_scan phase; then Zamba2's served widths (N = 64, half the
+# kernel's 128-column state tile) at the ssd_scan-zamba phase's S.
 PLANNED = [(1, 1019, 48, 64, 128, 128), (1, 448, 48, 64, 128, 128),
            (2, 300, 8, 64, 128, 128), (1, 50, 8, 64, 128, 128),
-           (1, 1, 8, 64, 128, 128), (1, 200, 3, 40, 100, 128)]
+           (1, 1, 8, 64, 128, 128), (1, 200, 3, 40, 100, 128),
+           (1, 1019, 64, 64, 64, 128), (1, 448, 64, 64, 64, 128)]
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk", PLANNED)
