@@ -122,6 +122,16 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    INT8-policy projections of layer 0 (wq, wk, wv, wo, w_gate, w_up,
    w_down) at M=8 and M=940: 14 ``int8-dense:`` rows, bit-identical to the
    plain version, no padded path, and one summary line of their sums.
+8f'. serve-faults: with Qwen3-8B still loaded, the same traffic through
+   two decode engines of FAULT_DECODE_BATCH slots under the pool
+   autoscaler (1 to 3 engines) and a seeded fault plan (an engine crash
+   mid-decode, a timeout of the first KV transfer). A crash must fire and
+   be recovered by replay re-prefill, the autoscaler must grow or shrink
+   the pool, no kernel may launch, every request must finish, and its
+   tokens must be a prefill's argmax wherever the margin exceeds
+   DENSE_MARGIN and part from serve-dense's only where the margin is below
+   it (bf16 rounds a 4-row decode step otherwise than an 8-row one).
+   TTFT/TPOT p50, decode step p50 and tokens/s beside serve-dense's.
 8g. serve-olmoe, serve-olmoe-lep: with Qwen3's weights freed, OLMoE-1B-7B
    whole (16 layers, d_model 2048, 16 heads, 64 experts x 1024, top-8;
    bf16 random weights from a seed) serves the same traffic with
@@ -161,6 +171,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    clear); and in bf16, the
    served requests replayed, whose error against the float32 prefill may
    be at most SSM_BF16_RATIO times the bf16 prefill's.
+11a. train-ssm: the served Mamba2 model trained in place through
+   ``repro_torch.train.train``: TRAIN_STEPS AdamW steps on the seeded
+   synthetic corpus at TRAIN_BATCH x TRAIN_SEQ, every weight's gradient
+   through ``lm_loss``, the SSD scan's forward on the kernel (by way of its
+   autograd Function) and its backward in plain PyTorch. Every loss and
+   gradient norm finite, the last loss below the first, exactly one SSD
+   scan a layer a forward and no other kernel. Each step's loss, gradient
+   norm and learning rate, step time p50, tokens/s, peak memory.
+11b. train-ssd-grad: the SSD Function at SSD_GRAD_CASES (Mamba2's training
+   widths, Zamba2's heads and state): its outputs against the plain
+   version within SSD_TOL, its gradients against autograd through the
+   plain ``ssd_chunked`` within SSD_GRAD_TOL of each gradient's max |g|;
+   the backward's CUDA-event time beside the plain graph's backward and
+   the kernel's forward; the raw wrapper must refuse an input that
+   requires grad.
+11c. ckpt: the trained model saved (bf16 leaves as raw ``<V2``) and loaded
+   into a fresh model: every leaf bit-equal and the next batch's loss
+   equal. Shards, bytes, seconds.
 12. serve-zamba: with Mamba2's weights freed, Zamba2-1.2B whole (38 Mamba2
    layers in 6 groups of 6, each followed by the one shared attention
    block with its own K/V, then a tail of 2; d_model 2048, 64 SSM heads of
@@ -193,7 +221,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 
 Each path phase (serve, serve-lep, int8, serve-mtp's two serves,
 serve-ems's two turns, cli, serve-dense, the ring serve, int8-dense,
-serve-olmoe, serve-olmoe-lep, serve-ssm, serve-zamba, cli-zamba, forward)
+serve-faults, serve-olmoe, serve-olmoe-lep, serve-ssm, train-ssm, ckpt,
+serve-zamba, cli-zamba, forward)
 sets every kernel's launch count to 0 just before it and reads the counts
 just after; the kernels line lists each kernel's by path. The last
 two lines of standard output are a ``{"kernels": [...]}`` JSON object (one
@@ -438,6 +467,49 @@ DENSE_INT8_PROJECTIONS = (
     ("dense", "attn", "wo"), ("dense", "mlp", "w_gate"),
     ("dense", "mlp", "w_up"), ("dense", "mlp", "w_down"),
 )
+# train-ssm: Mamba2-780m whole, trained through ``train`` for TRAIN_STEPS
+# AdamW steps (warmup of one step) on the seeded synthetic corpus, batch
+# TRAIN_BATCH x TRAIN_SEQ: four scan chunks, 2,048 tokens a step. Every
+# forward launches the SSD scan once a layer; the backward recomputes the
+# plain chunked stages and launches no kernel.
+TRAIN_STEPS = 8
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+# train-ssd-grad: the SSD Function's gradients against autograd through the
+# plain ssd_chunked on the card, (name, B, S, H, P, N): Mamba2's training
+# widths, and Zamba2's (64 heads, N = 64) at its 448-token served prompt.
+SSD_GRAD_CASES = (("mamba2", 4, 512, 48, 64, 128),
+                  ("zamba2", 4, 448, 64, 64, 64))
+SSD_GRAD_NAMES = ("x", "dt", "a_log", "B", "C")
+# The Function's backward recomputes the same plain stages that the
+# reference differentiates, on the same inputs, with the same (TF32-off,
+# atomic-free) PyTorch operations: its gradients are expected to be the
+# reference's bit for bit, and on an H100 80GB HBM3 at 700 W every one
+# read 0 at both widths (PERF.md). SSD_GRAD_TOL (of each gradient's
+# max |g|) leaves room for a summation order that a library picks by the
+# call alone.
+SSD_GRAD_TOL = 1e-6
+# serve-faults: Qwen3-8B whole, the serve traffic through two decode
+# engines of FAULT_DECODE_BATCH slots (the serve's 8 slots between them)
+# under the pool autoscaler (1 to 3 engines) and a seeded fault plan: one
+# engine crash (``FaultPlan.random``) and a timeout of the first KV
+# transfer. On the virtual clock the traffic's prefills end at 1.19 s and
+# engine 1 decodes until 1.44 s; seed 7 crashes engine 1 at 1.287 s, when
+# each of its four requests has emitted tokens, so four are replayed and
+# wait for a slot.
+FAULT_SEED = 7
+FAULT_HORIZON_S = 1.5
+FAULT_DECODE_BATCH = 4
+# Its tokens are held against serve-dense's, which decoded the same
+# requests 8 rows to a step. In bf16 the two layouts round differently
+# (a product of 4 rows is not a product of 8 rows cut in two), and on an
+# H100 6 of the 8 requests parted from serve-dense's tokens, one at its
+# first decoded token, before any fault (PERF.md). So, as
+# dense-agreement holds a serve: every served token must be the argmax of
+# a batch-1 prefill over prompt + served tokens wherever that prefill's
+# top-1/top-2 margin exceeds DENSE_MARGIN (the replayed requests' tokens
+# after their recovery included), and where a request first parts from
+# serve-dense's tokens, the margin there must be under DENSE_MARGIN (a
+# rounding flip; beyond it the two continue from other tokens).
 # Kernels whose build fails the run if ptxas reports a spill.
 SPILL_GATED = ("int8_gemm", "mla_decode_attention", "dispatch_quant")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -2013,15 +2085,15 @@ def tensor_core_ops(lib_path) -> dict:
     return counts
 
 
-def ssd_inputs(torch, gen, b, s, h, p, n):
+def ssd_inputs(torch, gen, b, s, h, p, n, dev="cuda"):
     """Seeded inputs shaped as ``mamba_prefill`` gives them: dt = softplus
     of a unit normal (the model's dt with dt_bias 0), A_log around 0."""
-    x = torch.randn(b, s, h, p, device="cuda", generator=gen)
+    x = torch.randn(b, s, h, p, device=dev, generator=gen)
     dt = torch.nn.functional.softplus(
-        torch.randn(b, s, h, device="cuda", generator=gen))
-    a_log = 0.1 * torch.randn(h, device="cuda", generator=gen)
-    bm = torch.randn(b, s, n, device="cuda", generator=gen)
-    cm = torch.randn(b, s, n, device="cuda", generator=gen)
+        torch.randn(b, s, h, device=dev, generator=gen))
+    a_log = 0.1 * torch.randn(h, device=dev, generator=gen)
+    bm = torch.randn(b, s, n, device=dev, generator=gen)
+    cm = torch.randn(b, s, n, device=dev, generator=gen)
     return x, dt, a_log, bm, cm
 
 
@@ -2645,6 +2717,345 @@ def forward_audio(torch, dev="cuda"):
     return row
 
 
+def train_ssm_phase(torch, cfg, params, dev="cuda"):
+    """Mamba2 trained through ``repro_torch.train.train`` for TRAIN_STEPS
+    steps (``OptConfig(total_steps=TRAIN_STEPS, warmup_steps=1)``) on
+    ``make_batch_iter(vocab, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)``, in place,
+    with every kernel count set to 0 just before and read just after. Every
+    loss and gradient norm must be finite, the last step's loss below the
+    first's, and the SSD scan must launch once a layer of every forward
+    (the backward launches none), no other kernel. Each step's loss,
+    gradient norm and learning rate, its wall time (each step ends in the
+    host read of its metrics), tokens/s at the median step, peak memory."""
+    import math
+
+    from repro_torch.data import make_batch_iter
+    from repro_torch.train import OptConfig, train
+
+    batches = make_batch_iter(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                              seed=SEED)
+    starts, ends = [], []
+
+    def timed_batches():
+        while True:
+            ends.append(time.perf_counter())   # the previous step has synced
+            batch = next(batches)
+            starts.append(time.perf_counter())
+            yield batch
+
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    params, history = train(params, cfg, timed_batches(), TRAIN_STEPS,
+                            OptConfig(total_steps=TRAIN_STEPS,
+                                      warmup_steps=1),
+                            log_every=1, device=dev)
+    ends.append(time.perf_counter())
+    counts = read_counts()
+    step_s = [e - s for s, e in zip(starts, ends[1:])]
+    losses = [r["loss"] for r in history]
+    gnorms = [r["grad_norm"] for r in history]
+    if len(history) != TRAIN_STEPS or not all(
+            math.isfinite(v) for v in losses + gnorms):
+        raise AssertionError(f"train-ssm: a loss or gradient norm is not "
+                             f"finite: {history}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train-ssm: loss did not fall: {losses}")
+    want = cfg.num_layers * TRAIN_STEPS
+    if counts["ssd_scan"] != want or any(
+            counts[k] for k in KERNEL_MODULES if k != "ssd_scan"):
+        raise AssertionError(f"train-ssm launched {counts}, not {want} SSD "
+                             "scans alone")
+    p50 = statistics.median(step_s)
+    summary = {
+        "steps": [{key: r[key] for key in ("step", "loss", "nll",
+                                           "grad_norm", "lr")}
+                  for r in history],
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "step_s": step_s,
+        "step_p50_s": p50, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / p50,
+        "kernel_launches": counts,
+        "ssd_scan_per_forward": counts["ssd_scan"] / TRAIN_STEPS,
+        "ssd_scan_per_backward": 0,
+    }
+    if dev == "cuda":
+        summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return params, summary, counts
+
+
+def ssd_grad_rows(torch, flush, dev="cuda"):
+    """The SSD Function (``ops.ssd_scan_autograd``) at SSD_GRAD_CASES:
+    its outputs (the kernel's) against the plain ``ssd_chunked`` within
+    SSD_TOL, and its gradients for x, dt, a_log, B and C, from seeded
+    upstream gradients of y and h_final, against autograd through the
+    plain ``ssd_chunked`` on the same inputs, each within SSD_GRAD_TOL of
+    its largest |g|. Median CUDA-event times of the Function's backward
+    (which recomputes the plain stages) and of autograd's backward over a
+    kept plain graph. Also: the raw wrapper refuses an input that requires
+    grad, so a gradient cannot be dropped silently."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for name, b, s, h, p, n in SSD_GRAD_CASES:
+        q = 128
+        args = ssd_inputs(torch, gen, b, s, h, p, n, dev)
+        g_out = (torch.randn(b, s, h, p, device=dev, generator=gen),
+                 torch.randn(b, h, p, n, device=dev, generator=gen))
+
+        def leaves():
+            return [a.detach().clone().requires_grad_(True) for a in args]
+
+        fn_in, ref_in = leaves(), leaves()
+        y, hf = ops.ssd_scan_autograd(*fn_in, q)
+        yr, hr = ssd_chunked(*ref_in, q)
+        grads = torch.autograd.grad((y, hf), fn_in, g_out,
+                                    retain_graph=True)
+        ref = torch.autograd.grad((yr, hr), ref_in, g_out, retain_graph=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        for got, want in ((y, yr), (hf, hr)):
+            if not torch.allclose(got, want, rtol=SSD_TOL,
+                                  atol=SSD_ATOL_REL * want.abs().max().item()):
+                raise AssertionError(f"train-ssd-grad {name}: the Function's "
+                                     "forward disagrees with ssd_chunked")
+        rel = {}
+        for nm, g, r in zip(SSD_GRAD_NAMES, grads, ref):
+            scale = r.abs().max().item()
+            rel[nm] = (g - r).abs().max().item() / max(scale, 1e-30)
+            if not (torch.isfinite(g).all() and rel[nm] <= SSD_GRAD_TOL):
+                raise AssertionError(f"train-ssd-grad {name}: d{nm} off by "
+                                     f"{rel[nm]:.3e} of max |g| {scale:.3e}")
+        row = {"case": name, "B": b, "S": s, "H": h, "P": p, "N": n, "Q": q,
+               "max_rel_err": rel,
+               "max_abs_err_y": (y - yr).abs().max().item()}
+        if dev == "cuda":
+            row["backward_ms"] = timed_ms(torch, lambda: torch.autograd.grad(
+                (y, hf), fn_in, g_out, retain_graph=True), 10, flush)
+            row["plain_backward_ms"] = timed_ms(
+                torch, lambda: torch.autograd.grad(
+                    (yr, hr), ref_in, g_out, retain_graph=True), 10, flush)
+            with torch.no_grad():
+                row["forward_ms"] = timed_ms(
+                    torch, lambda: ops.ssd_scan(*args, chunk=q), 10, flush)
+        log("train-ssd-grad:", json.dumps(row))
+        rows.append(row)
+        del y, hf, yr, hr, grads, ref
+    try:
+        ops.ssd_scan(args[0].detach().clone().requires_grad_(True),
+                     *args[1:], chunk=128)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("the raw ssd_scan wrapper accepted an input "
+                             "that requires grad")
+    return rows
+
+
+def _bits(torch, t):
+    return t.contiguous().view(torch.uint8)
+
+
+def ckpt_phase(torch, cfg, params, dev="cuda"):
+    """The trained model saved with ``save_checkpoint`` (bf16 leaves as raw
+    ``<V2``), loaded into a fresh ``Model`` with ``load_checkpoint``: every
+    leaf bit-equal, and ``lm_loss`` on the batch after the training ones
+    equal on both models (counts set to 0 just before the two forwards and
+    read just after). Shards, bytes and seconds."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.convert import param_tree
+    from repro_torch.data import make_batch_iter
+    from repro_torch.models import lm_loss
+    from repro_torch.tree import tree_leaves
+
+    root = HERE / "build" / "ckpt"
+    root.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        t0 = time.perf_counter()
+        manifest = save_checkpoint(d, params, TRAIN_STEPS,
+                                   meta={"arch": cfg.name}, device=dev)
+        t1 = time.perf_counter()
+        nbytes = sum(f.stat().st_size for f in Path(d).iterdir())
+        loaded, step = load_checkpoint(d, cfg, dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    ours, theirs = (tree_leaves(param_tree(m)) for m in (params, loaded))
+    if step != TRAIN_STEPS or len(ours) != len(theirs) or not all(
+            a.dtype == b.dtype and torch.equal(_bits(torch, a),
+                                               _bits(torch, b))
+            for a, b in zip(ours, theirs)):
+        raise AssertionError("ckpt: a loaded leaf differs from the saved one")
+    del ours, theirs
+    batches = make_batch_iter(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                              seed=SEED)
+    for _ in range(TRAIN_STEPS):
+        next(batches)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in next(batches).items()}
+    reset_counts()
+    with torch.no_grad():
+        losses = [lm_loss(m, cfg, batch)[0].item() for m in (params, loaded)]
+    counts = read_counts()
+    if losses[0] != losses[1]:
+        raise AssertionError(f"ckpt: loss {losses[1]} after loading, "
+                             f"{losses[0]} before")
+    del loaded
+    return {"shards": len(manifest["shards"]),
+            "leaves": manifest["n_leaves"], "bytes": nbytes,
+            "save_s": t1 - t0, "load_s": t2 - t1,
+            "loss_next_batch": losses, "kernel_launches": counts}, counts
+
+
+def serve_faults_phase(torch, cfg, params, reqs, base_tokens, dev="cuda"):
+    """The serve traffic through ``ServingSystem(decode_engines=2,
+    decode_batch=FAULT_DECODE_BATCH, autoscale=True, min_engines=1,
+    max_engines=3)`` with a seeded fault
+    plan (one engine crash inside FAULT_HORIZON_S, a timeout of the first
+    KV transfer), every kernel count set to 0 just before and read just
+    after. A crash must fire, a crashed request must be recovered by replay
+    re-prefill, the autoscaler must grow or shrink the pool, no kernel may
+    launch (GQA), every request must finish, and its tokens must hold
+    against a prefill and against ``base_tokens`` (serve-dense's) as
+    ``hold_fault_tokens`` says. Wall-clock TTFT/TPOT p50 (a recovered
+    request's TPOT includes its recovery), decode step p50 (one engine's
+    chunk), decode tokens/s, the fault and scale counts and peak
+    memory."""
+    from repro_torch.serving import (FaultInjector, FaultPlan,
+                                     ServingSystem)
+
+    plan = (FaultPlan.random(FAULT_SEED, n_engines=2,
+                             horizon_s=FAULT_HORIZON_S, n_transfer_faults=0,
+                             n_stragglers=0)
+            + FaultPlan.parse('[{"kind": "transfer_timeout", "count": 1}]'))
+    system = ServingSystem(params, cfg, n_prefill=1,
+                           decode_batch=FAULT_DECODE_BATCH,
+                           capacity=2048, decode_engines=2, autoscale=True,
+                           min_engines=1, max_engines=3,
+                           fault_injector=FaultInjector(plan, seed=FAULT_SEED),
+                           device=dev)
+    first_token, steps = {}, []
+    pre, pool = system.prefills[0], system.pool
+    run0, step0 = pre.run, pool.step_engine
+
+    def run(req):
+        out = run0(req)
+        first_token.setdefault(req.rid, time.perf_counter())
+        return out
+
+    def step_engine(*a, **kw):
+        t0 = time.perf_counter()
+        finished, log_ = step0(*a, **kw)
+        steps.append((t0, time.perf_counter(), [r.rid for r in finished]))
+        return finished, log_
+
+    pre.run, pool.step_engine = run, step_engine
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_start = time.perf_counter()
+    try:
+        results = system.serve(reqs)
+    finally:
+        t_end = time.perf_counter()
+        counts = read_counts()
+        del pre.run, pool.step_engine
+    sched = system.scheduler
+    s = sched.summary()
+    done = sorted((r for r in results if not r.shed), key=lambda r: r.rid)
+    held = hold_fault_tokens(torch, cfg, params, reqs, done, base_tokens,
+                             dev)
+    finish = {rid: t1 for _, t1, rids in steps for rid in rids}
+    max_new = reqs[0].max_new_tokens
+    ttft = [first_token[r.rid] - t_start for r in done]
+    tpot = [(finish[r.rid] - first_token[r.rid]) / (max_new - 1)
+            for r in done]
+    summary = {
+        "requests": len(reqs), "completed": len(done),
+        "shed": len(results) - len(done),
+        "crashes_fired": system.faults.crashes_fired,
+        "timeouts_injected": system.faults.timeouts_injected,
+        "recoveries": s["recoveries"],
+        "tokens_replayed": sum(t.tokens_replayed
+                               for t in sched.traces.values()),
+        "scale_events": [{k: e[k] for k in ("t", "action", "engine")}
+                         for e in sched.scale_events],
+        "engine_count_timeline": sched.engine_count_timeline,
+        "plan": json.loads(plan.to_json())["events"],
+        "tokens_equal_serve_dense": sum(r.tokens == base_tokens[r.rid]
+                                        for r in done),
+        **held,
+        "kernel_launches": counts,
+        "ttft_p50_s": statistics.median(ttft),
+        "tpot_p50_s": statistics.median(tpot),
+        "decode_step_p50_s": statistics.median(t1 - t0
+                                               for t0, t1, _ in steps),
+        "decode_tokens_per_s": sum(len(r.tokens) - 1 for r in done)
+        / (steps[-1][1] - steps[0][0]),
+        "serve_wall_s": t_end - t_start,
+    }
+    if dev == "cuda":
+        summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return summary
+
+
+def hold_fault_tokens(torch, cfg, params, reqs, done, base_tokens, dev):
+    """The token checks of serve-faults (see FAULT_DECODE_BATCH): each
+    completed request's served tokens against a batch-1 ``prefill`` over
+    prompt + served tokens, and its first parting from ``base_tokens``.
+    Returns the counts and every margin that breaks a rule (the gates)."""
+    prompts = {r.rid: list(r.prompt) for r in reqs}
+    out = {"tokens_checked": 0, "first_parting": {}, "clear_margin_faults": []}
+    for r in done:
+        ref = whole_logits(torch, params, cfg, prompts[r.rid], list(r.tokens),
+                           dev)
+        top2 = ref.topk(2, dim=-1)
+        gap = (top2.values[:, 0] - top2.values[:, 1]).tolist()
+        best = top2.indices[:, 0].tolist()
+        del ref, top2
+        for i, (g, b) in enumerate(zip(gap, best)):
+            if g > DENSE_MARGIN:
+                out["tokens_checked"] += 1
+                if r.tokens[i] != b:
+                    out["clear_margin_faults"].append(
+                        {"rid": r.rid, "position": i, "served": r.tokens[i],
+                         "prefill_argmax": b, "margin": g})
+        base = base_tokens[r.rid]
+        i = next((i for i, (a, b) in enumerate(zip(r.tokens, base))
+                  if a != b), None)
+        if i is not None:
+            out["first_parting"][r.rid] = {"position": i, "margin": gap[i]}
+            if gap[i] > DENSE_MARGIN:
+                out["clear_margin_faults"].append(
+                    {"rid": r.rid, "position": i, "served": r.tokens[i],
+                     "serve_dense": base[i], "margin": gap[i]})
+    return out
+
+
+def check_serve_faults(summary) -> None:
+    """The gates of serve-faults (see ``serve_faults_phase``)."""
+    if summary["crashes_fired"] < 1 or summary["recoveries"] < 1:
+        raise AssertionError(f"serve-faults: no crash recovered by replay: "
+                             f"{summary}")
+    if not any(e["action"] in ("grow", "shrink")
+               for e in summary["scale_events"]):
+        raise AssertionError(f"serve-faults: the autoscaler logged no "
+                             f"grow or shrink: {summary}")
+    if any(summary["kernel_launches"].values()):
+        raise AssertionError(f"serve-faults: a GQA serve launched a kernel: "
+                             f"{summary['kernel_launches']}")
+    if summary["completed"] != summary["requests"] \
+            or summary["tokens_checked"] < 1:
+        raise AssertionError(f"serve-faults: a request did not finish or no "
+                             f"token had a margin to check: {summary}")
+    if summary["clear_margin_faults"]:
+        raise AssertionError(f"serve-faults: a token disagrees at a clear "
+                             f"margin: {summary['clear_margin_faults']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
@@ -2760,6 +3171,16 @@ def main(argv=None) -> int:
         **{f"{key}_sum": sum(r[key] for r in dense_int8_rows)
            for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
                        "library_ms")}}))
+    free_model(torch)
+    tp = time.perf_counter()
+    faults = serve_faults_phase(torch, qcfg, qparams, qreqs, dense_tokens)
+    log(f"serve-faults: {json.dumps(faults)} on {device}")
+    log("serve-faults beside serve-dense: " + json.dumps({
+        key: [dense[key], faults[key]]
+        for key in ("ttft_p50_s", "tpot_p50_s", "decode_step_p50_s",
+                    "decode_tokens_per_s")}))
+    log(f"serve-faults: phase {time.perf_counter() - tp:.1f} s")
+    check_serve_faults(faults)
     del qparams
     free_model(torch)
 
@@ -2794,6 +3215,26 @@ def main(argv=None) -> int:
     ssm_agree = ssm_agreement_phase(torch, scfg, sparams, serve_requests(scfg),
                                     ssm_tokens)
     log(f"ssm-agreement: {json.dumps(ssm_agree)}")
+    # Training: Mamba2 trained whole through the SSD Function, its
+    # gradients at both models' widths, then a checkpoint round trip.
+    tp = time.perf_counter()
+    sparams, train_ssm, train_counts = train_ssm_phase(torch, scfg, sparams)
+    log(f"train-ssm: {json.dumps(train_ssm)} on {device}")
+    log(f"train-ssm: phase {time.perf_counter() - tp:.1f} s")
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    tp = time.perf_counter()
+    grad_rows = ssd_grad_rows(torch, flush)
+    del flush
+    log("train-ssd-grad: " + json.dumps({
+        "scans_per_step": scfg.num_layers,
+        "backward_ms_per_step": scfg.num_layers * grad_rows[0]["backward_ms"],
+        "backward_share_of_step": scfg.num_layers * grad_rows[0]["backward_ms"]
+        / (1e3 * train_ssm["step_p50_s"])}))
+    log(f"train-ssd-grad: phase {time.perf_counter() - tp:.1f} s")
+    tp = time.perf_counter()
+    ckpt, ckpt_counts = ckpt_phase(torch, scfg, sparams)
+    log(f"ckpt: {json.dumps(ckpt)} on {device}")
+    log(f"ckpt: phase {time.perf_counter() - tp:.1f} s")
     del sparams
     free_model(torch)
 
@@ -2921,7 +3362,9 @@ def main(argv=None) -> int:
             "serve-ssm": ssm_counts["ssd_scan"],
             "serve-zamba": zamba_counts["ssd_scan"],
             "cli-zamba": cli_zamba["kernel_launches"]["ssd_scan"],
-            "forward": fwd_counts["ssd_scan"]},
+            "forward": fwd_counts["ssd_scan"],
+            "train-ssm": train_counts["ssd_scan"],
+            "ckpt": ckpt_counts["ssd_scan"]},
         "max_abs_err": max(r["max_abs_err"]
                            for r in ssd_rows + zamba_ssd_rows),
         "ms": ssd_rows[0]["ms"],
@@ -2931,6 +3374,11 @@ def main(argv=None) -> int:
         "bound_by": ssd_rows[0]["bound_by"],
         "bound_fp32_ms": ssd_rows[0]["bound_fp32_ms"],
         "library_ms": None,
+        # The SSD Function's backward (plain PyTorch, no kernel) at
+        # Mamba2's training widths and at Zamba2's.
+        "backward": {r["case"]: {key: r[key] for key in (
+            "B", "S", "H", "N", "max_rel_err", "forward_ms", "backward_ms",
+            "plain_backward_ms")} for r in grad_rows},
         # Zamba2's served widths (H=64, P=64, N=64) at S=1019.
         "zamba": {key: zamba_ssd_rows[0][key] for key in (
             "S", "H", "P", "N", "max_abs_err", "ms", "graph_ms", "plain_ms",

@@ -1,0 +1,2 @@
+"""Sharded npz checkpoints in the JAX package's file layout."""
+from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint  # noqa: F401

@@ -29,12 +29,16 @@ from repro_torch.models.moe import MoE
 from repro_torch.quant.int8 import QuantizedLinear
 
 
-def _load(param: torch.nn.Parameter, value: np.ndarray, what: str) -> None:
-    value = np.asarray(value)
-    if tuple(param.shape) != value.shape:
+def _load(param: torch.nn.Parameter, value: Any, what: str) -> None:
+    """Copy ``value`` (a numpy array, or a tensor for a dtype numpy lacks,
+    such as a checkpoint's bfloat16 leaf) into ``param``, cast to its
+    dtype."""
+    if not isinstance(value, torch.Tensor):
+        value = torch.from_numpy(np.array(value))
+    if tuple(param.shape) != tuple(value.shape):
         raise ValueError(f"{what}: port shape {tuple(param.shape)} != JAX "
-                         f"shape {value.shape}")
-    param.data.copy_(torch.from_numpy(np.array(value)))
+                         f"shape {tuple(value.shape)}")
+    param.data.copy_(value)
 
 
 def _load_module(module: torch.nn.Module, tree: Dict[str, Any], layer: int,
@@ -50,7 +54,8 @@ def _load_module(module: torch.nn.Module, tree: Dict[str, Any], layer: int,
 def params_from_jax_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                           device: DeviceLike = None) -> Model:
     """A :class:`Model` on ``device`` holding the weights of the JAX pytree
-    ``tree`` (numpy leaves, e.g. ``jax.tree.map(np.asarray, params)``)."""
+    ``tree`` (numpy leaves, e.g. ``jax.tree.map(np.asarray, params)``, or
+    CPU tensors)."""
     model = Model(cfg, resolve_device(device))
     _load(model.embed, tree["embed"], "embed")
     _load(model.final_norm, tree["final_norm"], "final_norm")

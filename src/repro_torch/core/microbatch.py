@@ -1,4 +1,4 @@
-"""Microbatch-based pipelining (paper §4.2.3 decode).
+"""Microbatch-based pipelining (paper §4.2.3 decode, §4.3.2 prefill).
 
 The paper splits each batch into two interleaved microbatches so one
 stream's attention overlaps the other's MoE dispatch/combine. The port keeps
@@ -81,5 +81,28 @@ def microbatched(step_fn: Callable, n_micro: int = 2):
             given.append(c_i)
             new_caches.append(nc_i)
         return _concat_batch(outs), _join_batch(caches, given, new_caches)
+
+    return wrapped
+
+
+def microbatched_loss(loss_fn: Callable, n_micro: int = 2):
+    """The training analogue, as the JAX package's: ``loss_fn(params,
+    batch)`` run on ``n_micro`` splits of the batch (axis 0 of rank <= 2
+    leaves, axis 1 of higher ranks, as :func:`_split_batch` cuts them), the
+    loss and every metric averaged over the splits. Autograd differentiates
+    the mean, as ``jax.value_and_grad`` does."""
+    if n_micro == 1:
+        return loss_fn
+
+    def wrapped(params, batch, *args, **kwargs):
+        total, metrics = None, None
+        for i in range(n_micro):
+            l_i, m_i = loss_fn(params, _split_batch(batch, n_micro, i),
+                               *args, **kwargs)
+            total = l_i if total is None else total + l_i
+            metrics = m_i if metrics is None else tree_map(
+                lambda x, y: x + y, metrics, m_i)
+        inv = 1.0 / n_micro
+        return total * inv, tree_map(lambda x: x * inv, metrics)
 
     return wrapped

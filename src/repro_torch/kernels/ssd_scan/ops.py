@@ -5,6 +5,12 @@ the hand-written kernel's four stages on PyTorch's current stream or raises:
 there is no fallback. ``LAUNCHES`` counts calls that launched the scan.
 The stages' scratch is allocated here (:func:`scratch_shapes`); the kernel
 allocates nothing.
+
+The kernel writes its outputs through raw pointers, so autograd sees
+nothing of it: :func:`ssd_scan` refuses an input that requires grad while
+grad mode is on, and a caller that needs gradients (``mamba_prefill``)
+goes through :func:`ssd_scan_autograd`, whose backward is the gradient of
+the plain ``ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -105,15 +111,27 @@ def _inputs(x, dt, a_log, bmat, cmat):
     return [t.data_ptr() for t in (x, dt, a_log, bmat, cmat)]
 
 
+def _refuse_graph(*inputs: torch.Tensor) -> None:
+    """The kernel's outputs carry no ``grad_fn``: refuse to drop a gradient
+    silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            "ssd_scan records no gradient (the kernel writes through raw "
+            "pointers); call ssd_scan_autograd for inputs that require grad")
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              bmat: torch.Tensor, cmat: torch.Tensor, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,H,P), dt (B,S,H), a_log (H,), B and C (B,S,N), all float32
     and contiguous -> (y (B,S,H,P), h_final (B,H,P,N)) float32, from a zero
     state, in chunks of ``min(chunk, S)`` rows with a ragged last chunk.
-    See :func:`repro_torch.kernels.ssd_scan.ref.ssd_chunked`."""
+    See :func:`repro_torch.kernels.ssd_scan.ref.ssd_chunked`. Raises on an
+    input that requires grad while grad mode is on (on every device): use
+    :func:`ssd_scan_autograd` there."""
     global LAUNCHES
     _check(x, dt, a_log, bmat, cmat, chunk)
+    _refuse_graph(x, dt, a_log, bmat, cmat)
     dev = x.device
     if dev.type == "cpu":
         return ssd_chunked(x, dt, a_log, bmat, cmat, chunk)
@@ -133,6 +151,53 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y, h_final
 
 
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with a gradient, for training through ``mamba_prefill``.
+
+    Forward: :func:`ssd_scan`, under ``no_grad`` as autograd runs every
+    forward: on a CUDA tensor it launches the hand-written kernel (counted
+    in ``LAUNCHES``) or raises; on a CPU tensor it runs the plain
+    ``ssd_chunked``. This is not a fallback: nothing gives way when the
+    kernel fails, and the card's forward always launches it.
+
+    Backward: the gradient that JAX's autodiff of its ``ssd_chunked``
+    computes, for x, dt, a_log, B and C, from an upstream gradient of ``y``
+    and of ``h_final`` (either may be zero). It recomputes the plain
+    chunked stages of ``ref.py`` from the saved float32 inputs under
+    ``enable_grad`` (a ragged last chunk included) and differentiates them
+    with autograd, so it launches no kernel on any device. The JAX package
+    has no backward kernel either; a hand-written one is speed work.
+    """
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, bmat, cmat, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a_log, bmat, cmat)
+        return ssd_scan(x, dt, a_log, bmat, cmat, chunk)
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        if ctx.saved_tensors[0].shape[1] == 0:     # S = 0: nothing flows
+            return (None,) * 6
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y, h_final = ssd_chunked(*inputs, ctx.chunk)
+            grads = iter(torch.autograd.grad(
+                (y, h_final), [t for t in inputs if t.requires_grad],
+                (g_y, g_h), allow_unused=True))
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None)
+
+
+def ssd_scan_autograd(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                      bmat: torch.Tensor, cmat: torch.Tensor, chunk: int = 128
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan` (same arguments and outputs) through
+    :class:`SSDScan`, so that gradients flow to every input."""
+    return SSDScan.apply(x, dt, a_log, bmat, cmat, chunk)
+
+
 def ssd_scan_stages(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                     bmat: torch.Tensor, cmat: torch.Tensor, chunk: int = 128
                     ) -> Dict[str, torch.Tensor]:
@@ -145,6 +210,7 @@ def ssd_scan_stages(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     it is in. Not on the served path: ``chip_smoke.py`` reads it."""
     global LAUNCHES
     _check(x, dt, a_log, bmat, cmat, chunk)
+    _refuse_graph(x, dt, a_log, bmat, cmat)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_stages runs on cuda, not {x.device}")
     y, h_final, scratch, args = _buffers(x, bmat, chunk)

@@ -10,6 +10,7 @@ from repro_torch.models.model import (  # noqa: F401
     embed_inputs,
     forward,
     init_params,
+    lm_loss,
     make_caches,
     prefill,
     prefill_continue,

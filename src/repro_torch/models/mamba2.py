@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ops import ssd_scan_autograd
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: F401
 from repro_torch.models.layers import rms_norm, weight
 
@@ -103,7 +103,8 @@ def mamba_prefill(p: Mamba, x: torch.Tensor, cfg: ModelConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B,S,D). Returns (out (B,S,D), h_state (B,H,P,N) f32, conv_state
     (B,K-1,C) in x's dtype). The scan runs through the ``ssd_scan`` kernel
-    on the card."""
+    on the card, by way of its autograd Function (``ssd_scan_autograd``),
+    so a loss backpropagates through it."""
     bsz, s, d = x.shape
     din = d * cfg.ssm_expand
     n, h = cfg.ssm_state, cfg.ssm_heads
@@ -112,10 +113,10 @@ def mamba_prefill(p: Mamba, x: torch.Tensor, cfg: ModelConfig
     xin = xbc[..., :din].reshape(bsz, s, h, cfg.ssm_head_dim)
     bmat = xbc[..., din: din + n]
     cmat = xbc[..., din + n:]
-    y, h_final = ssd_scan(xin.float().contiguous(), dt.contiguous(),
-                          p.A_log.float().contiguous(),
-                          bmat.float().contiguous(),
-                          cmat.float().contiguous(), cfg.ssm_chunk)
+    y, h_final = ssd_scan_autograd(xin.float().contiguous(), dt.contiguous(),
+                                   p.A_log.float().contiguous(),
+                                   bmat.float().contiguous(),
+                                   cmat.float().contiguous(), cfg.ssm_chunk)
     y = y + p.D[None, None, :, None] * xin.float()
     y = y.reshape(bsz, s, din).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(z.dtype), p.norm_gain, cfg.norm_eps)

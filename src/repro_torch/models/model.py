@@ -876,3 +876,30 @@ def prefill(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     caches = _with_lengths(cfg, caches, torch.tensor(s, dtype=torch.int32,
                                                      device=x.device))
     return unembed(params, cfg, x), caches
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            moe_fn: Optional[MoeFn] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token loss for training: the mean over positions of
+    logsumexp(logits) minus the gold logit, in float32, plus
+    ``router_aux_loss_coef`` times the MoE aux loss. ``batch`` is
+    :func:`forward`'s plus ``labels`` (B,S); a VLM's ``prefix_emb``
+    positions carry no label and are dropped. Returns (loss, {"nll",
+    "aux_loss"}). The model's weights are frozen unless the caller turns
+    on ``requires_grad`` (``repro_torch.train.loop.trainable``)."""
+    logits, aux = forward(params, cfg, batch, moe_fn)
+    if cfg.frontend == "vision_patches" and "prefix_emb" in batch:
+        logits = logits[:, batch["prefix_emb"].shape[1]:, :]
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        batch["labels"].long()[..., None])[..., 0]
+    nll = (lse - gold).mean()
+    loss = nll + cfg.router_aux_loss_coef * aux["aux_loss"]
+    return loss, {"nll": nll, **aux}

@@ -13,25 +13,35 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core import init_mtp_params
+from repro_torch.data import make_batch_iter
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch import train as train_cli
 from repro_torch.mempool import EMSService, MemoryPool
-from repro_torch.models import build_plan, init_params, make_caches
-from repro_torch.serving import ServingSystem
+from repro_torch.models import (build_plan, decode_step, init_params,
+                                make_caches, prefill)
+from repro_torch.serving import Request, ServingSystem
 from repro_torch.serving.engine import DecodeEngine, PrefillEngine
+from repro_torch.train import init_opt_state, train
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
 
-#: modules of the MTP / EMS / serve-CLI slice and of the Zamba2 and
-#: frontends slice, which the walk above must keep covering
+#: modules of the MTP / EMS / serve-CLI slice, of the Zamba2 and
+#: frontends slice and of the training and checkpoint slice, which the
+#: walk above must keep covering
 SLICE_MODULES = ("core/mtp.py", "mempool/context_cache.py", "mempool/ems.py",
                  "launch/serve.py", "launch/__init__.py",
                  "configs/zamba2_1_2b.py", "configs/internvl2_2b.py",
-                 "configs/hubert_xlarge.py")
+                 "configs/hubert_xlarge.py", "mempool/model_cache.py",
+                 "data/__init__.py", "data/pipeline.py", "train/__init__.py",
+                 "train/loop.py", "train/optimizer.py",
+                 "checkpoint/__init__.py", "checkpoint/ckpt.py",
+                 "launch/train.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -78,9 +88,12 @@ def cpu_model():
 @pytest.mark.parametrize("entry", ["init_params", "make_caches",
                                    "PrefillEngine", "DecodeEngine",
                                    "ServingSystem", "init_mtp_params",
-                                   "serve_cli"])
+                                   "serve_cli", "train", "init_opt_state",
+                                   "save_checkpoint", "load_checkpoint",
+                                   "train_cli"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
-                                                           cpu_model, entry):
+                                                           cpu_model, entry,
+                                                           tmp_path):
     cfg, params = cpu_model
     calls = {
         "init_params": lambda: init_params(cfg, seed=0),
@@ -90,9 +103,37 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
         "ServingSystem": lambda: ServingSystem(params, cfg, capacity=16),
         "init_mtp_params": lambda: init_mtp_params(cfg),
         "serve_cli": lambda: serve_cli.main(["--arch", "deepseek-r1"]),
+        "train": lambda: train(params, cfg, make_batch_iter(
+            cfg.vocab_size, 8, 2), 1),
+        "init_opt_state": lambda: init_opt_state(params),
+        "save_checkpoint": lambda: save_checkpoint(str(tmp_path), params, 0),
+        "load_checkpoint": lambda: load_checkpoint(str(tmp_path), cfg),
+        "train_cli": lambda: train_cli.main(["--arch", "granite-3-2b"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
+
+
+def test_trained_model_serves_without_building_a_graph(capsys):
+    """``train`` turns gradients on for its steps alone: afterwards every
+    weight is frozen again, and prefill, decode and a serve build no
+    autograd graph."""
+    cfg = smoke_variant(get_config("granite-3-2b"))
+    model = init_params(cfg, seed=0, device="cpu")
+    before = [p.detach().clone() for p in model.parameters()]
+    model, _ = train(model, cfg, make_batch_iter(cfg.vocab_size, 16, 2), 2,
+                     device="cpu")
+    assert any(not torch.equal(a, p) for a, p in zip(before,
+                                                      model.parameters()))
+    assert not any(p.requires_grad for p in model.parameters())
+    logits, caches = prefill(model, cfg, {"tokens": torch.tensor([[1, 2, 3]])},
+                             8)
+    step, _ = decode_step(model, cfg, torch.tensor([[4]]), caches,
+                          torch.tensor(3))
+    assert logits.grad_fn is None and step.grad_fn is None
+    results = ServingSystem(model, cfg, capacity=16, device="cpu").serve(
+        [Request(0, [1, 2, 3], 3)])
+    assert len(results[0].tokens) == 3
 
 
 def test_engine_refuses_params_on_another_device(cpu_model):
