@@ -101,7 +101,33 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    EMS on): it must finish, show ``reused>0`` for a later rid and fewer
    iterations than tokens; then the same with ``--arch qwen3-8b``
    (``cli-dense``: GQA attention, no kernel).
-8d. serve-dense: with the DeepSeek-R1 weights freed, Qwen3-8B whole (36
+8c'. hybrid-prefill, serve-hybrid: a one-rank NCCL process group (file
+   rendezvous) and a 1 x 1 ``("data", "model")`` ``DeviceMesh`` over it are
+   made once for this and the next phase; every collective of the parallel
+   layer is then on an axis of one rank and moves nothing. The serve
+   traffic's 8 prompts are prefilled plain and with ``REPRO_MLA_HYBRID`` =
+   a2a and rs (the §4.3.1 SP -> TP -> SP MLA prefill on every MLA layer):
+   logits within AGREE_ATOL of the plain prefill's, no kernel. Then the R1
+   serve with ``REPRO_MLA_HYBRID=a2a``: every prefill's 4 MLA layers
+   through the hybrid, the MLA kernel decode steps x 4 times, tokens held
+   against the serve phase's by margins (``hold_partings``).
+8c''. kimi-lep-agree, serve-kimi, serve-kimi-tokens: with R1's weights
+   freed, Kimi K2 at its widths (d_model 7168, 64 heads over 8 KV heads,
+   384 experts top-8 of d_ff 2048, 1 shared expert, vocab 163840) cut to
+   2 layers (19.615 B parameters, bf16 random weights from a seed). On
+   the MoE layer's inputs of one prefill (S = 1019) and one 8-row decode
+   step: the production plan (``pick_lep_plan`` at 16 x 16, serving: EP
+   over model, the FFN over data) bit-equal to the 1-D LEP at world size
+   1, and the token gather with its second hop quantized within
+   QUANT_REL_TOL of ``moe_capacity``; event times of each. Then the serve
+   traffic through each plan, the experts first cut to the rank's share
+   (``keep_local_experts``; on one rank every weight stays as it was):
+   every request finishes, the
+   dispatch-quantize kernel launches once per MoE call (the production
+   plan) or twice (the token gather); decode step p50 beside the experts'
+   byte bound; serve-kimi-tokens' tokens held against serve-kimi's by
+   margins.
+8d. serve-dense: with the Kimi weights freed, Qwen3-8B whole (36
    layers, d_model 4096, 32 heads over 8 KV heads of 128, d_ff 12288,
    vocab 151936, qk-norm; bf16 random weights from a seed) serves the
    serve phase's traffic through the same ``ServingSystem``. GQA attention
@@ -220,7 +246,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    kernel but the SSD scan may launch.
 
 Each path phase (serve, serve-lep, int8, serve-mtp's two serves,
-serve-ems's two turns, cli, serve-dense, the ring serve, int8-dense,
+serve-ems's two turns, cli, hybrid-prefill, serve-hybrid, kimi-lep-agree's
+calls, serve-kimi, serve-kimi-tokens, serve-dense, the ring serve, int8-dense,
 serve-faults, serve-olmoe, serve-olmoe-lep, serve-ssm, train-ssm, ckpt,
 serve-zamba, cli-zamba, forward)
 sets every kernel's launch count to 0 just before it and reads the counts
@@ -233,6 +260,7 @@ port's package beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -513,6 +541,10 @@ FAULT_DECODE_BATCH = 4
 # Kernels whose build fails the run if ptxas reports a spill.
 SPILL_GATED = ("int8_gemm", "mla_decode_attention", "dispatch_quant")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+
+# kimi-lep-agree: the quantized token gather against ``moe_capacity``, the
+# tolerance tests/test_multidevice.py holds quantized LEP modes to.
+QUANT_REL_TOL = 0.05
 FP32_FLOP_PER_S = 67e12      # H100 SXM data sheet, FP32 outside tensor cores
 TF32_FLOP_PER_S = 495e12     # H100 SXM data sheet, dense TF32 tensor cores
 INT8_OP_PER_S = 1979e12      # H100 SXM data sheet, dense int8 tensor cores
@@ -1197,16 +1229,19 @@ def serve_phase(torch, cfg, params, moe_fn=None, dev="cuda", *, reqs=None,
     return summary, counts, final_lens, {r.rid: r.tokens for r in results}
 
 
-def serve_lep_phase(torch, cfg, params, base_tokens, dev="cuda"):
-    """The same traffic served with ``moe_fn=make_lep_moe_fn()`` at world
-    size 1 (early INT8 dispatch through the dispatch-quantize kernel). Every
-    request must finish and the kernel must run once per MoE call. The
-    share of served tokens equal to the ``moe_capacity`` serve is reported,
-    not gated: INT8 dispatch and LEP's deeper prefill capacity may flip
-    some."""
+def serve_lep_phase(torch, cfg, params, base_tokens, dev="cuda", *,
+                    lep=None, quant_per_call=1):
+    """The same traffic served with ``moe_fn=lep`` (default
+    ``make_lep_moe_fn()`` at world size 1: early INT8 dispatch through the
+    dispatch-quantize kernel). Every request must finish and the kernel
+    must run ``quant_per_call`` times per MoE call. The share of served
+    tokens equal to ``base_tokens`` (the ``moe_capacity`` serve's) is
+    reported, not gated: INT8 dispatch and LEP's deeper prefill capacity
+    may flip some; without ``base_tokens`` the tokens are returned in the
+    summary."""
     from repro_torch.core import make_lep_moe_fn
 
-    lep = make_lep_moe_fn()
+    lep = lep or make_lep_moe_fn()
     calls = []
 
     def moe_fn(p, x, c):
@@ -1214,19 +1249,22 @@ def serve_lep_phase(torch, cfg, params, base_tokens, dev="cuda"):
         return lep(p, x, c)
 
     summary, counts, _, tokens = serve_phase(torch, cfg, params, moe_fn, dev)
-    if not calls or counts["dispatch_quant"] != len(calls):
+    if not calls or counts["dispatch_quant"] != quant_per_call * len(calls):
         raise AssertionError(f"dispatch_quantize launches "
-                             f"{counts['dispatch_quant']} != moe_fn calls "
-                             f"{len(calls)}")
+                             f"{counts['dispatch_quant']} != {quant_per_call}"
+                             f" x moe_fn calls {len(calls)}")
     # One MoE call per MoE layer of every forward (a prefill or a step).
     forwards = summary["requests"] + summary["decode_steps"]
     if len(calls) != (cfg.num_layers - cfg.first_k_dense) * forwards:
         raise AssertionError(f"{len(calls)} moe_fn calls for {forwards} "
                              f"forwards")
+    summary["moe_fn_calls"] = len(calls)
+    if base_tokens is None:
+        summary["tokens"] = tokens
+        return summary, counts
     same = sum(a == b for rid in tokens
                for a, b in zip(tokens[rid], base_tokens[rid]))
     total = sum(len(t) for t in tokens.values())
-    summary["moe_fn_calls"] = len(calls)
     summary["tokens_identical_to_capacity_serve"] = same / total
     return summary, counts
 
@@ -3056,6 +3094,294 @@ def check_serve_faults(summary) -> None:
                              f"margin: {summary['clear_margin_faults']}")
 
 
+# ---------------------------------------------------------------------------
+# The parallel layer over a 1 x 1 mesh: hybrid-prefill, serve-hybrid (R1),
+# kimi-lep-agree, serve-kimi, serve-kimi-tokens (Kimi K2)
+# ---------------------------------------------------------------------------
+
+
+def one_rank_mesh(torch, dev="cuda"):
+    """A one-rank process group (NCCL on the card, gloo on the CPU; file
+    rendezvous in a fresh temporary directory) and the 1 x 1
+    ``("data", "model")`` mesh over it. Every collective on it is on an
+    axis of one rank, so none is issued."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    path = Path(tempfile.mkdtemp(prefix="chip_smoke_pg_")) / "rendezvous"
+    dist.init_process_group("nccl" if dev == "cuda" else "gloo",
+                            init_method=f"file://{path}", rank=0,
+                            world_size=1)
+    return make_debug_mesh(1, 1, dev)
+
+
+@contextlib.contextmanager
+def hybrid_mode(mesh, mode):
+    """Within the block ``REPRO_MLA_HYBRID`` is ``mode`` ("" for the plain
+    prefill) and ``mesh`` is current; yields the list that each call of
+    ``mla_prefill_hybrid`` (one MLA layer) appends to."""
+    import os
+    from repro_torch.core import hybrid_parallel
+    from repro_torch.core.parallel import mesh_context
+
+    calls, real = [], hybrid_parallel.mla_prefill_hybrid
+
+    def counted(*a, **kw):
+        calls.append(kw.get("oproj_mode"))
+        return real(*a, **kw)
+
+    hybrid_parallel.mla_prefill_hybrid = counted
+    os.environ["REPRO_MLA_HYBRID"] = mode
+    try:
+        with mesh_context(mesh):
+            yield calls
+    finally:
+        os.environ.pop("REPRO_MLA_HYBRID", None)
+        hybrid_parallel.mla_prefill_hybrid = real
+
+
+def hybrid_prefill_phase(torch, cfg, params, mesh, dev="cuda"):
+    """The serve traffic's 8 prompts prefilled plain, then with
+    ``REPRO_MLA_HYBRID`` = a2a and rs over ``mesh`` (the §4.3.1 SP -> TP ->
+    SP MLA prefill on every MLA layer): each hybrid form's logits within
+    AGREE_ATOL of the plain prefill's, every layer through the hybrid,
+    no kernel launched (the prefill's MLA is plain PyTorch)."""
+    from repro_torch.models import prefill
+
+    out = {"atol": AGREE_ATOL, "prompts": 0, "hybrid_layer_calls": 0}
+    times = {"plain": [], "a2a": [], "rs": []}
+    reset_counts()
+    for req in serve_requests(cfg):
+        toks = {"tokens": dev_tokens(torch, [req.prompt], dev)}
+        logits = {}
+        for mode in times:
+            with hybrid_mode(mesh, "" if mode == "plain" else mode) as calls:
+                t0 = time.perf_counter()
+                lg, _ = prefill(params, cfg, toks, len(req.prompt))
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                times[mode].append(time.perf_counter() - t0)
+            if calls != ([] if mode == "plain" else [mode] * cfg.num_layers):
+                raise AssertionError(f"hybrid-prefill {mode}: hybrid calls "
+                                     f"{calls}")
+            out["hybrid_layer_calls"] += len(calls)
+            logits[mode] = lg[0].float()
+            del lg
+        for mode in ("a2a", "rs"):
+            err = (logits[mode] - logits["plain"]).abs().max().item()
+            key = f"max_abs_logit_err_{mode}"
+            out[key] = max(out.get(key, 0.0), err)
+            if not err <= AGREE_ATOL:
+                raise AssertionError(f"hybrid-prefill {mode}: rid {req.rid} "
+                                     f"logits {err:.4f} from the plain "
+                                     "prefill")
+        out["prompts"] += 1
+        del logits
+    out["kernel_launches"] = read_counts()
+    if any(out["kernel_launches"].values()):
+        raise AssertionError(f"hybrid-prefill launched a kernel: {out}")
+    for mode, ts in times.items():
+        out[f"prefill_p50_s_{mode}"] = statistics.median(ts)
+    return out
+
+
+def hold_partings(torch, cfg, params, reqs, tokens, base_tokens, what,
+                  dev="cuda"):
+    """``tokens`` held against ``base_tokens`` by margins: where a request's
+    tokens first part from the base's, the top-two margin of a prefill
+    over prompt + served tokens must be within DENSE_MARGIN
+    (``hold_fault_tokens``). Served tokens that are not that prefill's
+    argmax at a clear margin are counted, not gated: the prefill's
+    ``moe_capacity`` drops other tokens than a serve's prefill and decode
+    steps do."""
+    import types
+
+    done = [types.SimpleNamespace(rid=rid, tokens=toks)
+            for rid, toks in sorted(tokens.items())]
+    held = hold_fault_tokens(torch, cfg, params, reqs, done, base_tokens, dev)
+    faults = held.pop("clear_margin_faults")
+    partings = [f for f in faults if "serve_dense" in f]
+    if partings:
+        raise AssertionError(f"{what}: tokens part from the base serve's at "
+                             f"a clear margin: {partings}")
+    held["prefill_argmax_disagreements"] = len(faults)
+    held["tokens_equal_base"] = sum(tokens[r] == base_tokens[r]
+                                    for r in tokens)
+    return held
+
+
+def serve_hybrid_phase(torch, cfg, params, mesh, base_tokens, dev="cuda"):
+    """The R1 serve with ``REPRO_MLA_HYBRID=a2a`` over ``mesh``: every
+    prefill's MLA layers through the hybrid, the MLA kernel decode steps x
+    4 times (``serve_phase``'s gate); tokens held against the serve
+    phase's by margins (``hold_partings``)."""
+    reqs = serve_requests(cfg)
+    with hybrid_mode(mesh, "a2a") as calls:
+        summary, counts, _, tokens = serve_phase(torch, cfg, params, dev=dev,
+                                                 reqs=reqs)
+    if calls != ["a2a"] * (len(reqs) * cfg.num_layers):
+        raise AssertionError(f"serve-hybrid: {len(calls)} hybrid layers for "
+                             f"{len(reqs)} prefills")
+    summary["hybrid_layer_calls"] = len(calls)
+    summary.update(hold_partings(torch, cfg, params, reqs, tokens,
+                                 base_tokens, "serve-hybrid", dev))
+    return summary, counts
+
+
+def kimi_config():
+    from repro_torch.configs import get_config
+    # Widths whole (d_model 7168, 64 heads over 8 KV heads of 128, 384
+    # experts top-8 of d_ff 2048, 1 shared expert, vocab 163840); depth cut
+    # to first_k_dense 1 + 1 MoE layer: 19.615 B parameters, 39.2 GB bf16.
+    return dataclasses.replace(get_config("kimi-k2-1t-a32b"),
+                               name="kimi-k2-2layer", num_layers=2,
+                               first_k_dense=1, dtype="bfloat16")
+
+
+def kimi_plans():
+    """The production plan (``pick_lep_plan`` at 16 x 16, serving) and the
+    decode-optimized token gather with its second hop quantized."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lep import pick_lep_plan
+    from repro_torch.launch.mesh import PRODUCTION_SHAPE
+
+    # The plan of the whole model (61 layers), which the cut serves.
+    prod = pick_lep_plan(get_config("kimi-k2-1t-a32b"), PRODUCTION_SHAPE,
+                         serving=True)
+    if prod != dict(ep_axes=("model",), redundancy=1, ffn_shard_axis="data"):
+        raise AssertionError(f"Kimi K2's production plan is {prod}")
+    return prod, dict(prod, ffn_gather="tokens", quantize_gather=True)
+
+
+def moe_inputs(torch, cfg, params, dev="cuda"):
+    """The MoE layer's inputs (normed hidden states) of one prefill of the
+    longest serve prompt and of one 8-row decode step after a prefill of
+    the 8 prompts' first 64 tokens."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.moe import moe_capacity
+
+    got = []
+
+    def recording(p, x, c):
+        got.append(x.detach().clone())
+        return moe_capacity(p, x, c)
+
+    reqs = serve_requests(cfg)
+    longest = max(reqs, key=lambda r: len(r.prompt))
+    with torch.no_grad():
+        prefill(params, cfg, {"tokens": dev_tokens(torch, [longest.prompt],
+                                                   dev)},
+                len(longest.prompt), recording)
+        heads = [r.prompt[:64] for r in reqs]
+        _, caches = prefill(params, cfg, {"tokens": dev_tokens(torch, heads,
+                                                               dev)},
+                            128, recording)
+        decode_step(params, cfg, dev_tokens(torch, [[r.prompt[64]]
+                                                    for r in reqs], dev),
+                    caches, dev_tokens(torch, [64] * len(reqs), dev),
+                    recording)
+    return {"prefill": got[0], "decode": got[-1]}
+
+
+def kimi_lep_agree_phase(torch, cfg, params, mesh, dev="cuda"):
+    """At Kimi K2's MoE layer on captured inputs (S = 1019 and an 8-row
+    decode step): the production plan over ``mesh`` bit-equal (outputs and
+    dropped) to the 1-D LEP at world size 1; the quantized token gather
+    within QUANT_REL_TOL of ``moe_capacity`` relative to its largest value;
+    the dispatch buffers' shapes; event times of each form."""
+    from repro_torch.core.lep import lep_capacity, make_lep_moe_fn
+    from repro_torch.models.moe import moe_capacity
+
+    prod, tok = kimi_plans()
+    fns = {"lep_1d": make_lep_moe_fn(),
+           "production": make_lep_moe_fn(mesh=mesh, **prod),
+           "tokens_quantized": make_lep_moe_fn(mesh=mesh, **tok),
+           "moe_capacity": moe_capacity}
+    p = params.segments["moe"][0].moe
+    out = {"production_plan": prod}
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    for name, x in moe_inputs(torch, cfg, params, dev).items():
+        t = x.shape[0]
+        cap = lep_capacity(t, cfg.num_experts_per_tok, cfg.num_experts,
+                           cfg.capacity_factor)
+        res, ms = {}, {}
+        for key, fn in fns.items():
+            reset_counts()
+            res[key] = fn(p, x, cfg)
+            launches = read_counts()["dispatch_quant"]
+            if dev == "cuda":
+                ms[key] = timed_ms(torch, lambda: fn(p, x, cfg), 3, flush)
+            res[key] += (launches,)
+        (a, aux_a, n_a), (b, aux_b, n_b) = res["lep_1d"], res["production"]
+        if not (torch.equal(a, b) and int(aux_a["dropped"])
+                == int(aux_b["dropped"])):
+            raise AssertionError(f"kimi-lep-agree {name}: the production "
+                                 f"plan differs from the 1-D LEP: max "
+                                 f"{(a.float() - b.float()).abs().max()}")
+        ref = res["moe_capacity"][0].float()
+        rel = ((res["tokens_quantized"][0].float() - ref).abs().max()
+               / ref.abs().max()).item()
+        if not rel <= QUANT_REL_TOL:
+            raise AssertionError(f"kimi-lep-agree {name}: the token gather "
+                                 f"is {rel:.4f} from moe_capacity")
+        want = {"lep_1d": 1, "production": 1, "tokens_quantized": 2,
+                "moe_capacity": 0}
+        got = {k: v[-1] for k, v in res.items()}
+        if got != want:
+            raise AssertionError(f"kimi-lep-agree {name}: dispatch-quantize "
+                                 f"launches {got}, want {want}")
+        out[name] = {
+            "tokens": t, "capacity": cap,
+            "dispatch_buffer": [cfg.num_experts * cap, cfg.d_model],
+            "dropped": int(aux_a["dropped"]),
+            "production_bit_equal_1d": True,
+            "tokens_quantized_rel_err_vs_capacity": rel,
+            "dispatch_quant_launches": got,
+            "ms": ms}
+    return out
+
+
+def serve_kimi_phase(torch, cfg, params, plan, mesh, quant_per_call,
+                     base_tokens=None, dev="cuda"):
+    """The serve traffic through Kimi K2's cut with ``moe_fn`` = LEP over
+    ``mesh`` under ``plan``: every request finishes, the dispatch-quantize
+    kernel launches ``quant_per_call`` times per MoE call; decode step p50
+    beside the experts' byte bound (every expert read every step); with
+    ``base_tokens`` (serve-kimi's), the tokens held against them by
+    margins (``hold_partings``). The experts are cut to the rank's share
+    first (``keep_local_experts``), as a serve across cards holds them: on
+    the one-rank mesh that cut must keep every weight as it was."""
+    from repro_torch.core.lep import keep_local_experts, make_lep_moe_fn
+    from repro_torch.models.moe import MoE
+
+    def expert_weights():
+        return [w for layer in params.modules() if isinstance(layer, MoE)
+                for w in (layer.w_gate, layer.w_up, layer.w_down)]
+
+    experts = expert_weights()
+    keep_local_experts(params, mesh=mesh, **plan)
+    held = expert_weights()
+    if len(held) != len(experts) or any(a is not b
+                                        for a, b in zip(held, experts)):
+        raise AssertionError("keep_local_experts replaced an expert weight "
+                             "on a one-rank mesh")
+    lep = make_lep_moe_fn(mesh=mesh, **plan)
+    summary, counts = serve_lep_phase(torch, cfg, params, None, dev, lep=lep,
+                                      quant_per_call=quant_per_call)
+    expert_bytes = 3 * cfg.num_experts * cfg.d_model * cfg.d_ff * 2 \
+        * (cfg.num_layers - cfg.first_k_dense)
+    summary["expert_bytes_held"] = sum(w.numel() * w.element_size()
+                                       for w in held)
+    summary["expert_bytes_per_step"] = expert_bytes
+    summary["decode_step_bound_ms"] = 1e3 * expert_bytes / HBM_BYTES_PER_S
+    if base_tokens is not None:
+        summary.update(hold_partings(torch, cfg, params, serve_requests(cfg),
+                                     summary.pop("tokens"), base_tokens,
+                                     "serve-kimi-tokens", dev))
+    return summary, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
@@ -3144,8 +3470,46 @@ def main(argv=None) -> int:
     log(f"cli-dense: {json.dumps(cli_dense)} on {device}")
     if any(cli_dense["kernel_launches"].values()):
         raise AssertionError(f"the GQA CLI launched a kernel: {cli_dense}")
+
+    # The parallel layer over a 1 x 1 mesh of one NCCL rank: R1's prefill
+    # through the §4.3.1 hybrid, then Kimi K2 through its model-axis plan.
+    mesh = one_rank_mesh(torch)
+    tp = time.perf_counter()
+    hybrid = hybrid_prefill_phase(torch, cfg, params, mesh)
+    log(f"hybrid-prefill: {json.dumps(hybrid)} on {device}")
+    serve_hybrid, hybrid_counts = serve_hybrid_phase(torch, cfg, params, mesh,
+                                                     tokens)
+    log(f"serve-hybrid: {json.dumps(serve_hybrid)} on {device}")
+    log("serve-hybrid beside serve: " + json.dumps({
+        key: [serve[key], serve_hybrid[key]]
+        for key in ("ttft_p50_s", "tpot_p50_s", "decode_step_p50_s",
+                    "decode_tokens_per_s")}))
+    log(f"serve-hybrid: phase {time.perf_counter() - tp:.1f} s")
     del params
     free_model(torch)
+
+    # Kimi K2 at its widths, 2 layers, after R1's weights are freed.
+    kcfg = kimi_config()
+    kparams = init_model(torch, kcfg, "kimi")
+    tp = time.perf_counter()
+    kimi_agree = kimi_lep_agree_phase(torch, kcfg, kparams, mesh)
+    log(f"kimi-lep-agree: {json.dumps(kimi_agree)} on {device}")
+    prod_plan, tokens_plan = kimi_plans()
+    kimi, kimi_counts = serve_kimi_phase(torch, kcfg, kparams, prod_plan,
+                                         mesh, 1)
+    kimi_tokens = kimi.pop("tokens")
+    log(f"serve-kimi: {json.dumps(kimi)} on {device}")
+    kimi_tok, kimi_tok_counts = serve_kimi_phase(
+        torch, kcfg, kparams, tokens_plan, mesh, 2, kimi_tokens)
+    log(f"serve-kimi-tokens: {json.dumps(kimi_tok)} on {device}")
+    log("serve-kimi-tokens beside serve-kimi: " + json.dumps({
+        key: [kimi[key], kimi_tok[key]]
+        for key in ("ttft_p50_s", "tpot_p50_s", "decode_step_p50_s",
+                    "decode_tokens_per_s", "peak_mem_gib")}))
+    log(f"kimi: phase {time.perf_counter() - tp:.1f} s")
+    del kparams
+    free_model(torch)
+    torch.distributed.destroy_process_group()
 
     # Qwen3-8B, whole: serve-dense, dense-agreement, int8-dense.
     qcfg = dense_config()
@@ -3306,6 +3670,7 @@ def main(argv=None) -> int:
             "serve-ems turn 1": ems_counts["turn1"]["mla_attention"],
             "serve-ems turn 2": ems_counts["turn2"]["mla_attention"],
             "cli": cli["kernel_launches"]["mla_attention"],
+            "serve-hybrid": hybrid_counts["mla_attention"],
             "serve-dense": dense_counts["mla_attention"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"],
@@ -3324,6 +3689,8 @@ def main(argv=None) -> int:
         "launches_by_path": {
             "serve-lep": lep_counts["dispatch_quant"],
             "serve-olmoe-lep": olmoe_lep_counts["dispatch_quant"],
+            "serve-kimi": kimi_counts["dispatch_quant"],
+            "serve-kimi-tokens": kimi_tok_counts["dispatch_quant"],
             "int8": int8_counts["dispatch_quant"],
             "int8-dense": dense_int8_counts["dispatch_quant"]},
         "max_abs_err": max(r["max_abs_err"]

@@ -13,32 +13,53 @@ FusedCombine as a MoE function for the model's ``moe_fn`` hook.
   rows. The combine returns bf16 (or the model's dtype) unquantized.
 * **EPLB redundancy**: ``redundancy=r`` replicates each expert r times.
 
-The world is one-dimensional: every rank of ``group`` is one expert-
-parallel rank holding ``slots / world`` slots. ``group=None`` (or a group of
-one rank) is world size 1: no collective is called and the whole MoE runs on
-one card. Every rank calls the MoE function with the full token batch (the
-attention runs replicated); each routes its ``1/world`` share of the rows,
-as the JAX package's ``shard_map`` shards the token axis, and the outputs
-are gathered back to every rank. The two-dimensional modes of the JAX
-package (``ffn_shard_axis``, ``ffn_gather="tokens"``, ``quantize_gather``)
-arrive with the slice that runs LEP across four cards.
+Two ways to lay out the ranks. With ``group`` (1-D), every rank of the
+group is one expert-parallel rank holding ``slots / world`` slots;
+``group=None`` (or a group of one rank) is world size 1. With ``mesh`` (a
+``DeviceMesh``, 2-D as in the JAX package), tokens are sharded over every
+mesh axis and ``ep_axes`` is the EP domain:
+
+* ``("data", "model")``: full-mesh EP, the paper's LEP;
+* ``("model",)``: EP over the model axis, the experts replicated over
+  ``data``, or F-sharded over it with ``ffn_shard_axis="data"`` (Kimi K2's
+  plan): gathered before the FFN (ZeRO-3, ``ffn_gather="weights"``), or the
+  token buffer is gathered over the shard axis instead, the FFN runs on the
+  rank's F-shard and the partial sums are reduce-scattered back
+  (``ffn_gather="tokens"``; with ``quantize_gather`` that hop is quantized
+  by the same kernel).
+
+Every rank calls the MoE function with the full token batch (the attention
+runs replicated); each routes its share of the rows, as JAX's ``shard_map``
+shards the token axis, uses its own slots (and F-shard), and the outputs
+are gathered back to every rank. By default each rank holds the whole
+expert weights and the function cuts out its share (training takes this
+form: the collectives carry the gradient rules of
+:mod:`repro_torch.core.parallel`, so a step through LEP gets JAX's
+gradients). :func:`keep_local_experts` instead cuts every MoE layer down to
+the rank's slots and F-shard in place and marks it with that share, which
+the function then uses as it is: a rank holds its share of the experts,
+and the ZeRO-3 gather brings in F-shards it does not hold. An axis of one rank
+issues no collective and copies no weight.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import parallel as par
 from repro_torch.kernels.dispatch_quant import dispatch_quantize
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import swiglu
 
-_TWO_D = ("the 2-D LEP modes (ffn_shard_axis, ffn_gather='tokens', "
-          "quantize_gather) arrive with the slice of the port that runs LEP "
-          "across 4 cards")
+#: expert bytes a device may hold replicated before ``pick_lep_plan``
+#: shards the FFN over ``data`` (the JAX package's threshold)
+REPLICATE_LIMIT_BYTES = 4e9
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -66,22 +87,115 @@ def _quantize_rows(x: torch.Tensor, pack: bool):
     return q.reshape(shp), s.reshape(shp[:-1] + (1,))
 
 
-def _world(group) -> Tuple[int, int]:
-    if group is None:
-        return 1, 0
-    return dist.get_world_size(group), dist.get_rank(group)
+def _unpack(payload: torch.Tensor, d: int, dtype: torch.dtype) -> torch.Tensor:
+    """Dequantize packed int8 rows (..., D + 4) to ``dtype``."""
+    q = payload[..., :d]
+    s = payload[..., d:].contiguous().view(torch.float32)
+    return (q.float() * s).to(dtype)
 
 
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """Chunk i of dim 0 goes to rank i; chunk i of the result came from
-    rank i (``jax.lax.all_to_all(x, axes, 0, 0)``)."""
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """This rank's place: the group, size and index over every axis (the
+    token shards), over the EP axes and over the FFN shard axis. A group of
+    one rank is None."""
+    all_group: object = None
+    n_all: int = 1
+    i_all: int = 0
+    ep_group: object = None
+    n_ep: int = 1
+    i_ep: int = 0
+    shard_group: object = None
+    n_shard: int = 1
+    i_shard: int = 0
+
+
+def _group_layout(group) -> _Layout:
+    if group is None or dist.get_world_size(group) == 1:
+        return _Layout()
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    return _Layout(group, n, i, group, n, i)
+
+
+def _mesh_layout(mesh, ep_axes, ffn_shard_axis) -> _Layout:
+    names = tuple(mesh.mesh_dim_names)
+    for a in tuple(ep_axes) + ((ffn_shard_axis,) if ffn_shard_axis else ()):
+        if a not in names:
+            raise ValueError(f"axis {a!r} is not one of the mesh's {names}")
+    shard = (ffn_shard_axis,) if ffn_shard_axis else ()
+    return _Layout(
+        par.axes_group(mesh, names), par.axis_size(mesh, names),
+        par.axis_index(mesh, names),
+        par.axes_group(mesh, ep_axes), par.axis_size(mesh, ep_axes),
+        par.axis_index(mesh, ep_axes),
+        par.axes_group(mesh, shard), par.axis_size(mesh, shard),
+        par.axis_index(mesh, shard))
+
+
+def _cut_experts(ws: Sequence[torch.Tensor], lay: _Layout, slots_loc: int,
+                 r: int) -> Tuple[torch.Tensor, ...]:
+    """This rank's slots of (w_gate, w_up, w_down) and, when the FFN is
+    sharded, its F-shard: views of the whole weights when r is 1."""
+    wg, wu, wd = ws
+    lo = lay.i_ep * slots_loc
+    if r == 1:
+        wg, wu, wd = (w[lo:lo + slots_loc] for w in (wg, wu, wd))
+    else:
+        experts = torch.arange(lo, lo + slots_loc, device=wg.device) // r
+        wg, wu, wd = wg[experts], wu[experts], wd[experts]
+    if lay.n_shard > 1:
+        f_loc = wg.shape[2] // lay.n_shard
+        fl = lay.i_shard * f_loc
+        wg, wu = wg[:, :, fl:fl + f_loc], wu[:, :, fl:fl + f_loc]
+        wd = wd[:, fl:fl + f_loc]
+    return wg, wu, wd
+
+
+def _share(lay: _Layout, redundancy: int) -> Tuple[int, ...]:
+    return (lay.i_ep, lay.n_ep, lay.i_shard, lay.n_shard, redundancy)
+
+
+def keep_local_experts(module: torch.nn.Module, group=None, *, mesh=None,
+                       ep_axes: Tuple[str, ...] = ("model",),
+                       redundancy: int = 1,
+                       ffn_shard_axis: Optional[str] = None,
+                       **_plan) -> None:
+    """Cut the experts of every MoE layer of ``module`` (a model or one
+    layer) to this rank's slots and F-shard, in place, so that the rank
+    holds only the expert bytes that LEP with the same layout uses; the
+    whole weights are freed unless the caller keeps them. Each layer is
+    marked with its share (``expert_share``), which the MoE function of
+    the same layout then takes as it is, and any other refuses. Serving
+    only: that function refuses marked weights that require grad (a
+    training step's global gradient norm would see one rank's share).
+    Takes a plan of :func:`pick_lep_plan` (its other keywords are
+    ignored). Made by every rank together, as :func:`make_lep_moe_fn`. On
+    an axis of one rank nothing is cut."""
+    if mesh is None:
+        lay = _group_layout(group)
+    else:
+        lay = _mesh_layout(mesh, tuple(ep_axes), ffn_shard_axis)
+    for layer in module.modules():
+        if not isinstance(layer, moe_mod.MoE):
+            continue
+        e, _, f = layer.w_gate.shape
+        if (e * redundancy) % lay.n_ep or f % lay.n_shard:
+            raise ValueError(f"{e} experts x {redundancy} and d_ff {f} must "
+                             f"divide over {lay.n_ep} EP and {lay.n_shard} "
+                             "FFN-shard ranks")
+        cut = _cut_experts((layer.w_gate, layer.w_up, layer.w_down), lay,
+                           e * redundancy // lay.n_ep, redundancy)
+        for name, w in zip(("w_gate", "w_up", "w_down"), cut):
+            old = getattr(layer, name)
+            if w.shape != old.shape:   # a copy: the whole can be freed
+                setattr(layer, name, torch.nn.Parameter(
+                    w.clone(memory_format=torch.contiguous_format),
+                    requires_grad=old.requires_grad))
+        layer.expert_share = _share(lay, redundancy)
 
 
 def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
+                    mesh=None, ep_axes: Tuple[str, ...] = ("model",),
                     quantize: bool = True, redundancy: int = 1,
                     ffn_shard_axis: Optional[str] = None,
                     ffn_gather: str = "weights",
@@ -90,41 +204,65 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
                     capacity_align: int = 8, naive: bool = False,
                     pack_scales: bool = True):
     """Build a ``moe_fn`` that runs the routed experts with LEP over the
-    ranks of ``group``.
+    ranks of ``group`` (1-D) or of ``mesh`` (with ``ep_axes``,
+    ``ffn_shard_axis``, ``ffn_gather`` and ``quantize_gather``, as in the
+    JAX package). Made by every rank together: a mesh's groups over
+    several axes are made here.
 
     ``naive=True`` is the paper's Fig. 10a baseline: unquantized payloads
     plus an explicit routing-metadata ``all_to_all``. ``pack_scales`` (on by
     default) carries each row's f32 scale in the int8 payload's last 4
     bytes, so the quantized dispatch hop is one collective;
-    ``pack_scales=False`` sends payload and scales in two."""
-    if ffn_shard_axis is not None or ffn_gather != "weights" or quantize_gather:
-        raise NotImplementedError(_TWO_D)
+    ``pack_scales=False`` sends payload and scales in two.
+
+    MoE weights that :func:`keep_local_experts` has cut to this rank's
+    share are used as they are (serving only); whole ones are cut here."""
+    if ffn_gather not in ("weights", "tokens"):
+        raise ValueError(f"ffn_gather must be 'weights' or 'tokens', not "
+                         f"{ffn_gather!r}")
+    if mesh is None:
+        if ffn_shard_axis is not None or ffn_gather != "weights" \
+                or quantize_gather:
+            raise ValueError("ffn_shard_axis, ffn_gather='tokens' and "
+                             "quantize_gather shard over a mesh axis: pass "
+                             "mesh=")
+        lay = _group_layout(group)
+    else:
+        if group is not None:
+            raise ValueError("pass group (1-D) or mesh (2-D), not both")
+        lay = _mesh_layout(mesh, tuple(ep_axes), ffn_shard_axis)
+    gather_tokens = bool(ffn_shard_axis) and ffn_gather == "tokens"
     if naive:
         quantize = False
 
     def moe_fn(p, x: torch.Tensor, cfg: ModelConfig
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        n_rank, rank = _world(group)
         t, d = x.shape
         e, k = cfg.num_experts, cfg.num_experts_per_tok
         r = redundancy
         slots = e * r
-        if slots % n_rank:
+        if slots % lay.n_ep:
             raise ValueError(f"experts*redundancy ({slots}) must divide over "
-                             f"the {n_rank} ranks; adjust redundancy")
-        slots_loc = slots // n_rank
+                             f"the {lay.n_ep} EP ranks; adjust ep_axes or "
+                             "redundancy")
+        slots_loc = slots // lay.n_ep
+        if cfg.d_ff % lay.n_shard:
+            raise ValueError(f"d_ff ({cfg.d_ff}) must divide over the "
+                             f"{lay.n_shard} ranks of {ffn_shard_axis!r}")
         factor = capacity_factor or cfg.capacity_factor
         dev = x.device
 
         # Pad tokens to the rank count so every rank gets equal rows.
-        t_pad = _cdiv(t, n_rank) * n_rank
-        t_loc = t_pad // n_rank
+        t_pad = _cdiv(t, lay.n_all) * lay.n_all
+        t_loc = t_pad // lay.n_all
         cap = lep_capacity(t_loc, k, slots, factor, capacity_align)
-        x_loc = F.pad(x, (0, 0, 0, t_pad - t))[rank * t_loc:(rank + 1) * t_loc]
+        x_loc = par.split_replicated(F.pad(x, (0, 0, 0, t_pad - t)),
+                                     lay.all_group)
         row = torch.arange(t_loc, device=dev)
-        valid = row + rank * t_loc < t
+        valid = row + lay.i_all * t_loc < t
 
-        top_i, top_p, aux = moe_mod.route(p.router, x_loc, cfg)
+        router = par.grad_sum(p.router, lay.all_group)
+        top_i, top_p, aux = moe_mod.route(router, x_loc, cfg)
         # Padded rows: spread over experts, zero combine weight.
         spread = (row[:, None] * k + torch.arange(k, device=dev)[None, :]) % e
         top_i = torch.where(valid[:, None], top_i, spread)
@@ -136,9 +274,8 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
         if naive:
             # Fig. 10a baseline: an explicit metadata all_to_all first.
             counts = F.one_hot(slot_ids, slots).sum(dim=(0, 1)).to(torch.int32)
-            counts = counts.reshape(n_rank, slots_loc)
-            if n_rank > 1:
-                counts = _all_to_all(counts, group)
+            counts = par.all_to_all(counts.reshape(lay.n_ep, slots_loc),
+                                    lay.ep_group)
             meta_term = counts.sum().float() * 0.0
 
         # --- FusedDispatch: pack into the static (slots, C, D) buffer.
@@ -156,44 +293,69 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
 
         if quantize:   # early quantization BEFORE the collective
             if pack_scales:
-                payload = _quantize_rows(buf, pack=True).reshape(
-                    n_rank, slots_loc * cap, d + 4)
-                if n_rank > 1:
-                    payload = _all_to_all(payload, group)
-                q_recv = payload[..., :d]
-                s_recv = payload[..., d:].contiguous().view(torch.float32)
+                payload = par.all_to_all(_quantize_rows(buf, pack=True).reshape(
+                    lay.n_ep, slots_loc * cap, d + 4), lay.ep_group)
+                recv = _unpack(payload, d, x.dtype)
             else:
                 q, scale = _quantize_rows(buf, pack=False)
-                q_recv = q.reshape(n_rank, slots_loc * cap, d)
-                s_recv = scale.reshape(n_rank, slots_loc * cap, 1)
-                if n_rank > 1:
-                    q_recv = _all_to_all(q_recv, group)
-                    s_recv = _all_to_all(s_recv, group)
-            recv = (q_recv.float() * s_recv).to(x.dtype)
+                q_recv = par.all_to_all(
+                    q.reshape(lay.n_ep, slots_loc * cap, d), lay.ep_group)
+                s_recv = par.all_to_all(
+                    scale.reshape(lay.n_ep, slots_loc * cap, 1), lay.ep_group)
+                recv = (q_recv.float() * s_recv).to(x.dtype)
         else:
-            recv = buf.reshape(n_rank, slots_loc * cap, d)
-            if n_rank > 1:
-                recv = _all_to_all(recv, group)
+            recv = par.all_to_all(buf.reshape(lay.n_ep, slots_loc * cap, d),
+                                  lay.ep_group)
         # (ranks, slots_loc, C, D) -> (slots_loc, ranks * C, D)
-        tokens = recv.reshape(n_rank, slots_loc, cap, d).transpose(0, 1) \
-            .reshape(slots_loc, n_rank * cap, d)
+        tokens = recv.reshape(lay.n_ep, slots_loc, cap, d).transpose(0, 1) \
+            .reshape(slots_loc, lay.n_ep * cap, d)
 
-        # --- Expert FFN over the local slots.
-        lo = rank * slots_loc
-        if r == 1:
-            wg, wu, wd = (w[lo:lo + slots_loc]
-                          for w in (p.w_gate, p.w_up, p.w_down))
+        # --- Expert FFN over the local slots (and the local F-shard). On an
+        # axis of one rank these are views of the whole weights.
+        share = getattr(p, "expert_share", None)
+        if share is not None:
+            wg, wu, wd = p.w_gate, p.w_up, p.w_down
+            if share != _share(lay, r):
+                raise ValueError(f"the experts were cut to the share {share} "
+                                 f"(EP index, ranks, F-shard index, ranks, "
+                                 f"redundancy), not this rank's "
+                                 f"{_share(lay, r)}: cut them with "
+                                 "keep_local_experts and the same layout")
+            if torch.is_grad_enabled() and any(
+                    w.requires_grad for w in (wg, wu, wd)):
+                raise ValueError("local experts serve only; a training step "
+                                 "holds the whole weights")
         else:
-            experts = torch.arange(lo, lo + slots_loc, device=dev) // r
-            wg, wu, wd = p.w_gate[experts], p.w_up[experts], p.w_down[experts]
-        g = torch.bmm(tokens, wg)
-        u = torch.bmm(tokens, wu)
-        y = torch.bmm(F.silu(g) * u, wd)                # (slots_loc, ranks*C, D)
+            wg, wu, wd = _cut_experts(
+                [par.grad_sum(w, lay.all_group)
+                 for w in (p.w_gate, p.w_up, p.w_down)], lay, slots_loc, r)
+        if gather_tokens:
+            # Decode-optimized 2-level EP: gather the (small) token buffer
+            # over the shard axis, run the rank's F-shard, and reduce-scatter
+            # the partial sums back to the token owners.
+            if quantize_gather:
+                tok_g = _unpack(par.all_gather(
+                    _quantize_rows(tokens, pack=True), lay.shard_group, dim=1),
+                    d, tokens.dtype)
+            else:
+                tok_g = par.all_gather(tokens, lay.shard_group, dim=1)
+            y_part = torch.bmm(F.silu(torch.bmm(tok_g, wg))
+                               * torch.bmm(tok_g, wu), wd)
+            y = par.reduce_scatter(y_part, lay.shard_group, dim=1)
+        else:
+            if lay.n_shard > 1:
+                # ZeRO-3: gather the F-shards of the weights.
+                wg = par.all_gather(wg, lay.shard_group, dim=2)
+                wu = par.all_gather(wu, lay.shard_group, dim=2)
+                wd = par.all_gather(wd, lay.shard_group, dim=1)
+            g = torch.bmm(tokens, wg)
+            u = torch.bmm(tokens, wu)
+            y = torch.bmm(F.silu(g) * u, wd)            # (slots_loc, ranks*C, D)
 
         # --- FusedCombine: payload back to the source ranks.
-        y_back = y.reshape(slots_loc, n_rank, cap, d).transpose(0, 1)
-        if n_rank > 1:
-            y_back = _all_to_all(y_back, group)
+        y_back = par.all_to_all(
+            y.reshape(slots_loc, lay.n_ep, cap, d).transpose(0, 1),
+            lay.ep_group)
         y_flat = y_back.reshape(slots, cap, d)
 
         # The K picks of a token are adjacent in the flat order, so the
@@ -203,16 +365,15 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
         out = (weighted.reshape(t_loc, k, d).sum(dim=1) + meta_term).to(x.dtype)
 
         dropped = (~flat_v).sum()
-        if n_rank > 1:
-            # pmean(aux) and psum(dropped) in one reduction, then the
-            # token-sharded outputs back to every rank.
-            red = torch.stack([aux.float(), dropped.float()])
-            dist.all_reduce(red, group=group)
-            aux = red[0] / n_rank
+        if lay.all_group is not None:
+            # pmean(aux) and psum(dropped) over every axis in one
+            # reduction, then the token-sharded outputs back to every rank.
+            red = par.sum_replicated(torch.stack([aux.float(),
+                                                  dropped.float()]),
+                                     lay.all_group)
+            aux = red[0] / lay.n_all
             dropped = red[1].round().to(torch.int64)
-            parts = [torch.empty_like(out) for _ in range(n_rank)]
-            dist.all_gather(parts, out.contiguous(), group=group)
-            out = torch.cat(parts)
+            out = par.gather_replicated(out, lay.all_group)
         routed = out[:t]
 
         # Shared experts: dense, on every rank.
@@ -224,17 +385,38 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
     return moe_fn
 
 
-def pick_lep_plan(cfg: ModelConfig, world_size: int,
-                  serving: bool = False) -> dict:
-    """Keyword arguments of :func:`make_lep_moe_fn` for ``cfg`` over a 1-D
-    world of ``world_size`` ranks, in the paper's order of preference: one
-    or more experts per rank (the paper's LEP), else, when serving, EPLB
-    redundancy so the slots fill the world exactly. Anything else needs the
-    JAX package's model-axis EP with FFN sharding, a 2-D mode."""
+def pick_lep_plan(cfg: ModelConfig, mesh, serving: bool = False) -> dict:
+    """Keyword arguments of :func:`make_lep_moe_fn` for ``cfg``.
+
+    ``mesh`` (a ``DeviceMesh`` or a mapping of axis sizes, such as
+    ``launch.mesh.PRODUCTION_SHAPE``) gives the JAX package's plan, in the
+    paper's order of preference: full-mesh EP with one or more experts per
+    rank (the paper's LEP, §4.2); else, when serving, full-mesh EP through
+    EPLB redundancy; else EP over ``model``, with the FFN sharded over
+    ``data`` when the experts would not fit a device replicated over it
+    (Kimi K2's 1T case).
+
+    An int is a 1-D world of that many ranks (``group=``): one or more
+    experts per rank, else, when serving, redundancy so the slots fill the
+    world exactly; anything else needs a mesh."""
     e = cfg.num_experts
-    if e % world_size == 0:
-        return dict(redundancy=1)
-    if serving and world_size % e == 0:
-        return dict(redundancy=world_size // e)
-    raise NotImplementedError(
-        f"{e} experts over {world_size} ranks: {_TWO_D}")
+    if isinstance(mesh, int):
+        if e % mesh == 0:
+            return dict(redundancy=1)
+        if serving and mesh % e == 0:
+            return dict(redundancy=mesh // e)
+        raise ValueError(f"{e} experts do not divide over a 1-D world of "
+                         f"{mesh} ranks: plan over a mesh (its model-axis "
+                         "EP)")
+    shape = par.mesh_shape(mesh)
+    full = tuple(a for a in shape if a != "pod")     # ("data", "model")
+    n_full = math.prod(shape[a] for a in full)
+    if e % n_full == 0:
+        return dict(ep_axes=full, redundancy=1, ffn_shard_axis=None)
+    if serving and n_full % e == 0:
+        return dict(ep_axes=full, redundancy=n_full // e, ffn_shard_axis=None)
+    # Model-axis EP; are the experts small enough to replicate over data?
+    bytes_per_dev = (cfg.num_layers - cfg.first_k_dense) \
+        * (e / shape["model"]) * 3 * cfg.d_model * cfg.d_ff * 2
+    ffn_shard = "data" if bytes_per_dev > REPLICATE_LIMIT_BYTES else None
+    return dict(ep_axes=("model",), redundancy=1, ffn_shard_axis=ffn_shard)

@@ -1,7 +1,8 @@
 """UB-driven disaggregated memory pool (paper §4.4.1) — the EMS substrate.
 
-Host-side subsystem (TPU has no CPU-DRAM-over-ICI; see DESIGN.md §5.7) with
-the paper's three software roles:
+Host-side subsystem (an H100 reaches its host's DRAM over PCIe only, and
+no other host's DRAM over NVLink, so the pool is host memory and the
+planes below are modeled) with the paper's three software roles:
 
 * :class:`MPController` — control plane: DHT view, namespaces, metadata.
 * :class:`MPServer`     — one per DRAM-contributing node: slab allocator

@@ -128,7 +128,7 @@ def mla_prefill(p: MLA, x: torch.Tensor, cfg: ModelConfig,
     """Unabsorbed MHA-form prefill. Returns (out, latent (B,S,kvr+rope))."""
     b, s, _ = x.shape
     h = cfg.num_heads
-    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
@@ -136,32 +136,40 @@ def mla_prefill(p: MLA, x: torch.Tensor, cfg: ModelConfig,
 
     k_nope = (c_kv @ p.wk_b).reshape(b, s, h, nope)
     vfull = (c_kv @ p.wv_b).reshape(b, s, h, vd)
-    scale = 1.0 / ((nope + rope) ** 0.5)
-    chunk = _pick_chunk(s)
-
-    if block_skip_enabled():
-        out = _mla_flash_causal(q_nope, q_rope, k_nope, k_rope, vfull,
-                                scale, chunk)
-    else:
-        knf, krf, vf = k_nope.float(), k_rope.float(), vfull.float()
-        kv_pos = torch.arange(s, device=x.device)
-        outs = []
-        for lo in range(0, s, chunk):
-            hi = min(lo + chunk, s)
-            q_pos = torch.arange(lo, hi, device=x.device)
-            scores = (torch.einsum("bshe,bthe->bhst",
-                                   q_nope[:, lo:hi].float(), knf)
-                      + torch.einsum("bshe,bte->bhst",
-                                     q_rope[:, lo:hi].float(), krf)
-                      ) * scale
-            mask = kv_pos[None, :] <= q_pos[:, None]
-            scores = torch.where(mask[None, None], scores, NEG_INF)
-            probs = torch.softmax(scores, dim=-1)
-            outs.append(torch.einsum("bhst,bthe->bshe", probs, vf))
-        out = torch.cat(outs, dim=1)
+    out = mla_causal_attention(q_nope, q_rope, k_nope, k_rope, vfull, cfg)
     out = out.reshape(b, s, h * vd).to(x.dtype) @ p.wo
     latent = torch.cat([c_kv, k_rope], dim=-1)
     return out, latent
+
+
+def mla_causal_attention(q_nope, q_rope, k_nope, k_rope, vfull,
+                         cfg: ModelConfig) -> torch.Tensor:
+    """Causal attention of the unabsorbed form over the whole sequence:
+    (B,S,H,nope), (B,S,H,rope), (B,S,H,nope), (B,S,rope), (B,S,H,vd) ->
+    (B,S,H,vd) f32, in query chunks of ``_pick_chunk(S)``."""
+    s = q_nope.shape[1]
+    scale = 1.0 / ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** 0.5)
+    chunk = _pick_chunk(s)
+    if block_skip_enabled():
+        return _mla_flash_causal(q_nope, q_rope, k_nope, k_rope, vfull,
+                                 scale, chunk)
+    dev = q_nope.device
+    knf, krf, vf = k_nope.float(), k_rope.float(), vfull.float()
+    kv_pos = torch.arange(s, device=dev)
+    outs = []
+    for lo in range(0, s, chunk):
+        hi = min(lo + chunk, s)
+        q_pos = torch.arange(lo, hi, device=dev)
+        scores = (torch.einsum("bshe,bthe->bhst",
+                               q_nope[:, lo:hi].float(), knf)
+                  + torch.einsum("bshe,bte->bhst",
+                                 q_rope[:, lo:hi].float(), krf)
+                  ) * scale
+        mask = kv_pos[None, :] <= q_pos[:, None]
+        scores = torch.where(mask[None, None], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("bhst,bthe->bshe", probs, vf))
+    return torch.cat(outs, dim=1)
 
 
 def mla_decode(p: MLA, x: torch.Tensor, cache: torch.Tensor,

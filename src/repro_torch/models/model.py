@@ -38,6 +38,7 @@ group keeps its own K/V.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -208,9 +209,22 @@ def unembed(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _attn_block_prefill(pl_attn, x, cfg, positions):
-    """Returns (x + attention, the MLA latent or the GQA (k, v))."""
+    """Returns (x + attention, the MLA latent or the GQA (k, v)). With
+    ``REPRO_MLA_HYBRID`` set to ``a2a`` or ``rs`` and a current mesh, the MLA
+    prefill runs the paper's §4.3.1 SP -> TP -> SP form over the mesh's
+    model axis (``core/hybrid_parallel.py``)."""
     h = rms_norm(x, pl_attn.ln, cfg.norm_eps)
     if cfg.attention_kind == "mla":
+        mode = os.environ.get("REPRO_MLA_HYBRID", "")
+        if mode in ("a2a", "rs"):
+            from repro_torch.core.parallel import get_current_mesh
+            mesh = get_current_mesh()
+            if mesh is not None:
+                from repro_torch.core.hybrid_parallel import \
+                    mla_prefill_hybrid
+                out, latent = mla_prefill_hybrid(pl_attn, h, cfg, mesh,
+                                                 oproj_mode=mode)
+                return x + out, latent
         out, latent = mla_mod.mla_prefill(pl_attn, h, cfg, positions)
         return x + out, latent
     out, kv = attn_mod.attention_prefill(pl_attn, h, cfg, positions)

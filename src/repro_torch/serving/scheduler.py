@@ -47,6 +47,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 
 from repro_torch.core.microbatch import microbatched
+from repro_torch.launch.roofline import HBM_BW
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +432,7 @@ class DecodeCostModel:
 def decode_cost_from_roofline(record: Optional[Dict[str, Any]],
                               kv_bytes_per_req: float,
                               batch_per_chip: float,
-                              hbm_bw: float = 819e9) -> DecodeCostModel:
+                              hbm_bw: float = HBM_BW) -> DecodeCostModel:
     """DecodeCostModel calibrated from a compiled dry-run roofline record
     (``experiments/dryrun/*.json``) instead of placeholder defaults.
 

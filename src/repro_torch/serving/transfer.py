@@ -3,8 +3,10 @@
 Three mechanisms, reproduced:
 
 * **RDMA-plane isolation** — KV handoff is charged to a dedicated plane
-  (400 Gbps/NPU, the paper's scale-out plane; on our TPU mapping this is the
-  ``pod`` axis / DCI path) so it never contends with UB-plane decode traffic.
+  (400 Gbps/NPU, the paper's scale-out plane; on a cluster of H100 hosts
+  this is the inter-host network, the ``pod`` axis of ``launch/mesh.py``,
+  beside NVLink inside a host) so it never contends with UB-plane decode
+  traffic.
 * **Deterministic group connection mapping** — the paper's exact formulas
   balancing which prefill TP rank each decode (tp, dp) rank pulls from.
 * **Asynchronous scheduling** — the ServingSystem dispatches prefill and the

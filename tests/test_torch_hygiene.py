@@ -32,8 +32,9 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 
 #: modules of the MTP / EMS / serve-CLI slice, of the Zamba2 and
-#: frontends slice and of the training and checkpoint slice, which the
-#: walk above must keep covering
+#: frontends slice, of the training and checkpoint slice and of the
+#: parallel slice (2-D LEP, the hybrid prefill, meshes, sharding specs,
+#: the roofline), which the walk above must keep covering
 SLICE_MODULES = ("core/mtp.py", "mempool/context_cache.py", "mempool/ems.py",
                  "launch/serve.py", "launch/__init__.py",
                  "configs/zamba2_1_2b.py", "configs/internvl2_2b.py",
@@ -41,7 +42,9 @@ SLICE_MODULES = ("core/mtp.py", "mempool/context_cache.py", "mempool/ems.py",
                  "data/__init__.py", "data/pipeline.py", "train/__init__.py",
                  "train/loop.py", "train/optimizer.py",
                  "checkpoint/__init__.py", "checkpoint/ckpt.py",
-                 "launch/train.py")
+                 "launch/train.py", "core/parallel.py",
+                 "core/hybrid_parallel.py", "core/lep.py", "launch/mesh.py",
+                 "launch/sharding.py", "launch/roofline.py")
 
 
 def _forbidden(module: str) -> bool:
@@ -143,12 +146,12 @@ def test_engine_refuses_params_on_another_device(cpu_model):
 
 
 def test_later_slices_raise(cpu_model):
-    """What a later slice brings raises, naming that slice (the 2-D LEP
-    modes); MTP, the EMS context cache, GQA attention, the Zamba2 hybrid
-    and the frontends have landed and no longer do."""
+    """No landed slice raises any more: the 2-D LEP modes build over a mesh
+    (the 1-D API refuses them, asking for one), and MTP, the EMS context
+    cache, GQA attention, the Zamba2 hybrid and the frontends run."""
     cfg, params = cpu_model
     from repro_torch.core import lep
-    with pytest.raises(NotImplementedError, match="4 cards"):
+    with pytest.raises(ValueError, match="mesh="):
         lep.make_lep_moe_fn(ffn_gather="tokens")
     for change, kinds in ((dict(attention_kind="bidirectional",
                                 frontend="audio_frames"), ["dense", "moe"]),

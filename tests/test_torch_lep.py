@@ -144,11 +144,13 @@ def test_lep_capacity_and_plan_match_jax():
     assert lep.pick_lep_plan(cfg, 1) == {"redundancy": 1}
     assert lep.pick_lep_plan(cfg, 4) == {"redundancy": 1}
     assert lep.pick_lep_plan(cfg, 512, serving=True) == {"redundancy": 2}
-    with pytest.raises(NotImplementedError, match="4 cards"):
+    # A 1-D world where the experts do not divide, and the 2-D modes
+    # without a mesh, are refused: they need a mesh's axes.
+    with pytest.raises(ValueError, match="mesh"):
         lep.pick_lep_plan(cfg, 3)
-    with pytest.raises(NotImplementedError, match="4 cards"):
+    with pytest.raises(ValueError, match="mesh="):
         lep.make_lep_moe_fn(ffn_shard_axis="data")
-    with pytest.raises(NotImplementedError, match="4 cards"):
+    with pytest.raises(ValueError, match="mesh="):
         lep.make_lep_moe_fn(quantize_gather=True)
 
 
