@@ -244,6 +244,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    within DENSE_AGREE_ATOL of a forward over the longer sequence);
    HuBERT-XLarge (1.26 B) over 1024 audio frames (finite logits). No
    kernel but the SSD scan may launch.
+17. dryrun: the port's dry run (``repro_torch.launch.dryrun``), shapes
+   only, each pair in a process of its own on a fake process group, all
+   started together: DeepSeek-R1 and Kimi K2 decode_32k on 16 x 16 (Kimi
+   also on 2 x 16 x 16) and Qwen3-8B train_4k must be ``ok`` (their three
+   roofline terms, computed from the H100's data-sheet rates, argument
+   GiB a rank and collective bytes by kind are printed); then a 1 x 1
+   record of the decode step of each serve config (the R1 and Kimi cuts,
+   Qwen3-8B, OLMoE, Mamba2, Zamba2: batch 8, capacity 2048, float32
+   caches), whose argument bytes must equal the bytes its serve's engine
+   holds for a step, with no collective byte; beside it the roofline
+   step, the step measured after the serve (wall p50 and device time
+   under ``torch.profiler``) and ``decode_cost_from_roofline``'s step.
 
 Each path phase (serve, serve-lep, int8, serve-mtp's two serves,
 serve-ems's two turns, cli, hybrid-prefill, serve-hybrid, kimi-lep-agree's
@@ -264,6 +276,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -539,6 +552,21 @@ FAULT_DECODE_BATCH = 4
 # serve-dense's tokens, the margin there must be under DENSE_MARGIN (a
 # rounding flip; beyond it the two continue from other tokens).
 # Kernels whose build fails the run if ptxas reports a spill.
+# dryrun: the production pairs (arch, shape, multi-pod), each traced by
+# ``python -m repro_torch.launch.dryrun`` in a process of its own on a fake
+# 256- or 512-rank group; and the serve phases whose decode step gets a
+# 1 x 1 record (the config function of each), beside the step measured on
+# the card at DRYRUN_STEP_LEN tokens a row.
+DRYRUN_PRODUCTION = (("deepseek-r1", "decode_32k", False),
+                     ("kimi-k2-1t-a32b", "decode_32k", False),
+                     ("kimi-k2-1t-a32b", "decode_32k", True),
+                     ("qwen3-8b", "train_4k", False))
+DRYRUN_SERVES = (("serve-lep", "serve_config"), ("serve-kimi", "kimi_config"),
+                 ("serve-dense", "dense_config"),
+                 ("serve-olmoe-lep", "olmoe_config"),
+                 ("serve-ssm", "ssm_config"), ("serve-zamba", "zamba_config"))
+DRYRUN_BATCH, DRYRUN_CAPACITY, DRYRUN_STEP_LEN = 8, 2048, 1000
+DRYRUN_TIMEOUT_S = 300
 SPILL_GATED = ("int8_gemm", "mla_decode_attention", "dispatch_quant")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 
@@ -1220,6 +1248,7 @@ def serve_phase(torch, cfg, params, moe_fn=None, dev="cuda", *, reqs=None,
         "decode_step_p50_s": statistics.median(step_s),
         "decode_tokens_per_s": decode_tokens / decode_s,
         "serve_wall_s": t_end - t_start,
+        "decode_args_bytes": engine_step_bytes(torch, params, dec),
     }
     if dev == "cuda":
         summary["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3382,6 +3411,203 @@ def serve_kimi_phase(torch, cfg, params, plan, mesh, quant_per_call,
     return summary, counts
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the port's dry run on production meshes, and 1 x 1 records of the
+# serves' decode steps held against what the serves allocated
+# ---------------------------------------------------------------------------
+
+
+def step_args_bytes(torch, *trees) -> int:
+    """Bytes of every distinct storage among the tensors of ``trees`` (a
+    model's parameters, cache trees, tensors), leaving out the caches'
+    ``length`` leaves: bookkeeping that a decode step does not read (it
+    takes ``cache_len``), as a dry-run record leaves them out."""
+    seen = {}
+
+    def walk(node):
+        if isinstance(node, torch.nn.Module):
+            node = list(node.parameters())
+        if isinstance(node, dict):
+            node = [v for k, v in node.items() if k != "length"]
+        elif hasattr(node, "_fields"):
+            node = [getattr(node, k) for k in node._fields if k != "length"]
+        if isinstance(node, (list, tuple)):
+            for x in node:
+                walk(x)
+        elif isinstance(node, torch.Tensor):
+            st = node.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+
+    for tree in trees:
+        walk(tree)
+    return sum(seen.values())
+
+
+def engine_step_bytes(torch, params, engine) -> int:
+    """The bytes a decode engine's step takes as its arguments: the
+    weights, its caches' buffers and its token and length rows."""
+    return step_args_bytes(torch, params, engine.caches, engine.cur_tok,
+                           engine.cache_len)
+
+
+def serve_step_row(torch, cfg, params, summary, moe_fn=None):
+    """One decode step of the serve's shape on the card -- DRYRUN_BATCH
+    rows, float32 caches of DRYRUN_CAPACITY slots made as the engine makes
+    them, every row at DRYRUN_STEP_LEN tokens -- timed on the wall (p50 of
+    five synchronized steps) and under ``torch.profiler`` (the device's
+    kernel time); with the serve's own p50 and the bytes its engine took
+    as a step's arguments."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as model_mod
+
+    b = DRYRUN_BATCH
+    cache_len = torch.full((b,), DRYRUN_STEP_LEN, dtype=torch.int32,
+                           device="cuda")
+    caches = model_mod._with_lengths(cfg, model_mod.decode_ready_caches(
+        cfg, model_mod.make_caches(cfg, b, DRYRUN_CAPACITY, torch.float32,
+                                   "cuda")), cache_len)
+    tok = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+
+    def step():
+        model_mod.decode_step(params, cfg, tok, caches, cache_len, moe_fn)
+
+    step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    cache_bytes = step_args_bytes(torch, caches)
+    row = {"serve_decode_step_p50_ms": 1e3 * summary["decode_step_p50_s"],
+           "step_wall_ms_p50": statistics.median(walls),
+           "step_device_ms": sum(e.self_device_time_total
+                                 for e in kernels) / 1e3,
+           "step_launches": sum(e.count for e in kernels),
+           "serve_args_bytes": summary["decode_args_bytes"],
+           "kv_bytes_per_req": cache_bytes / b}
+    del caches
+    return row
+
+
+def one_rank_records() -> None:
+    """(In a process of its own.) A 1 x 1 dry-run record of every
+    DRYRUN_SERVES config's decode step at the serve's shape and dtypes (the
+    model's, float32 caches), one JSON line ``{name: record}``."""
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+
+    mesh = dryrun.fake_mesh({"data": 1, "model": 1})
+    shape = InputShape("serve_decode", DRYRUN_CAPACITY, DRYRUN_BATCH,
+                       "decode")
+    out = {}
+    for name, config in DRYRUN_SERVES:
+        t0 = time.perf_counter()
+        out[name] = dryrun.record(globals()[config](), shape, mesh,
+                                  cache_dtype=torch.float32)
+        out[name]["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(out))
+
+
+def dryrun_phase(torch, serve_rows) -> None:
+    """The dry run on the production meshes and the 1 x 1 records, all in
+    processes started together. Every production record must be ``ok``;
+    every 1 x 1 record's argument bytes must equal its serve's, byte for
+    byte, with no collective byte; beside each, the roofline step computed
+    from the H100's data-sheet rates, the step measured on the card and
+    the decode cost model calibrated from the record."""
+    from repro_torch.serving.scheduler import decode_cost_from_roofline
+
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    out_dir = HERE / "experiments" / "dryrun_torch"
+    procs = []
+    for arch, shape, multi_pod in DRYRUN_PRODUCTION:
+        mesh = "2x16x16" if multi_pod else "16x16"
+        path = out_dir / f"{arch}__{shape}__{mesh}.json"
+        path.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape] + (["--multi-pod"] if multi_pod
+                                          else [])
+        procs.append((f"{arch} × {shape} × {mesh}", path,
+                      time.perf_counter(),
+                      subprocess.Popen(cmd, cwd=HERE, env=env, text=True,
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE)))
+    records = subprocess.Popen(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.one_rank_records()"],
+        cwd=HERE, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
+    try:
+        for what, path, t0, proc in procs:
+            _, err = proc.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            wall = time.perf_counter() - t0
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            if proc.returncode or rec.get("status") != "ok":
+                raise AssertionError(f"dryrun {what}: {rec.get('error')} "
+                                     f"{err[-2000:]}")
+            log(f"dryrun: {what}: " + json.dumps({
+                "compute_ms": 1e3 * rec["compute_s"],
+                "memory_ms": 1e3 * rec["memory_s"],
+                "collective_ms": 1e3 * rec["collective_s"],
+                "dominant": rec["dominant"],
+                "argument_gib_per_rank": rec["argument_bytes"] / 2 ** 30,
+                "temp_gib_per_rank": rec["temp_bytes"] / 2 ** 30,
+                "collectives": rec["collectives"],
+                "trace_s": rec["compile_s"], "wall_s": wall,
+                "terms": "computed from H100 SXM5 data-sheet rates"}))
+        stdout, err = records.communicate(
+            timeout=max(1.0, deadline - time.perf_counter()))
+        if records.returncode:
+            raise AssertionError(f"dryrun 1 x 1 records: {err[-3000:]}")
+        ones = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        for proc in [p for *_, p in procs] + [records]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, _ in DRYRUN_SERVES:
+        rec, row = ones[name], serve_rows[name]
+        coll = rec["collective_bytes_per_device"]
+        if rec["status"] != "ok" or coll:
+            raise AssertionError(f"dryrun-serve {name}: status "
+                                 f"{rec['status']}, {coll} collective bytes")
+        # The record's cache ``length`` leaves that the step reads (a
+        # hybrid's SSM length) are scalars of their own; the engine keeps
+        # them as views of its ``cache_len``.
+        args = rec["argument_bytes"] - rec["cache_length_bytes"]
+        if args != row["serve_args_bytes"]:
+            raise AssertionError(
+                f"dryrun-serve {name}: the record's argument bytes {args} "
+                f"!= the serve's {row['serve_args_bytes']}")
+        roof_s = max(rec["compute_s"], rec["memory_s"]) + rec["collective_s"]
+        model = decode_cost_from_roofline(rec, row["kv_bytes_per_req"],
+                                          DRYRUN_BATCH)
+        log(f"dryrun-serve: {name}: " + json.dumps({
+            "argument_bytes": rec["argument_bytes"],
+            "cache_length_bytes": rec["cache_length_bytes"],
+            "unused_argument_bytes": rec["unused_argument_bytes"],
+            "collective_bytes": coll,
+            "roofline_step_ms": 1e3 * roof_s,
+            "compute_ms": 1e3 * rec["compute_s"],
+            "memory_ms": 1e3 * rec["memory_s"], "dominant": rec["dominant"],
+            **row,
+            "cost_model_step_ms": 1e3 * model.step_time(DRYRUN_BATCH),
+            "record_wall_s": rec["wall_s"],
+            "terms": "computed from H100 SXM5 data-sheet rates"}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sweep", action="store_true",
@@ -3441,6 +3667,9 @@ def main(argv=None) -> int:
     log(f"serve: {json.dumps(serve)} on {device}")
     lep_serve, lep_counts = serve_lep_phase(torch, cfg, params, tokens)
     log(f"serve-lep: {json.dumps(lep_serve)} on {device}")
+    from repro_torch.core import make_lep_moe_fn
+    serve_rows = {"serve-lep": serve_step_row(torch, cfg, params, lep_serve,
+                                              make_lep_moe_fn())}
     log("serve-lep beside serve: " + json.dumps({
         key: [serve[key], lep_serve[key]]
         for key in ("ttft_p50_s", "tpot_p50_s", "decode_tokens_per_s")}))
@@ -3499,6 +3728,8 @@ def main(argv=None) -> int:
                                          mesh, 1)
     kimi_tokens = kimi.pop("tokens")
     log(f"serve-kimi: {json.dumps(kimi)} on {device}")
+    serve_rows["serve-kimi"] = serve_step_row(
+        torch, kcfg, kparams, kimi, make_lep_moe_fn(mesh=mesh, **prod_plan))
     kimi_tok, kimi_tok_counts = serve_kimi_phase(
         torch, kcfg, kparams, tokens_plan, mesh, 2, kimi_tokens)
     log(f"serve-kimi-tokens: {json.dumps(kimi_tok)} on {device}")
@@ -3518,6 +3749,7 @@ def main(argv=None) -> int:
     dense, dense_counts, _, dense_tokens = serve_phase(torch, qcfg, qparams,
                                                        reqs=qreqs)
     log(f"serve-dense: {json.dumps(dense)} on {device}")
+    serve_rows["serve-dense"] = serve_step_row(torch, qcfg, qparams, dense)
     tp = time.perf_counter()
     dense_agree = dense_agreement_phase(torch, qcfg, qparams, qreqs,
                                         dense_tokens)
@@ -3556,6 +3788,8 @@ def main(argv=None) -> int:
     olmoe_lep, olmoe_lep_counts = serve_lep_phase(torch, ocfg, oparams,
                                                   olmoe_tokens)
     log(f"serve-olmoe-lep: {json.dumps(olmoe_lep)} on {device}")
+    serve_rows["serve-olmoe-lep"] = serve_step_row(
+        torch, ocfg, oparams, olmoe_lep, make_lep_moe_fn())
     log("serve-olmoe-lep beside serve-olmoe: " + json.dumps({
         key: [olmoe[key], olmoe_lep[key]]
         for key in ("ttft_p50_s", "tpot_p50_s", "decode_tokens_per_s")}))
@@ -3571,6 +3805,7 @@ def main(argv=None) -> int:
     sparams = init_model(torch, scfg, "ssm")
     ssm_serve, ssm_counts, _, ssm_tokens = serve_phase(torch, scfg, sparams)
     log(f"serve-ssm: {json.dumps(ssm_serve)} on {device}")
+    serve_rows["serve-ssm"] = serve_step_row(torch, scfg, sparams, ssm_serve)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     ts = time.perf_counter()
     ssd_rows = ssd_scan_phase(torch, flush, scfg.ssm_chunk)
@@ -3611,6 +3846,7 @@ def main(argv=None) -> int:
     zamba, zamba_counts, _, zamba_tokens = serve_phase(torch, zcfg, zparams,
                                                        reqs=zreqs)
     log(f"serve-zamba: {json.dumps(zamba)} on {device}")
+    serve_rows["serve-zamba"] = serve_step_row(torch, zcfg, zparams, zamba)
     log(f"serve-zamba: phase {time.perf_counter() - tp:.1f} s")
     tp = time.perf_counter()
     zamba_agree = zamba_agreement_phase(torch, zcfg, zparams, zreqs,
@@ -3647,6 +3883,10 @@ def main(argv=None) -> int:
     for row in fwd:
         log(f"forward: {json.dumps(row)} on {device}")
     log(f"forward: phase {time.perf_counter() - tp:.1f} s")
+
+    tp = time.perf_counter()
+    dryrun_phase(torch, serve_rows)
+    log(f"dryrun: phase {time.perf_counter() - tp:.1f} s")
 
     main_row = rows[-1]
     dq_row = dq_rows[0]                   # the decode dispatch buffer

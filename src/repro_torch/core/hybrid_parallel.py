@@ -25,10 +25,12 @@ The attention takes the port's query chunks, whose last one may be shorter
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
 
+from repro_torch import dtensor as dt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import parallel as par
 from repro_torch.models.layers import apply_rope, rms_norm
@@ -47,10 +49,18 @@ def mla_prefill_hybrid(p, x: torch.Tensor, cfg: ModelConfig, mesh,
     a loss on ``out`` gets the one global gradient on every rank. Returns
     (out (B, S, D), latent cache (B, S, kvr + rope)); the latent is the
     cache, which no loss reads.
-    Raises when S or the head count does not divide over the axis."""
+    Raises when S or the head count does not divide over the axis.
+
+    A DTensor ``x`` (a step traced over DTensors) enters through
+    ``local_map`` as JAX enters its ``shard_map``: ``x`` and the
+    down-projections replicated, ``wq_b``, ``wk_b`` and ``wv_b`` as the
+    column blocks of this rank's heads, ``wo`` whole (``a2a``) or as the
+    row block of its heads (``rs``); the outputs come back replicated."""
     if oproj_mode not in ("a2a", "rs"):
         raise ValueError(f"oproj_mode must be 'a2a' or 'rs', not "
                          f"{oproj_mode!r}")
+    if dt.is_dtensor(x):
+        return _on_blocks(p, x, cfg, mesh, axis, oproj_mode)
     b, s, d = x.shape
     h = cfg.num_heads
     m = par.axis_size(mesh, (axis,))
@@ -86,16 +96,14 @@ def mla_prefill_hybrid(p, x: torch.Tensor, cfg: ModelConfig, mesh,
 
     # ---- Stage 2 (TP over heads): this rank's column blocks.
     qw = nope + rope
-    q = (q_lat @ wq_b[:, j * h_loc * qw:(j + 1) * h_loc * qw]).reshape(
-        b, s, h_loc, qw)
+    q = (q_lat @ _block(wq_b, 1, j, h_loc * qw)).reshape(b, s, h_loc, qw)
     pos = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], pos,
                                                cfg.rope_theta)
     c_full, kr_full = latent[..., :kvr], latent[..., kvr:]
-    k_nope = (c_full @ wk_b[:, j * h_loc * nope:(j + 1) * h_loc * nope]
-              ).reshape(b, s, h_loc, nope)
-    v = (c_full @ wv_b[:, j * h_loc * vd:(j + 1) * h_loc * vd]).reshape(
-        b, s, h_loc, vd)
+    k_nope = (c_full @ _block(wk_b, 1, j, h_loc * nope)).reshape(
+        b, s, h_loc, nope)
+    v = (c_full @ _block(wv_b, 1, j, h_loc * vd)).reshape(b, s, h_loc, vd)
     out_h = mla_causal_attention(q_nope, q_rope, k_nope, kr_full, v,
                                  cfg).to(x.dtype)            # (B,S,H_loc,vd)
 
@@ -108,6 +116,55 @@ def mla_prefill_hybrid(p, x: torch.Tensor, cfg: ModelConfig, mesh,
     else:
         # wo's rows of this rank's heads, then reduce-scatter over S.
         partial = out_h.reshape(b, s, h_loc * vd) \
-            @ wo[j * h_loc * vd:(j + 1) * h_loc * vd]
+            @ _block(wo, 0, j, h_loc * vd)
         out = par.reduce_scatter(partial, group, dim=1)
     return par.gather_replicated(out, group, dim=1), latent
+
+
+def _block(w: torch.Tensor, dim: int, j: int, width: int) -> torch.Tensor:
+    """Block ``j`` of ``width`` along ``dim`` of a whole weight; a weight
+    already cut to one block (``local_map``'s) as it is."""
+    if w.shape[dim] == width:
+        return w
+    return w.narrow(dim, j * width, width)
+
+
+def _on_blocks(p, x, cfg: ModelConfig, mesh, axis: str, oproj_mode: str):
+    """:func:`mla_prefill_hybrid` on DTensors, through ``local_map`` with
+    JAX's in-specs (see there)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    names = tuple(mesh.mesh_dim_names)
+    rep = dt.replicated(mesh)
+
+    def on(d):
+        return tuple(Shard(d) if a == axis else Replicate() for a in names)
+
+    def body(x, *ws):
+        w = dict(zip(_WEIGHTS, ws))
+        return mla_prefill_hybrid(_Weights(**w), x, cfg, mesh, axis,
+                                  oproj_mode)
+
+    wo = rep if oproj_mode == "a2a" else on(0)
+    return local_map(
+        body, out_placements=(rep, rep),
+        in_placements=(rep, rep, rep, on(1), rep, rep, on(1), on(1), wo),
+        redistribute_inputs=True, device_mesh=mesh)(
+        x, *(getattr(p, n) for n in _WEIGHTS))
+
+
+_WEIGHTS = ("wq_a", "q_ln", "wq_b", "wkv_a", "kv_ln", "wk_b", "wv_b", "wo")
+
+
+@dataclasses.dataclass
+class _Weights:
+    """A rank's blocks of one MLA layer's weights."""
+    wq_a: torch.Tensor
+    q_ln: torch.Tensor
+    wq_b: torch.Tensor
+    wkv_a: torch.Tensor
+    kv_ln: torch.Tensor
+    wk_b: torch.Tensor
+    wv_b: torch.Tensor
+    wo: torch.Tensor

@@ -51,6 +51,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch import dtensor as dt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import parallel as par
 from repro_torch.kernels.dispatch_quant import dispatch_quantize
@@ -96,9 +97,10 @@ def _unpack(payload: torch.Tensor, d: int, dtype: torch.dtype) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class _Layout:
-    """This rank's place: the group, size and index over every axis (the
-    token shards), over the EP axes and over the FFN shard axis. A group of
-    one rank is None."""
+    """This rank's place: the group, size and index over every axis, over
+    the EP axes and over the FFN shard axis, and over the axes its token
+    rows are split over (every axis, unless the rows come already sharded
+    over some: a DTensor batch). A group of one rank is None."""
     all_group: object = None
     n_all: int = 1
     i_all: int = 0
@@ -108,13 +110,17 @@ class _Layout:
     shard_group: object = None
     n_shard: int = 1
     i_shard: int = 0
+    tok_group: object = None
+    n_tok: int = 1
+    i_tok: int = 0
 
 
 def _group_layout(group) -> _Layout:
     if group is None or dist.get_world_size(group) == 1:
         return _Layout()
     n, i = dist.get_world_size(group), dist.get_rank(group)
-    return _Layout(group, n, i, group, n, i)
+    return _Layout(group, n, i, group, n, i, tok_group=group, n_tok=n,
+                   i_tok=i)
 
 
 def _mesh_layout(mesh, ep_axes, ffn_shard_axis) -> _Layout:
@@ -129,7 +135,9 @@ def _mesh_layout(mesh, ep_axes, ffn_shard_axis) -> _Layout:
         par.axes_group(mesh, ep_axes), par.axis_size(mesh, ep_axes),
         par.axis_index(mesh, ep_axes),
         par.axes_group(mesh, shard), par.axis_size(mesh, shard),
-        par.axis_index(mesh, shard))
+        par.axis_index(mesh, shard),
+        par.axes_group(mesh, names), par.axis_size(mesh, names),
+        par.axis_index(mesh, names))
 
 
 def _cut_experts(ws: Sequence[torch.Tensor], lay: _Layout, slots_loc: int,
@@ -235,8 +243,9 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
     if naive:
         quantize = False
 
-    def moe_fn(p, x: torch.Tensor, cfg: ModelConfig
-               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def run(p, x: torch.Tensor, cfg: ModelConfig, lay: _Layout,
+            local_experts: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         t, d = x.shape
         e, k = cfg.num_experts, cfg.num_experts_per_tok
         r = redundancy
@@ -253,13 +262,13 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
         dev = x.device
 
         # Pad tokens to the rank count so every rank gets equal rows.
-        t_pad = _cdiv(t, lay.n_all) * lay.n_all
-        t_loc = t_pad // lay.n_all
+        t_pad = _cdiv(t, lay.n_tok) * lay.n_tok
+        t_loc = t_pad // lay.n_tok
         cap = lep_capacity(t_loc, k, slots, factor, capacity_align)
         x_loc = par.split_replicated(F.pad(x, (0, 0, 0, t_pad - t)),
-                                     lay.all_group)
+                                     lay.tok_group)
         row = torch.arange(t_loc, device=dev)
-        valid = row + lay.i_all * t_loc < t
+        valid = row + lay.i_tok * t_loc < t
 
         router = par.grad_sum(p.router, lay.all_group)
         top_i, top_p, aux = moe_mod.route(router, x_loc, cfg)
@@ -312,8 +321,11 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
 
         # --- Expert FFN over the local slots (and the local F-shard). On an
         # axis of one rank these are views of the whole weights.
+        # ``local_experts``: blocks a DTensor step placed (:func:`_on_blocks`).
         share = getattr(p, "expert_share", None)
-        if share is not None:
+        if local_experts:
+            wg, wu, wd = p.w_gate, p.w_up, p.w_down
+        elif share is not None:
             wg, wu, wd = p.w_gate, p.w_up, p.w_down
             if share != _share(lay, r):
                 raise ValueError(f"the experts were cut to the share {share} "
@@ -366,15 +378,14 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
 
         dropped = (~flat_v).sum()
         if lay.all_group is not None:
-            # pmean(aux) and psum(dropped) over every axis in one
-            # reduction, then the token-sharded outputs back to every rank.
+            # pmean(aux) and psum(dropped) over every axis in one reduction.
             red = par.sum_replicated(torch.stack([aux.float(),
                                                   dropped.float()]),
                                      lay.all_group)
             aux = red[0] / lay.n_all
             dropped = red[1].round().to(torch.int64)
-            out = par.gather_replicated(out, lay.all_group)
-        routed = out[:t]
+        # The token-split outputs back to every rank of the split.
+        routed = par.gather_replicated(out, lay.tok_group)[:t]
 
         # Shared experts: dense, on every rank.
         if p.has_shared:
@@ -382,7 +393,76 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
                                      p.shared_down).to(routed.dtype)
         return routed, {"aux_loss": aux, "dropped": dropped}
 
+    def moe_fn(p, x: torch.Tensor, cfg: ModelConfig
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if dt.is_dtensor(x):
+            return _on_blocks(run, p, x, cfg, mesh, lay, tuple(ep_axes),
+                              redundancy, ffn_shard_axis)
+        return run(p, x, cfg, lay)
+
     return moe_fn
+
+
+def _on_blocks(run, p, x, cfg: ModelConfig, mesh, lay: _Layout,
+               ep_axes: Tuple[str, ...], r: int, ffn_shard_axis):
+    """The MoE function on a DTensor batch ``x`` (T, D) and DTensor weights,
+    entered as JAX enters its ``shard_map``: each rank takes its block of
+    the token rows (its batch block split over the axes the batch is
+    replicated over), the router replicated, and its expert slots and
+    F-shard placed as the plan says -- the weights repeated ``r`` times
+    first when serving with redundancy, as JAX repeats them -- and runs the
+    routed experts on them with this layout's collectives. The shared
+    experts run on the DTensors, tensor-parallel as their specs place
+    them."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if mesh is None:
+        raise ValueError("a DTensor batch needs the LEP function of a mesh")
+    names = tuple(mesh.mesh_dim_names)
+    rows = tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                 for pl in x.placements)
+    tok_axes = tuple(a for a, pl in zip(names, rows)
+                     if not isinstance(pl, Shard))
+    lay = dataclasses.replace(
+        lay, tok_group=par.axes_group(mesh, tok_axes),
+        n_tok=par.axis_size(mesh, tok_axes),
+        i_tok=par.axis_index(mesh, tok_axes))
+
+    def placed(ffn_dim):
+        return tuple(Shard(0) if a in ep_axes else
+                     Shard(ffn_dim) if a == ffn_shard_axis else
+                     Replicate() for a in names)
+
+    ws = (p.w_gate, p.w_up, p.w_down)
+    if r > 1:
+        ws = tuple(w.repeat_interleave(r, dim=0) for w in ws)
+
+    def body(x_loc, router, wg, wu, wd):
+        local = _LocalExperts(router, wg, wu, wd)
+        out, aux = run(local, x_loc, cfg, lay, local_experts=True)
+        return out, aux["aux_loss"], aux["dropped"]
+
+    rep = dt.replicated(mesh)
+    out, aux, dropped = local_map(
+        body, out_placements=(rows, rep, rep),
+        in_placements=(rows, rep, placed(2), placed(2),
+                       placed(1)),
+        redistribute_inputs=True, device_mesh=mesh)(x, p.router, *ws)
+    if p.has_shared:
+        out = out + swiglu(x, p.shared_gate, p.shared_up,
+                           p.shared_down).to(out.dtype)
+    return out, {"aux_loss": aux, "dropped": dropped}
+
+
+@dataclasses.dataclass
+class _LocalExperts:
+    """A rank's blocks of one MoE layer's router and routed experts."""
+    router: torch.Tensor
+    w_gate: torch.Tensor
+    w_up: torch.Tensor
+    w_down: torch.Tensor
+    has_shared: bool = False
 
 
 def pick_lep_plan(cfg: ModelConfig, mesh, serving: bool = False) -> dict:

@@ -60,10 +60,11 @@ def dispatch_quantize(x: torch.Tensor, pack: bool = False):
         raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return dispatch_quantize_ref(x, pack)
     if x.device.type != "cuda":
-        raise ValueError(f"dispatch_quantize runs on cpu or cuda, not {x.device}")
+        raise ValueError(f"dispatch_quantize runs on cpu or cuda (meta traces "
+                         f"shapes only), not {x.device}")
     t, d = x.shape
     if d < 1:
         raise ValueError(f"D must be at least 1, got {d}")

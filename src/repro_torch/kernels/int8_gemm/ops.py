@@ -130,10 +130,11 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
     global LAUNCHES, PADDED_CALLS
     _check(x_q, w_q, x_scale, w_scale, out_dtype)
     dev = x_q.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return int8_matmul_ref(x_q, w_q, x_scale, w_scale, out_dtype)
     if dev.type != "cuda":
-        raise ValueError(f"int8_matmul runs on cpu or cuda, not {dev}")
+        raise ValueError(f"int8_matmul runs on cpu or cuda (meta traces "
+                         f"shapes only), not {dev}")
     (m, k), n = x_q.shape, w_q.shape[1]
     if max(m, n, k) >= 2 ** 31 // 128:
         raise ValueError(f"the kernel indexes tiles with 32-bit ints: "

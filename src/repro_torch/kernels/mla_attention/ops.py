@@ -73,10 +73,11 @@ def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     global LAUNCHES
     _check(q_lat, q_rope, cache, cache_len)
     dev = q_lat.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return mla_decode_attention_ref(q_lat, q_rope, cache, cache_len, scale)
     if dev.type != "cuda":
-        raise ValueError(f"mla_decode_attention runs on cpu or cuda, not {dev}")
+        raise ValueError(f"mla_decode_attention runs on cpu or cuda (meta "
+                         f"traces shapes only), not {dev}")
     b, h, r = q_lat.shape
     s, dr = cache.shape[1], q_rope.shape[-1]
     if r % 4 or r > MAX_R or dr % 4 or r + dr > MAX_W:

@@ -133,10 +133,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     _check(x, dt, a_log, bmat, cmat, chunk)
     _refuse_graph(x, dt, a_log, bmat, cmat)
     dev = x.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return ssd_chunked(x, dt, a_log, bmat, cmat, chunk)
     if dev.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cpu or cuda, not {dev}")
+        raise ValueError(f"ssd_scan runs on cpu or cuda (meta traces "
+                         f"shapes only), not {dev}")
     y, h_final, scratch, args = _buffers(x, bmat, chunk)
     if scratch is None:
         return y, h_final

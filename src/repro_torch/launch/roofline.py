@@ -11,8 +11,9 @@ caller can pass another card's rates.
 
 The collective bytes come from the caller, keyed by ``COLLECTIVE_OPS``. The
 JAX package parses them out of compiled HLO text (``collective_bytes``);
-the port has no HLO and no counterpart yet: the dry-run slice will count
-its own collectives.
+the port's dry run (``launch/dryrun.py``) counts them as its traced step
+issues them (``launch/collectives.py``) and writes its records, these
+terms included, to ``experiments/dryrun_torch/``.
 """
 from __future__ import annotations
 

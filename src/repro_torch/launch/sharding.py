@@ -7,7 +7,10 @@ reads in JAX (a one-name tuple reads as the name). Specs are pure Python
 over a mesh's shape (a ``DeviceMesh`` or a mapping of axis sizes), so the
 production shapes of ``launch/mesh.py`` can be planned without their
 ranks; :func:`to_placements` turns a spec into DTensor placements over a
-real mesh.
+real mesh, and :func:`meta_dtensor`, :func:`shard_tree` and
+:func:`shard_model` make meta DTensors (shapes only, no memory) of a
+model's weights, a cache tree and a batch, for the dry run
+(``launch/dryrun.py``).
 
 Policy:
 * the batch over ``("pod", "data")``; tensor parallelism (heads, FFN
@@ -238,3 +241,67 @@ def to_placements(mesh, entries: Spec) -> Tuple[Any, ...]:
     return tuple(Shard(by_axis[a]) if a in by_axis else Replicate()
                  for a in names)
 
+
+
+def meta_dtensor(shape, dtype: torch.dtype, mesh, entries: Spec):
+    """A DTensor of global ``shape`` over ``mesh`` (a ``DeviceMesh``) placed
+    by the spec ``entries``, its local shard a meta tensor: the global shape
+    divided per ``Shard``. An axis of one rank replicates (a shard over it
+    is the whole tensor, and some DTensor versions cannot view one).
+    Raises when a sharded dimension does not divide (the specs replicate
+    such a dimension, so none should)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    placements = tuple(Replicate() if mesh.size(m) == 1 else p for m, p in
+                       enumerate(to_placements(mesh, entries)))
+    local = list(shape)
+    for mdim, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = mesh.size(mdim)
+            if local[p.dim] % n:
+                raise ValueError(f"dimension {p.dim} of {tuple(shape)} "
+                                 f"({local[p.dim]} left) does not divide "
+                                 f"over {n} ranks of "
+                                 f"{mesh.mesh_dim_names[mdim]!r}")
+            local[p.dim] //= n
+    shape = torch.Size(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(torch.empty(local, dtype=dtype, device="meta"),
+                              mesh, placements, run_check=False, shape=shape,
+                              stride=stride)
+
+
+def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+    """Every tensor leaf of ``tree`` (nested dicts and NamedTuples, such as
+    ``make_caches``' tree or a batch) as a meta DTensor placed by the leaf
+    of ``specs`` at the same place."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(shard_tree(v, s, mesh)
+                            for v, s in zip(tree, specs)))
+    return meta_dtensor(tree.shape, tree.dtype, mesh, specs)
+
+
+def shard_model(model, mesh, specs: Any):
+    """Replace every weight of ``model`` (a ``Model``), in place, by a meta
+    DTensor placed by ``specs`` (:func:`param_pspecs` of the model's tree):
+    a per-layer weight takes its segment's spec without the leading layer
+    None, a hybrid's shared block likewise. Returns the model."""
+    def place(module, spec_of):
+        for name, p in list(module.named_parameters(recurse=False)):
+            setattr(module, name, torch.nn.Parameter(
+                meta_dtensor(p.shape, p.dtype, mesh, spec_of(name)),
+                requires_grad=p.requires_grad))
+
+    place(model, lambda name: specs[name])
+    for seg_name, blocks in model.segments.items():
+        for blk in blocks:
+            for part, module in blk.named_children():
+                seg = specs["segments"][seg_name][part]
+                place(module, lambda name, seg=seg: seg[name][1:])
+    if hasattr(model, "shared_attn"):
+        for part, module in model.shared_attn.named_children():
+            seg = specs["shared_attn"][part]
+            place(module, lambda name, seg=seg: seg[name][1:])
+    return model

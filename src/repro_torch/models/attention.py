@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch import dtensor as dt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_rope, rms_norm, weight
 
@@ -84,9 +85,9 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+    q = dt.fit_heads(q, h).reshape(b, s, h, hd)
+    k = dt.fit_heads(k, kv).reshape(b, s, kv, hd)
+    v = dt.fit_heads(v, kv).reshape(b, s, kv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -100,10 +101,11 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (B, Sq, H*hd) in q's dtype."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
+    q = dt.batch_like(dt.fit_heads(q, kvh, 2), k)
     qg = q.reshape(b, sq, kvh, h // kvh, hd).float()
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) / (hd ** 0.5)
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
+    probs = dt.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
     return out.reshape(b, sq, h * hd).to(q.dtype)
 
@@ -218,7 +220,10 @@ def update_cache(cache: torch.Tensor, new: torch.Tensor,
     """Write the (B,1,...) entry into (B,S,...) in place at a scalar or
     per-request slot. A scalar slot is clamped into range as
     ``dynamic_update_slice`` does; per-request slots past the end are
-    dropped, as an out-of-bounds scatter is."""
+    dropped, as an out-of-bounds scatter is. On a DTensor cache each rank
+    writes the entries of its own block (:func:`_update_cache_block`)."""
+    if dt.is_dtensor(cache):
+        return _update_cache_block(cache, new, slot)
     b, s = cache.shape[0], cache.shape[1]
     rows = torch.arange(b, device=cache.device)
     if slot.ndim == 0:
@@ -231,6 +236,36 @@ def update_cache(cache: torch.Tensor, new: torch.Tensor,
     cache[rows, idx] = torch.where(
         keep.reshape((-1,) + (1,) * (old.ndim - 1)),
         new[:, 0].to(cache.dtype), old)
+    return cache
+
+
+def _update_cache_block(cache, new: torch.Tensor,
+                        slot: torch.Tensor) -> torch.Tensor:
+    """:func:`update_cache` into a DTensor cache, as XLA partitions a
+    dynamic-update-slice into a sharded dimension: the entry is brought to
+    the cache's placements with its sequence dimension replicated, and each
+    rank writes the rows of its batch block whose slot falls in its
+    sequence block, with no collective of the cache's size."""
+    mesh = cache.device_mesh
+    block = cache.to_local()
+    new = dt.local(new, mesh, dt.without_shard(cache.placements, 1))
+    slot = dt.local(slot, mesh, dt.replicated(mesh))
+    b0, s0 = dt.shard_offsets(cache)[:2]
+    b, s = block.shape[0], block.shape[1]
+    if slot.ndim == 0:
+        at = slot.clamp(0, cache.shape[1] - 1).expand(b)
+        keep = torch.ones_like(at, dtype=torch.bool)
+    else:
+        at = slot[b0:b0 + b]
+        keep = at < cache.shape[1]
+    at = at - s0
+    keep = keep & (at >= 0) & (at < s)
+    idx = at.clamp(0, s - 1).long()
+    rows = torch.arange(b, device=block.device)
+    old = block[rows, idx]
+    block[rows, idx] = torch.where(
+        keep.reshape((-1,) + (1,) * (old.ndim - 1)),
+        new[:, 0].to(block.dtype), old)
     return cache
 
 

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch import dtensor as dt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.models.attention import (NEG_INF, _pick_chunk, _positions_of,
@@ -71,7 +72,7 @@ def _mla_qkv_latent(p: MLA, x: torch.Tensor, cfg: ModelConfig,
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     q = x @ p.wq_a
     q = rms_norm(q, p.q_ln, cfg.norm_eps)
-    q = (q @ p.wq_b).reshape(b, s, h, nope + rope)
+    q = dt.fit_heads(q @ p.wq_b, h).reshape(b, s, h, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -134,8 +135,8 @@ def mla_prefill(p: MLA, x: torch.Tensor, cfg: ModelConfig,
                                  device=x.device).expand(b, s)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(p, x, cfg, positions)
 
-    k_nope = (c_kv @ p.wk_b).reshape(b, s, h, nope)
-    vfull = (c_kv @ p.wv_b).reshape(b, s, h, vd)
+    k_nope = dt.fit_heads(c_kv @ p.wk_b, h).reshape(b, s, h, nope)
+    vfull = dt.fit_heads(c_kv @ p.wv_b, h).reshape(b, s, h, vd)
     out = mla_causal_attention(q_nope, q_rope, k_nope, k_rope, vfull, cfg)
     out = out.reshape(b, s, h * vd).to(x.dtype) @ p.wo
     latent = torch.cat([c_kv, k_rope], dim=-1)
@@ -167,7 +168,7 @@ def mla_causal_attention(q_nope, q_rope, k_nope, k_rope, vfull,
                   ) * scale
         mask = kv_pos[None, :] <= q_pos[:, None]
         scores = torch.where(mask[None, None], scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
+        probs = dt.softmax(scores, dim=-1)
         outs.append(torch.einsum("bhst,bthe->bshe", probs, vf))
     return torch.cat(outs, dim=1)
 
@@ -190,7 +191,7 @@ def mla_decode(p: MLA, x: torch.Tensor, cache: torch.Tensor,
     cache = update_cache(cache, new_entry, cache_len)
 
     # Absorb W_UK into the query: q_lat (B,1,H,kvr)
-    wk = p.wk_b.reshape(kvr, h, nope)
+    wk = dt.fit_heads(p.wk_b, h).reshape(kvr, h, nope)
     q_lat = torch.einsum("bshe,rhe->bshr", q_nope.float(), wk.float())
     scale = 1.0 / ((nope + rope) ** 0.5)
     rows_len = cache_len.to(torch.int32).expand(b).contiguous()
@@ -198,7 +199,7 @@ def mla_decode(p: MLA, x: torch.Tensor, cache: torch.Tensor,
         q_lat[:, 0].contiguous(), q_rope[:, 0].float().contiguous(),
         cache.float().contiguous(), rows_len, scale)[:, None]  # (B,1,H,kvr)
 
-    wv = p.wv_b.reshape(kvr, h, vd)
+    wv = dt.fit_heads(p.wv_b, h).reshape(kvr, h, vd)
     out = torch.einsum("bshr,rhe->bshe", o_lat, wv.float())
     out = out.reshape(b, 1, h * vd).to(x.dtype) @ p.wo
     return out, cache

@@ -44,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch import dtensor as dt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
@@ -185,13 +186,22 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 
+def embed_tokens(params: Model, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of the embedding for ``tokens``; from a DTensor table, a
+    masked lookup on each rank's rows and an all-reduce
+    (:func:`repro_torch.dtensor.embedding`)."""
+    if dt.is_dtensor(params.embed):
+        return dt.embedding(tokens, params.embed)
+    return params.embed[tokens]
+
+
 def embed_inputs(params: Model, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The input embeddings: audio ``frames`` (B,S,D) as they are, else the
     token embeddings, after a VLM's ``prefix_emb`` (B,P,D) when given."""
     if cfg.frontend == "audio_frames":
         return batch["frames"].to(_dtype(cfg))
-    x = params.embed[batch["tokens"]]
+    x = embed_tokens(params, batch["tokens"])
     if cfg.frontend == "vision_patches" and "prefix_emb" in batch:
         x = torch.cat([batch["prefix_emb"].to(x.dtype), x], dim=1)
     return x
@@ -441,7 +451,7 @@ def decode_step(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
     (B, V), caches with ``length = cache_len + 1``; a hybrid group's SSM
     ``length`` is its own plus one, as in the JAX package)."""
     moe_fn = moe_fn or moe_mod.moe_capacity
-    x = params.embed[tokens].to(_dtype(cfg))                    # (B,1,D)
+    x = embed_tokens(params, tokens).to(_dtype(cfg))          # (B,1,D)
     cache_len = _as_len(cache_len, x.device)
     new_caches: Dict[str, Any] = {}
     for seg in build_plan(cfg):
@@ -748,7 +758,7 @@ def prefill_continue(params: Model, cfg: ModelConfig, tokens: torch.Tensor,
         raise NotImplementedError(
             "prefill_continue requires a causal-attention or MLA arch")
     moe_fn = moe_fn or moe_mod.moe_capacity
-    x = params.embed[tokens].to(_dtype(cfg))
+    x = embed_tokens(params, tokens).to(_dtype(cfg))
     s = x.shape[1]
     offset = _as_len(offset, x.device)
     new_caches: Dict[str, Any] = {}
@@ -777,13 +787,34 @@ def _write_kv(buf: torch.Tensor, new: torch.Tensor, s: int) -> None:
     """Write one layer's fresh latent, K or V (B,S,...) into its buffer
     (B,cap,...) in place. A GQA ring (``s > cap``) keeps the last ``cap``
     tokens, token p at slot ``p % cap``, as ``attention_decode`` writes
-    them."""
+    them. Into a DTensor buffer each rank writes its own block."""
     cap = buf.shape[1]
+    if dt.is_dtensor(buf):
+        return _write_kv_block(buf, new, s)
     if s <= cap:
         buf[:, :s] = new.to(buf.dtype)
     else:
         buf.copy_(torch.roll(new[:, -cap:].to(buf.dtype), shifts=s % cap,
                              dims=1))
+
+
+def _write_kv_block(buf, new: torch.Tensor, s: int) -> None:
+    """:func:`_write_kv` into a DTensor buffer: ``new`` is brought to the
+    buffer's placements (its sequence replicated when it fills only part
+    of the buffer) and each rank writes the rows of its block."""
+    mesh, cap = buf.device_mesh, buf.shape[1]
+    block = buf.to_local()
+    new = new.to(buf.dtype)
+    if s == cap:
+        block.copy_(dt.local(new, mesh, buf.placements))
+        return
+    full = dt.local(new[:, -cap:], mesh, dt.without_shard(buf.placements, 1))
+    if s > cap:
+        full, s = torch.roll(full, shifts=s % cap, dims=1), cap
+    s0 = dt.shard_offsets(buf)[1]
+    rows = max(0, min(s - s0, block.shape[1]))
+    if rows:
+        block[:, :rows] = full[:, s0:s0 + rows]
 
 
 def _mamba_prefill_layers(blocks, x: torch.Tensor, cfg: ModelConfig,
@@ -879,6 +910,11 @@ def prefill(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     x = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     caches = make_caches(cfg, b, capacity, cache_dtype, x.device)
+    if dt.is_dtensor(x):
+        # Traced over DTensors: the caches placed as decode takes them.
+        from repro_torch.launch.sharding import cache_pspecs, shard_tree
+        caches = shard_tree(caches, cache_pspecs(cfg, x.device_mesh, caches),
+                            x.device_mesh)
     cap = _cache_capacity(cfg, caches)
     if cap is not None and s > cap:
         raise ValueError(f"prompt of {s} tokens exceeds the cache capacity "
@@ -910,10 +946,11 @@ def lm_loss(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     logits, aux = forward(params, cfg, batch, moe_fn)
     if cfg.frontend == "vision_patches" and "prefix_emb" in batch:
         logits = logits[:, batch["prefix_emb"].shape[1]:, :]
-    logits = logits.float()
+    # Over DTensors a pending sum over the model axis (the lm_head's
+    # contraction) is taken first: logsumexp and the pick need whole rows.
+    logits = dt.reduce_partial(logits).float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        batch["labels"].long()[..., None])[..., 0]
+    gold = dt.take_last(logits, batch["labels"].long())
     nll = (lse - gold).mean()
     loss = nll + cfg.router_aux_loss_coef * aux["aux_loss"]
     return loss, {"nll": nll, **aux}

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import dtensor as dt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import swiglu, weight
 
@@ -60,7 +61,7 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (T, D) -> (top-k ids (T,K), renormalized probs (T,K), aux loss)."""
     logits = x.float() @ router_w
-    probs = torch.softmax(logits, dim=-1)
+    probs = dt.softmax(logits, dim=-1)
     sorted_p, sorted_i = torch.sort(probs, dim=-1, descending=True,
                                     stable=True)
     k = cfg.num_experts_per_tok

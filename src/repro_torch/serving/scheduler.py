@@ -433,8 +433,9 @@ def decode_cost_from_roofline(record: Optional[Dict[str, Any]],
                               kv_bytes_per_req: float,
                               batch_per_chip: float,
                               hbm_bw: float = HBM_BW) -> DecodeCostModel:
-    """DecodeCostModel calibrated from a compiled dry-run roofline record
-    (``experiments/dryrun/*.json``) instead of placeholder defaults.
+    """DecodeCostModel calibrated from a dry-run roofline record (the
+    port's ``python -m repro_torch.launch.dryrun`` writes them to
+    ``experiments/dryrun_torch/*.json``) instead of placeholder defaults.
 
     ``record`` carries ``compute_s`` / ``memory_s`` / ``collective_s`` as
     written by ``launch/dryrun.py``; the serial roofline step time is

@@ -32,9 +32,11 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 
 #: modules of the MTP / EMS / serve-CLI slice, of the Zamba2 and
-#: frontends slice, of the training and checkpoint slice and of the
+#: frontends slice, of the training and checkpoint slice, of the
 #: parallel slice (2-D LEP, the hybrid prefill, meshes, sharding specs,
-#: the roofline), which the walk above must keep covering
+#: the roofline) and of the dry-run slice (the dry run, its variants, the
+#: collective counter, the DTensor helpers), which the walk above must
+#: keep covering
 SLICE_MODULES = ("core/mtp.py", "mempool/context_cache.py", "mempool/ems.py",
                  "launch/serve.py", "launch/__init__.py",
                  "configs/zamba2_1_2b.py", "configs/internvl2_2b.py",
@@ -44,7 +46,9 @@ SLICE_MODULES = ("core/mtp.py", "mempool/context_cache.py", "mempool/ems.py",
                  "checkpoint/__init__.py", "checkpoint/ckpt.py",
                  "launch/train.py", "core/parallel.py",
                  "core/hybrid_parallel.py", "core/lep.py", "launch/mesh.py",
-                 "launch/sharding.py", "launch/roofline.py")
+                 "launch/sharding.py", "launch/roofline.py",
+                 "launch/dryrun.py", "launch/variants.py",
+                 "launch/collectives.py", "dtensor.py")
 
 
 def _forbidden(module: str) -> bool:

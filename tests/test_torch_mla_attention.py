@@ -88,6 +88,31 @@ def test_cpu_tensor_takes_plain_path_without_launch():
     np.testing.assert_array_equal(got, want)
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor whose metadata says it lives on an XPU, a device that is
+    neither the CPU, CUDA nor meta; ops run on its shape alone."""
+
+    @staticmethod
+    def __new__(cls, t):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, t.shape, strides=t.stride(), dtype=t.dtype,
+            device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        """Runs ``func`` on meta stand-ins: shapes and strides only."""
+        from torch.utils._pytree import tree_map
+
+        def meta(t):
+            return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                       device="meta") \
+                if isinstance(t, cls) else t
+
+        out = func(*tree_map(meta, args), **tree_map(meta, kwargs or {}))
+        return tree_map(lambda t: cls(t) if isinstance(t, torch.Tensor)
+                        else t, out)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "contiguous", "len_dtype",
                                  "len_shape", "width", "device"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
@@ -105,9 +130,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         cache_len = torch.zeros(3, dtype=torch.int32)
     elif bad == "width":
         cache = torch.zeros(2, 8, 40)
-    else:  # a device that is neither the CPU nor CUDA has no path at all
+    else:  # a device other than the CPU, CUDA and meta has no path
         q_lat, q_rope, cache, cache_len = (
-            t.to("meta") for t in (q_lat, q_rope, cache, cache_len))
+            _Elsewhere(t) for t in (q_lat, q_rope, cache, cache_len))
     with pytest.raises(ValueError):
         ops.mla_decode_attention(q_lat, q_rope, cache, cache_len, SCALE)
 

@@ -131,14 +131,40 @@ def test_int8_matmul_rejects_what_the_kernel_does_not_take():
 
 
 def test_wrappers_run_only_on_cpu_or_cuda():
-    device = "meta"
+    """A device other than the CPU, CUDA and meta (which traces shapes
+    through the plain version) has no path."""
     with pytest.raises(ValueError, match="cpu or cuda"):
-        dispatch_quantize(torch.zeros(2, 8, device=device))
-    xq = torch.zeros(2, 8, dtype=torch.int8, device=device)
-    wq = torch.zeros(4, 8, dtype=torch.int8, device=device).t()   # K-major
+        dispatch_quantize(_Elsewhere(torch.zeros(2, 8)))
+    xq = _Elsewhere(torch.zeros(2, 8, dtype=torch.int8))
+    wq = _Elsewhere(torch.zeros(4, 8, dtype=torch.int8).t())   # K-major
     with pytest.raises(ValueError, match="cpu or cuda"):
-        int8_matmul(xq, wq, torch.zeros(2, 1, device=device),
-                    torch.zeros(1, 4, device=device))
+        int8_matmul(xq, wq, _Elsewhere(torch.zeros(2, 1)),
+                    _Elsewhere(torch.zeros(1, 4)))
+
+
+class _Elsewhere(torch.Tensor):
+    """A tensor whose metadata says it lives on an XPU, a device that is
+    neither the CPU, CUDA nor meta; ops run on its shape alone."""
+
+    @staticmethod
+    def __new__(cls, t):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, t.shape, strides=t.stride(), dtype=t.dtype,
+            device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        """Runs ``func`` on meta stand-ins: shapes and strides only."""
+        from torch.utils._pytree import tree_map
+
+        def meta(t):
+            return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                       device="meta") \
+                if isinstance(t, cls) else t
+
+        out = func(*tree_map(meta, args), **tree_map(meta, kwargs or {}))
+        return tree_map(lambda t: cls(t) if isinstance(t, torch.Tensor)
+                        else t, out)
 
 
 @pytest.fixture(scope="module")

@@ -137,6 +137,31 @@ def test_empty_sequence_gives_zero_state():
     assert not hf.any()
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor whose metadata says it lives on an XPU, a device that is
+    neither the CPU, CUDA nor meta; ops run on its shape alone."""
+
+    @staticmethod
+    def __new__(cls, t):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, t.shape, strides=t.stride(), dtype=t.dtype,
+            device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        """Runs ``func`` on meta stand-ins: shapes and strides only."""
+        from torch.utils._pytree import tree_map
+
+        def meta(t):
+            return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                       device="meta") \
+                if isinstance(t, cls) else t
+
+        out = func(*tree_map(meta, args), **tree_map(meta, kwargs or {}))
+        return tree_map(lambda t: cls(t) if isinstance(t, torch.Tensor)
+                        else t, out)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "contiguous", "dt_shape",
                                  "a_shape", "bc_shape", "chunk", "device"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
@@ -154,8 +179,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         cm = torch.zeros(2, 8, 9)
     elif bad == "chunk":
         chunk = 0
-    else:  # a device that is neither the CPU nor CUDA has no path at all
-        x, dt, a_log, bm, cm = (t.to("meta") for t in (x, dt, a_log, bm, cm))
+    else:  # a device other than the CPU, CUDA and meta has no path
+        x, dt, a_log, bm, cm = (_Elsewhere(t) for t in (x, dt, a_log, bm, cm))
     with pytest.raises(ValueError):
         ops.ssd_scan(x, dt, a_log, bm, cm, chunk=chunk)
 
