@@ -301,6 +301,14 @@ AGREE_SEEDS = (1, 2, 3)      # prompt seeds (offsets of SEED), 3 prompts each
 # H100 at 700 W (PERF.md); a quarter is the most the phase lets pass.
 MAX_FLIP_SHARE = 0.25
 SWEEP_PIECES = (1, 17, 33, 44, 66, 132)     # n_pieces values of --sweep
+# The kernel's lse variant: lse within LSE_RTOL of max(|lse|, 1) of the plain
+# version's (both f32; the kernel's products in 3xTF32). Empty rows: the
+# bounds a rank's block of a sequence-sharded cache gives rows that end
+# before it (negative), beside full, frozen and short rows. The sharded
+# path's arithmetic: the serve's cache cut into MLA_SPLIT_BLOCKS blocks.
+LSE_RTOL = 1e-5
+MLA_EMPTY_LENS = [-1, 2047, -300, 1024, 0, -2, 31, 2048]
+MLA_SPLIT_BLOCKS = 4
 # serve-mtp: 8 prompts of one length (fit_draft_head takes one (n_seq,
 # prompt_len) array, as the serve CLI passes it), 32 new tokens each; the
 # draft head from seed 1 is distilled on them over MTP_FIT_GEN generated
@@ -560,7 +568,57 @@ FAULT_DECODE_BATCH = 4
 DRYRUN_PRODUCTION = (("deepseek-r1", "decode_32k", False),
                      ("kimi-k2-1t-a32b", "decode_32k", False),
                      ("kimi-k2-1t-a32b", "decode_32k", True),
-                     ("qwen3-8b", "train_4k", False))
+                     ("qwen3-8b", "train_4k", False),
+                     ("deepseek-r1", "train_4k", False),
+                     ("deepseek-r1", "prefill_32k", False),
+                     ("mamba2-780m", "train_4k", False),
+                     ("zamba2-1.2b", "train_4k", False))
+# JAX's records of the same pairs, printed beside the port's (JAX never
+# runs on the card): argument bytes and collective bytes per rank by kind,
+# counted with the HLO's ``/*index=N*/`` comments taken out (JAX's own
+# count skips tuple-typed collectives that carry one: LEP's all-to-alls),
+# as ``python3 scripts/torch_dryrun_jax_reference.py`` prints them (jax
+# 0.9.0 on 512 forced host devices).
+JAX_DRYRUN = {
+    "deepseek-r1 × decode_32k × 16x16": (29052811808, {
+        "all-gather": 1958952960, "all-reduce": 533280960,
+        "reduce-scatter": 0, "all-to-all": 4257693696,
+        "collective-permute": 38397016}),
+    "kimi-k2-1t-a32b × decode_32k × 16x16": (26113403424, {
+        "all-gather": 253928843264, "all-reduce": 337369152,
+        "reduce-scatter": 0, "all-to-all": 6606770176,
+        "collective-permute": 8005712}),
+    "kimi-k2-1t-a32b × decode_32k × 2x16x16": (26113403408, {
+        "all-gather": 254053226496, "all-reduce": 48271360,
+        "reduce-scatter": 0, "all-to-all": 6606770176,
+        "collective-permute": 69425408}),
+    "qwen3-8b × train_4k × 16x16": (1052837892, {
+        "all-gather": 117146927104, "all-reduce": 872949115996,
+        "reduce-scatter": 0, "all-to-all": 45097156608,
+        "collective-permute": 178778275840}),
+    "deepseek-r1 × train_4k × 16x16": (136740448260, {
+        "all-gather": 34931474432, "all-reduce": 76805550420,
+        "reduce-scatter": 0, "all-to-all": 160932839424,
+        "collective-permute": 0}),
+    "deepseek-r1 × prefill_32k × 16x16": (27901736960, {
+        "all-gather": 216849711104, "all-reduce": 133043322880,
+        "reduce-scatter": 0, "all-to-all": 89411567616,
+        "collective-permute": 0}),
+    "mamba2-780m × train_4k × 16x16": (810540036, {
+        "all-gather": 164599814144, "all-reduce": 227237771320,
+        "reduce-scatter": 0, "all-to-all": 2013265920,
+        "collective-permute": 840344181760}),
+    "zamba2-1.2b × train_4k × 16x16": (92554244, {
+        "all-gather": 79817220096, "all-reduce": 291512909992,
+        "reduce-scatter": 0, "all-to-all": 2684354560,
+        "collective-permute": 488988999680}),
+}
+# R1 decode_32k on 16 x 16 with its attention through local_map: the
+# all-gather per rank below DRYRUN_R1_AG_BYTES (8.208 GB when DTensor
+# gathered the softmax's scores) and the collective term below
+# DRYRUN_R1_COLL_S (23.95 ms then).
+DRYRUN_R1 = "deepseek-r1 × decode_32k × 16x16"
+DRYRUN_R1_AG_BYTES, DRYRUN_R1_COLL_S = 0.5e9, 8e-3
 DRYRUN_SERVES = (("serve-lep", "serve_config"), ("serve-kimi", "kimi_config"),
                  ("serve-dense", "dense_config"),
                  ("serve-olmoe-lep", "olmoe_config"),
@@ -618,7 +676,7 @@ def mla_bound(b, h, r, dr, cache_len, s):
     3xTF32, three TF32 passes, so the operations count at a third of the
     TF32 rate; the FP32 reading (the bound of a kernel without tensor
     cores) stays beside it."""
-    n = [min(max(int(c), 0), s - 1) + 1 for c in cache_len]
+    n = [0 if int(c) < 0 else min(int(c), s - 1) + 1 for c in cache_len]
     nbytes = 4 * (sum(n) * (r + dr) + b * h * (r + dr) + b + b * h * r)
     flops = 2 * h * sum(n) * (2 * r + dr)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOP_PER_S
@@ -711,6 +769,84 @@ def kernel_phase(torch, flush, serve_lens, sweep: bool):
                for op in sass.get("mla_split_kernel", {})):
         raise AssertionError(f"no TF32 tensor-core instruction in the MLA "
                              f"attention kernel: {sass}")
+    return rows
+
+
+def merge_blocks_on_card(torch, parts):
+    """The blocks' partials (o, lse) of one sequence merged as a cache
+    sharded on its sequence merges them (``attention.merge_blocks``'s
+    arithmetic, the all-reduces replaced by sums over the stacked
+    blocks)."""
+    o = torch.stack([p[0] for p in parts])
+    lse = torch.stack([p[1] for p in parts])
+    w = torch.exp(lse - lse.max(dim=0).values)
+    return (o * w[..., None]).sum(0) / w.sum(0)[..., None]
+
+
+def kernel_lse_phase(torch, serve_lens):
+    """The kernel's ``return_lse`` variant against its plain version (o
+    within KERNEL_TOL, lse within LSE_RTOL of its size, -inf on exactly
+    the empty rows), on the kernel phase's cases and on rows whose bound
+    is negative (MLA_EMPTY_LENS); then the sharded path's arithmetic on
+    one card: the R1 serve's final cache cut into MLA_SPLIT_BLOCKS blocks
+    of positions, each block one kernel call with its offset bound and
+    ``return_lse``, merged, against the whole-cache kernel within
+    KERNEL_TOL. Comparison launches: not counted on a main path."""
+    from repro_torch.kernels.mla_attention import ops
+    from repro_torch.kernels.mla_attention.ref import mla_decode_attention_ref
+
+    b, h, r, dr = 8, 128, 512, 64
+    scale = 1.0 / (192 ** 0.5)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows = []
+    cases = (("S=2048 edges", 2048, [0, 2047, 2048, 1024, 1, 31, 32, 2015]),
+             ("S=1000 ragged", 1000, [999, 1000, 0, 500, 37, 128, 129, 777]),
+             ("empty rows", 2048, MLA_EMPTY_LENS),
+             ("every row empty", 2048, [-1] * b),
+             ("serve lengths", 2048, serve_lens))
+    for name, s, lens in cases:
+        q_lat = torch.randn(b, h, r, device="cuda", generator=gen)
+        q_rope = torch.randn(b, h, dr, device="cuda", generator=gen)
+        cache = torch.randn(b, s, r + dr, device="cuda", generator=gen)
+        cache_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        o, lse = ops.mla_decode_attention(q_lat, q_rope, cache, cache_len,
+                                          scale, return_lse=True)
+        default = ops.mla_decode_attention(q_lat, q_rope, cache, cache_len,
+                                           scale)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = mla_decode_attention_ref(
+            q_lat, q_rope, cache, cache_len, scale, return_lse=True)
+        fin = torch.isfinite(ref_lse)
+        lse_err = ((lse - ref_lse).abs() / ref_lse.abs().clamp(min=1.0))[
+            fin].max().item() if fin.any() else 0.0
+        row = {"case": name, "S": s, "cache_len": lens,
+               "o_max_abs_err": (o - ref_o).abs().max().item(),
+               "lse_max_rel_err": lse_err,
+               "empty_rows": int((~fin).all(dim=1).sum().item()),
+               "o_equals_default_call": bool(torch.equal(o, default))}
+        if not (torch.allclose(o, ref_o, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+                and lse_err <= LSE_RTOL and row["o_equals_default_call"]
+                and torch.equal(torch.isneginf(lse), ~fin)
+                and not torch.isnan(o).any()):
+            raise AssertionError(f"the kernel's lse variant disagrees with "
+                                 f"its plain version: {row}")
+        if name == "serve lengths":
+            blk = s // MLA_SPLIT_BLOCKS
+            parts = [ops.mla_decode_attention(
+                q_lat, q_rope, cache[:, j * blk:(j + 1) * blk].contiguous(),
+                cache_len - j * blk, scale, return_lse=True)
+                for j in range(MLA_SPLIT_BLOCKS)]
+            merged = merge_blocks_on_card(torch, parts)
+            torch.cuda.synchronize()
+            row["split_blocks"] = MLA_SPLIT_BLOCKS
+            row["split_max_abs_err"] = (merged - default).abs().max().item()
+            if not torch.allclose(merged, default, rtol=KERNEL_TOL,
+                                  atol=KERNEL_TOL):
+                raise AssertionError(f"{MLA_SPLIT_BLOCKS} blocks of the "
+                                     f"cache, merged, disagree with the "
+                                     f"whole-cache kernel: {row}")
+        log("kernel-lse:", json.dumps(row))
+        rows.append(row)
     return rows
 
 
@@ -3557,6 +3693,19 @@ def dryrun_phase(torch, serve_rows) -> None:
             if proc.returncode or rec.get("status") != "ok":
                 raise AssertionError(f"dryrun {what}: {rec.get('error')} "
                                      f"{err[-2000:]}")
+            jax_args, jax_coll = JAX_DRYRUN[what]
+            if rec["argument_bytes"] != jax_args:
+                raise AssertionError(f"dryrun {what}: argument bytes "
+                                     f"{rec['argument_bytes']} != JAX's "
+                                     f"{jax_args}")
+            if what == DRYRUN_R1 and not (
+                    rec["collectives"]["all-gather"] < DRYRUN_R1_AG_BYTES
+                    and rec["collective_s"] < DRYRUN_R1_COLL_S):
+                raise AssertionError(
+                    f"dryrun {what}: all-gather "
+                    f"{rec['collectives']['all-gather']} B and collective "
+                    f"term {rec['collective_s']} s, over "
+                    f"{DRYRUN_R1_AG_BYTES} B and {DRYRUN_R1_COLL_S} s")
             log(f"dryrun: {what}: " + json.dumps({
                 "compute_ms": 1e3 * rec["compute_s"],
                 "memory_ms": 1e3 * rec["memory_s"],
@@ -3564,7 +3713,9 @@ def dryrun_phase(torch, serve_rows) -> None:
                 "dominant": rec["dominant"],
                 "argument_gib_per_rank": rec["argument_bytes"] / 2 ** 30,
                 "temp_gib_per_rank": rec["temp_bytes"] / 2 ** 30,
+                "argument_bytes": rec["argument_bytes"],
                 "collectives": rec["collectives"],
+                "jax_collectives": jax_coll,
                 "trace_s": rec["compile_s"], "wall_s": wall,
                 "terms": "computed from H100 SXM5 data-sheet rates"}))
         stdout, err = records.communicate(
@@ -3676,6 +3827,7 @@ def main(argv=None) -> int:
 
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     rows = kernel_phase(torch, flush, final_lens, args.sweep)
+    lse_rows = kernel_lse_phase(torch, final_lens)
     dq_rows, dq_ragged = dispatch_quant_phase(torch, flush, cfg,
                                               max(serve["prompt_lens"]))
     int8_rows, int8_ragged, int8_counts = int8_phase(
@@ -3913,6 +4065,11 @@ def main(argv=None) -> int:
             "serve-hybrid": hybrid_counts["mla_attention"],
             "serve-dense": dense_counts["mla_attention"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
+        # The return_lse variant (the sharded decode's) and the serve's
+        # cache merged from MLA_SPLIT_BLOCKS blocks, against the plain
+        # version and the whole-cache call.
+        "lse_max_rel_err": max(r["lse_max_rel_err"] for r in lse_rows),
+        "split_max_abs_err": lse_rows[-1]["split_max_abs_err"],
         "ms": main_row["ms"],
         "graph_ms": main_row["graph_ms"],
         "plain_ms": main_row["plain_ms"],

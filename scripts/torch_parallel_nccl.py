@@ -22,6 +22,16 @@ directory):
    (1, 1018, 7168): ``mla_prefill_hybrid`` in both forms over the model
    axis (2 ranks, 64 heads each) against ``mla_prefill`` on the same card,
    within TOL of its largest value; ms of both.
+3. decode-seq: one MLA decode layer at DeepSeek-R1's widths (bf16 weights
+   placed by the serving specs, a float32 latent cache of 8 rows x 2048
+   positions) over a 1 x 4 mesh, the cache's sequence cut into four
+   blocks of 512, one a card (``mla_decode`` on DTensors: each card's
+   block through the kernel with ``return_lse``, the blocks merged by
+   all-reduces over NCCL), rows ending inside the first block (the other
+   three blocks empty for them), a capacity-frozen row and the R1 serve's
+   lengths; against ``mla_decode`` on one card (the whole cache, the
+   kernel), within TOL of its largest value, each card having launched
+   the kernel once; ms of both.
 
 Rank 0 prints one JSON line per case, then ``{"ok": true, ...}``; any
 failed check fails the run. The same collectives are held against JAX on
@@ -43,6 +53,8 @@ HERE = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(HERE / "src"))
 
 WORLD, N_DATA, N_MODEL = 4, 2, 2
+DECODE_LENS = [971, 846, 300, 479, 2048, 994, 5, 296]   # 300, 5: block 0 only
+DECODE_S = 2048
 SEED = 0
 TOL = 0.02            # of the reference's largest |value|; bf16 outputs
 LEP_TOKENS = (1019, 8)
@@ -179,9 +191,62 @@ def run(rank, init, out_path):
                 and row["latent_rel_err_vs_plain"] <= TOL
                 and row["ranks_equal"]):
             raise AssertionError(f"rank {rank}: {row}")
+    lines.append(decode_seq_row(torch, dist, rank, layer, cfg, gen))
     if rank == 0:
         Path(out_path).write_text("\n".join(json.dumps(r) for r in lines))
     dist.destroy_process_group()
+
+
+def decode_seq_row(torch, dist, rank, layer, cfg, gen):
+    """Case 3: the sharded-sequence decode against the one-card kernel."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels.mla_attention import ops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import (distribute, param_pspecs,
+                                             param_shapes)
+    from repro_torch.models.mla import MLA, mla_decode
+
+    device = layer.wq_a.device
+    mesh = make_debug_mesh(1, WORLD, "cuda")
+    x = torch.randn((8, 1, cfg.d_model), generator=gen(SEED + 2),
+                    device=device, dtype=layer.wq_a.dtype)
+    cache = torch.randn((8, DECODE_S, cfg.kv_lora_rank + cfg.qk_rope_head_dim),
+                        generator=gen(SEED + 3), device=device)
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
+    specs = param_pspecs(cfg, mesh, param_shapes(cfg))["segments"][
+        "dense_lead"]["attn"]
+    sharded = MLA(cfg, torch.device("meta"), layer.wq_a.dtype)
+    with implicit_replication():
+        for name, w in layer.named_parameters():
+            setattr(sharded, name, torch.nn.Parameter(
+                distribute(w.detach(), mesh, specs[name][1:]),
+                requires_grad=False))
+        args = (distribute(x, mesh, ("data", None, None)),
+                distribute(cache, mesh, ("data", "model", None)),
+                distribute(lens, mesh, ()))
+
+        def run_sharded():
+            return mla_decode(sharded, args[0], args[1].clone(), args[2],
+                              cfg)[0].full_tensor()
+
+        before = ops.LAUNCHES
+        out = run_sharded()
+        launches = ops.LAUNCHES - before
+        ms = timed_ms(torch, run_sharded)
+    ref = mla_decode(layer, x, cache.clone(), lens, cfg)[0]
+    row = {"case": "decode-seq", "mesh": "1x4", "S": DECODE_S,
+           "cache_len": DECODE_LENS, "rel_err_vs_one_card": rel(torch, out,
+                                                                ref),
+           "kernel_launches_per_card": launches,
+           "ranks_equal": same_on_every_rank(torch, dist, out),
+           "ms_seq_sharded_4": ms,
+           "ms_one_card": timed_ms(torch, lambda: mla_decode(
+               layer, x, cache.clone(), lens, cfg))}
+    if not (row["rel_err_vs_one_card"] <= TOL and launches == 1
+            and row["ranks_equal"]):
+        raise AssertionError(f"rank {rank}: {row}")
+    return row
 
 
 def main(argv=None) -> int:

@@ -25,6 +25,9 @@ transposes give it:
   backward passes each rank its own part of it.
 * ``grad_sum`` marks a replicated weight that each rank uses on its own
   share of the work: the identity forward, an all-reduce of the gradient.
+* ``max_replicated`` is the elementwise max over the ranks (an all-reduce)
+  of a softmax's running statistics; it carries no gradient, as the max a
+  softmax subtracts is a constant of its derivative.
 
 Each collective on a group of one rank is skipped (``group`` is then None):
 an axis of one rank moves and copies nothing.
@@ -242,3 +245,14 @@ def sum_replicated(x: torch.Tensor, group) -> torch.Tensor:
 
 def grad_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _apply("grad_sum", x, group)
+
+
+def max_replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks of ``group`` (``x``
+    itself for a group of one), detached from the graph."""
+    x = x.detach()
+    if group is None:
+        return x
+    x = x.clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x

@@ -120,6 +120,97 @@ def take_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
         redistribute_inputs=True, device_mesh=x.device_mesh)(x, index)[0])
 
 
+def shard_axes(x, dim: int) -> Tuple[str, ...]:
+    """The mesh axes over which the DTensor ``x`` shards dimension
+    ``dim``, in the mesh's order."""
+    from torch.distributed.tensor import Shard
+
+    dim = dim % x.ndim
+    return tuple(a for a, p in zip(x.device_mesh.mesh_dim_names, x.placements)
+                 if isinstance(p, Shard) and p.dim == dim)
+
+
+def head_axes(mesh, n: int) -> Tuple[str, ...]:
+    """The axes ``n`` heads shard over: ``model`` when they divide over
+    it, as the specs shard the head projections' columns, else none."""
+    names = tuple(mesh.mesh_dim_names)
+    if "model" in names and n % mesh.size(names.index("model")) == 0:
+        return ("model",)
+    return ()
+
+
+def blockwise(fn, mesh, args: Sequence, dims: Sequence, out_dims: Sequence,
+              batch: Sequence[str], parts: Sequence[str]):
+    """``fn`` on this rank's blocks of ``args``, entered through
+    ``local_map`` as a ``shard_map`` body: ``dims[i]`` is (batch dimension,
+    part dimension) of ``args[i]``, either None; each argument is placed
+    with its batch dimension sharded over the axes ``batch`` and its part
+    dimension (a mixer's heads or channels) over the axes ``parts`` (an
+    axis in both is a part axis),
+    replicated over the rest (a plain tensor is taken as replicated).
+    ``fn`` issues its collectives itself. An argument that is whole over
+    some of those axes, while others are cut over them, is used by each
+    rank for its own share of the work: its gradient is summed over them
+    (``core/parallel.grad_sum``). The outputs are DTensors placed by
+    ``out_dims`` likewise."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.core import parallel as par
+
+    names = tuple(mesh.mesh_dim_names)
+    batch = tuple(a for a in batch if a not in parts)
+
+    def placed(bd, pd):
+        return tuple(Shard(bd) if a in batch and bd is not None else
+                     Shard(pd) if a in parts and pd is not None else
+                     Replicate() for a in names)
+
+    def whole_over(bd, pd):
+        return tuple(a for a in names
+                     if (a in batch and bd is None)
+                     or (a in parts and pd is None))
+
+    groups = [par.axes_group(mesh, whole_over(*d)) for d in dims]
+
+    def body(*blocks):
+        got = fn(*(_prepared(x, g) for x, g in zip(blocks, groups)))
+        return got if isinstance(got, tuple) else (got,)
+
+    args = [DTensor.from_local(a, mesh, replicated(mesh), run_check=False)
+            if not is_dtensor(a) else a for a in args]
+    got = local_map(
+        body, out_placements=tuple(placed(*d) for d in out_dims),
+        in_placements=tuple(placed(*d) for d in dims),
+        redistribute_inputs=True, device_mesh=mesh)(*args)
+    return got if len(out_dims) > 1 else got[0]
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a
+    block's gradient leaves ``local_map`` as a DTensor's local tensor,
+    which the DTensor ops before it view as it is laid out."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _prepared(x, group):
+    """A block for :func:`blockwise`'s ``fn``: with a gradient, one that
+    leaves contiguous and, where the block is whole over axes that cut
+    others, summed over them (``group``)."""
+    from repro_torch.core import parallel as par
+
+    if not (isinstance(x, torch.Tensor) and x.requires_grad):
+        return x
+    return par.grad_sum(_ContiguousGrad.apply(x), group)
+
+
 def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """``torch.softmax``. On a DTensor that needs a gradient it is taken as
     ``exp(x - max) / sum``, whose backward is elementwise: DTensor works

@@ -7,10 +7,15 @@
 // For each request b and head h, one new query attends to the latent cache:
 //   s[t]  = (q_lat[b,h,:] . cache[b,t,:R] + q_rope[b,h,:] . cache[b,t,R:]) * scale
 //   o_lat = softmax(s[0..n_b-1]) . cache[b,0..n_b-1,:R],   n_b = min(cache_len[b], S-1) + 1
-// q_lat (B,H,R), q_rope (B,H,Dr), cache (B,S,R+Dr), out (B,H,R): float32,
-// contiguous; cache_len (B,) int32. Position cache_len[b] is included (the new
-// entry is already written there); cache_len[b] == S, a capacity-frozen slot,
-// attends to the whole cache.
+//   lse   = log sum_t exp(s[t])                  (optional, in the scores' scale)
+// q_lat (B,H,R), q_rope (B,H,Dr), cache (B,S,R+Dr), out (B,H,R), lse (B,H):
+// float32, contiguous; cache_len (B,) int32. Position cache_len[b] is included
+// (the new entry is already written there); cache_len[b] == S, a
+// capacity-frozen slot, attends to the whole cache. A negative cache_len[b]
+// is an empty row (n_b = 0): o = 0 and lse = -inf. A cache sharded on its
+// sequence gives each rank's block such rows (its bound cache_len - v0 lies
+// before the block's first position v0), and the ranks' (o, lse) merge as
+// the merge pass below merges pieces.
 //
 // Bound on this card. The function reads B*n*(R+Dr)*4 bytes and does
 // 2*B*H*n*(2R+Dr) operations (n = mean valid length): at H=128, R=512, Dr=64
@@ -82,7 +87,9 @@
 //     and wait for its results): per (head, row), the pieces from the one
 //     holding the row's first tile to the one holding its last, each
 //     weighted by exp(m - max m); an empty piece (more pieces than tiles)
-//     wrote nothing and weighs 0. Merging in the first kernel instead, by
+//     wrote nothing and weighs 0. The row's lse, max m + log(sum w l), goes
+//     beside o_lat when asked for; an empty row (no tile) writes o = 0 and
+//     lse = -inf and reads no piece. Merging in the first kernel instead, by
 //     the block that finished a row's last segment, ran 10-26 % slower on an
 //     H100: a merging block stalls its own tiles.
 // Registers: Q fragments 72, P V accumulator 64, score accumulator 32 (or
@@ -212,7 +219,9 @@ __device__ void plan_rows(const int* __restrict__ cache_len, int B, int S,
     const int b = base + lane;
     int n = 0, tiles = 0;
     if (b < B) {
-      n = min(max(cache_len[b], 0), S - 1) + 1;
+      // A negative bound is an empty row: no position, no tile (a rank's
+      // block of a sequence-sharded cache that lies past the row's end).
+      n = cache_len[b] < 0 ? 0 : min(cache_len[b], S - 1) + 1;
       tiles = (n + kTile - 1) / kTile;
       nval[b] = n;
     }
@@ -525,8 +534,8 @@ __global__ void __launch_bounds__(kCombineThreads)
 mla_combine_kernel(const float* __restrict__ part_acc,
                    const float* __restrict__ part_ml,
                    const int* __restrict__ plan,
-                   float* __restrict__ out, int B, int H, int R,
-                   int n_pieces) {
+                   float* __restrict__ out, float* __restrict__ lse, int B,
+                   int H, int R, int n_pieces) {
   // Launched as the split kernel's programmatic dependent: wait for it.
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int h = blockIdx.x;
@@ -534,7 +543,16 @@ mla_combine_kernel(const float* __restrict__ part_acc,
   __shared__ float w_s[kMaxPieces];
   __shared__ float inv_l;
   __shared__ int p_lo, p_hi;
-  if (threadIdx.x < 32) {   // warp 0: a piece per lane, (m, l) as a float2
+  if (threadIdx.x < 32 && plan[b] == plan[b + 1]) {
+    // An empty row (no tile; the total may be 0): no piece to read, so the
+    // loop below writes o = 0; its lse is -inf.
+    if (threadIdx.x == 0) {
+      inv_l = 0.f;
+      p_lo = 0;
+      p_hi = -1;
+      if (lse != nullptr) lse[static_cast<size_t>(b) * H + h] = -INFINITY;
+    }
+  } else if (threadIdx.x < 32) {   // warp 0: a piece per lane, (m, l) as a float2
     const int lane = threadIdx.x;
     const int total = plan[B];
     const int lo = piece_of(plan[b], total, n_pieces);
@@ -564,6 +582,7 @@ mla_combine_kernel(const float* __restrict__ part_acc,
       inv_l = 1.f / l_sum;
       p_lo = lo;
       p_hi = hi;
+      if (lse != nullptr) lse[static_cast<size_t>(b) * H + h] = m_max + logf(l_sum);
     }
   }
   __syncthreads();
@@ -605,10 +624,12 @@ int mla_decode_attention_smem_bytes(int B) {
 // Launches both passes on `stream`; returns cudaGetLastError() (0 = launched).
 // The caller checks the shape limits (R % 4 == 0, R <= 512, Dr % 4 == 0,
 // R + Dr <= 576, 1 <= n_pieces <= 1024) and allocates the partial buffers,
-// (n_pieces + B - 1) slots, and the (B + 1,) int32 plan.
+// (n_pieces + B - 1) slots, and the (B + 1,) int32 plan. `lse` (B, H) may be
+// null: the default call writes o_lat alone.
 int mla_decode_attention_f32(const float* q_lat, const float* q_rope,
                              const float* cache, const int* cache_len,
-                             float* out, float* part_acc, float* part_ml,
+                             float* out, float* lse, float* part_acc,
+                             float* part_ml,
                              int* plan, int B, int H, int S, int R, int Dr,
                              int n_pieces, float scale, cudaStream_t stream) {
   const int smem = mla_decode_attention_smem_bytes(B);
@@ -635,7 +656,7 @@ int mla_decode_attention_f32(const float* q_lat, const float* q_rope,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, mla_combine_kernel, part_acc,
                            static_cast<const float*>(part_ml),
-                           static_cast<const int*>(plan), out, B, H, R,
+                           static_cast<const int*>(plan), out, lse, B, H, R,
                            n_pieces);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

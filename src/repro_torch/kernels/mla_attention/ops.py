@@ -27,7 +27,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("mla_decode_attention")
     if not getattr(lib, "_argtypes_set", False):
         fn = lib.mla_decode_attention_f32
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.mla_decode_attention_smem_bytes.argtypes = [ctypes.c_int]
@@ -62,11 +62,15 @@ def _check(q_lat, q_rope, cache, cache_len) -> None:
 
 def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
                          cache: torch.Tensor, cache_len: torch.Tensor,
-                         scale: float, n_pieces: Optional[int] = None
-                         ) -> torch.Tensor:
+                         scale: float, n_pieces: Optional[int] = None,
+                         return_lse: bool = False):
     """q_lat (B,H,R), q_rope (B,H,Dr), cache (B,S,R+Dr) float32 contiguous,
     cache_len (B,) int32 -> o_lat (B,H,R) float32. Row ``b`` attends to
-    positions ``0..min(cache_len[b], S-1)``. ``n_pieces`` overrides
+    positions ``0..min(cache_len[b], S-1)``; a negative ``cache_len[b]`` is
+    an empty row, whose o_lat is 0. With ``return_lse`` it returns (o_lat,
+    lse): lse (B,H) float32 is the log of the softmax's denominator in the
+    scores' scale, -inf on an empty row, so that blocks of one sequence
+    merge (a cache sharded on its sequence). ``n_pieces`` overrides
     :func:`plan.n_pieces_for` (a sweep of the cut; the model never sets
     it). The kernel cuts the batch's tiles into pieces on the device
     (``plan.py``); the host never reads ``cache_len``."""
@@ -74,7 +78,8 @@ def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     _check(q_lat, q_rope, cache, cache_len)
     dev = q_lat.device
     if dev.type in ("cpu", "meta"):
-        return mla_decode_attention_ref(q_lat, q_rope, cache, cache_len, scale)
+        return mla_decode_attention_ref(q_lat, q_rope, cache, cache_len, scale,
+                                        return_lse)
     if dev.type != "cuda":
         raise ValueError(f"mla_decode_attention runs on cpu or cuda (meta "
                          f"traces shapes only), not {dev}")
@@ -100,6 +105,8 @@ def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
     # One scratch allocation: the partial acc (slots, H, R), (m, l) (slots,
     # H, 2) and the kernel's cut, B + 1 int32 tile starts.
     out = torch.empty((b, h, r), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, h), dtype=torch.float32, device=dev) \
+        if return_lse else None
     slots = n_pieces + b - 1
     scratch = torch.empty(slots * h * (r + 2) + b + 1, dtype=torch.float32,
                           device=dev)
@@ -110,10 +117,11 @@ def mla_decode_attention(q_lat: torch.Tensor, q_rope: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mla_decode_attention_f32(
             q_lat.data_ptr(), q_rope.data_ptr(), cache.data_ptr(),
-            cache_len.data_ptr(), out.data_ptr(), part_acc, part_ml,
+            cache_len.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), part_acc, part_ml,
             tile_starts, b, h, s, r, dr, n_pieces, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"mla_decode_attention kernel launch failed with "
                            f"CUDA error {rc}")
     LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out

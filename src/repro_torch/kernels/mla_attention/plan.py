@@ -3,8 +3,10 @@ as plain functions: the kernel computes the same cut on the device from
 ``cache_len``, so the host never reads it; the CPU tests and the plain
 split-and-merge emulation (``ref.mla_decode_attention_pieces``) call these.
 
-Row ``b`` attends to ``n_b = min(max(cache_len[b], 0), S - 1) + 1``
-positions, ``ceil(n_b / TILE)`` tiles. The tiles of the whole batch, row
+Row ``b`` attends to ``n_b = min(cache_len[b], S - 1) + 1`` positions,
+``ceil(n_b / TILE)`` tiles; a negative ``cache_len[b]`` is an empty row
+(``n_b = 0``, no tile), as a rank's block of a cache sharded on its
+sequence may be. The tiles of the whole batch, row
 after row, are cut into ``n_pieces`` pieces at ``floor(p * T / n_pieces)``
 (``T`` tiles in all), so no piece is more than one tile longer than
 another. A piece may span rows: each (piece, row) overlap is a segment,
@@ -30,8 +32,9 @@ class Segment(NamedTuple):
 
 
 def valid_len(cache_len: int, s: int) -> int:
-    """Positions row attends to: 0..min(cache_len, S-1)."""
-    return min(max(int(cache_len), 0), s - 1) + 1
+    """Positions row attends to: 0..min(cache_len, S-1), none for a
+    negative cache_len."""
+    return 0 if cache_len < 0 else min(int(cache_len), s - 1) + 1
 
 
 def tile_starts(cache_len: Sequence[int], s: int) -> List[int]:

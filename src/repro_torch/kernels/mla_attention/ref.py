@@ -17,10 +17,12 @@ _TF32_MASK = -8192            # 0xffffe000: the sign, exponent, 10 mantissa bits
 
 def mla_decode_attention_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
                              cache: torch.Tensor, cache_len: torch.Tensor,
-                             scale: float) -> torch.Tensor:
+                             scale: float, return_lse: bool = False):
     """q_lat (B,H,R), q_rope (B,H,Dr), cache (B,S,R+Dr) f32, cache_len (B,)
-    int32 -> o_lat (B,H,R) f32. Row ``b`` attends to positions
-    ``0..min(cache_len[b], S-1)``."""
+    int32 -> o_lat (B,H,R) f32, and with ``return_lse`` lse (B,H) f32, the
+    log-sum-exp of the row's scaled scores. Row ``b`` attends to positions
+    ``0..min(cache_len[b], S-1)``; a negative ``cache_len[b]`` is an empty
+    row: o_lat 0, lse -inf."""
     r = q_lat.shape[-1]
     s = cache.shape[1]
     ck = cache[..., :r]
@@ -30,17 +32,25 @@ def mla_decode_attention_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
     valid = decode_valid_mask(cache_len, s, ring=True)          # (B,1,S)
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bht,btr->bhr", probs, ck)
+    full = cache_len[:, None] >= 0                              # (B,1)
+    o_lat = torch.where(full[..., None],
+                        torch.einsum("bht,btr->bhr", probs, ck), 0.0)
+    if not return_lse:
+        return o_lat
+    return o_lat, torch.where(full, torch.logsumexp(scores, dim=-1),
+                              float("-inf"))
 
 
 def mla_decode_attention_pieces(q_lat: torch.Tensor, q_rope: torch.Tensor,
                                 cache: torch.Tensor, cache_len: torch.Tensor,
-                                scale: float, n_pieces: int) -> torch.Tensor:
+                                scale: float, n_pieces: int,
+                                return_lse: bool = False):
     """The kernel's split and merge in plain PyTorch (f32 products): a
     partial (m, l, acc) per segment of ``plan.segments`` in its slot, then
     per row the merge pass's weighting over ``plan.row_pieces``, an empty
-    piece weighing 0. Slots no segment writes hold NaN, so a merge that
-    read one would show it."""
+    piece weighing 0, and with ``return_lse`` the row's lse, max m +
+    log(sum w l); an empty row (no tile) is o 0, lse -inf. Slots no
+    segment writes hold NaN, so a merge that read one would show it."""
     b, h, r = q_lat.shape
     s = cache.shape[1]
     lens = [int(c) for c in cache_len.tolist()]
@@ -58,8 +68,11 @@ def mla_decode_attention_pieces(q_lat: torch.Tensor, q_rope: torch.Tensor,
         e = torch.exp(sc - m[:, None])
         part_m[seg.slot], part_l[seg.slot] = m, e.sum(dim=-1)
         part_acc[seg.slot] = e @ kv[:, :r]
-    out = torch.empty(b, h, r)
+    out = torch.zeros(b, h, r)
+    lse = torch.full((b, h), float("-inf"))
     for row in range(b):
+        if starts[row] == starts[row + 1]:               # an empty row
+            continue
         pieces = [p for p in plan.row_pieces(starts, row, n_pieces)
                   if plan.piece_start(p, total, n_pieces)
                   < plan.piece_start(p + 1, total, n_pieces)]
@@ -72,7 +85,8 @@ def mla_decode_attention_pieces(q_lat: torch.Tensor, q_rope: torch.Tensor,
             num += w[:, None] * part_acc[p + row]
             den += w * l
         out[row] = num / den[:, None]
-    return out
+        lse[row] = m_max + torch.log(den)
+    return (out, lse) if return_lse else out
 
 
 def split_tf32(x: torch.Tensor):

@@ -74,7 +74,8 @@ def _nbytes(tensors: Any) -> int:
 class CollectiveCounter(TorchDispatchMode):
     """Inside the block, ``counts`` holds the output bytes on this rank of
     every collective issued, by kind (``COLLECTIVE_OPS``), and their
-    ``count``. The functional ops' output is what they return; the
+    ``count``; ``largest`` the bytes of the largest single one of each
+    kind. The functional ops' output is what they return; the
     ``c10d`` ops write their first argument. Ops on DTensors are left to
     DTensor, whose local ops (its collectives among them) come back here;
     the ops it runs on fake tensors to propagate shapes are not counted.
@@ -83,6 +84,7 @@ class CollectiveCounter(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.counts = zero_counts()
+        self.largest = {k: 0 for k in COLLECTIVE_OPS}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -99,8 +101,10 @@ class CollectiveCounter(TorchDispatchMode):
         if name.startswith(_NAMESPACES) and name not in _NO_DATA:
             if name not in KIND:
                 raise NotImplementedError(f"uncounted collective {name}")
-            self.counts[KIND[name]] += _nbytes(
-                args[0] if name.startswith("c10d::") else out)
+            kind = KIND[name]
+            nbytes = _nbytes(args[0] if name.startswith("c10d::") else out)
+            self.counts[kind] += nbytes
+            self.largest[kind] = max(self.largest[kind], nbytes)
             self.counts["count"] += 1
         self.record(func, args, kwargs, out)
         return out

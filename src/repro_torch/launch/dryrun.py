@@ -426,6 +426,7 @@ def _measure(cfg: ModelConfig, shape: InputShape, mesh,
                                        if k in counter.used),
                 temp_bytes=counter.peak_bytes, flops=float(counter.flops),
                 hbm=float(counter.bytes_accessed), coll=counter.counts,
+                coll_largest=counter.largest,
                 struct=float(counter.peak_bytes + arg_b + out_b))
 
 

@@ -10,7 +10,9 @@ ranks; :func:`to_placements` turns a spec into DTensor placements over a
 real mesh, and :func:`meta_dtensor`, :func:`shard_tree` and
 :func:`shard_model` make meta DTensors (shapes only, no memory) of a
 model's weights, a cache tree and a batch, for the dry run
-(``launch/dryrun.py``).
+(``launch/dryrun.py``); :func:`distribute` (and ``shard_model``, given a
+model whose weights hold values) places real values the same way, for a
+step run over a real mesh.
 
 Policy:
 * the batch over ``("pod", "data")``; tensor parallelism (heads, FFN
@@ -271,6 +273,17 @@ def meta_dtensor(shape, dtype: torch.dtype, mesh, entries: Spec):
                               stride=stride)
 
 
+def distribute(t: torch.Tensor, mesh, entries: Spec):
+    """``t`` (the same on every rank) as a DTensor over ``mesh`` placed by
+    the spec ``entries``, each rank keeping its block; an axis of one rank
+    replicates, as :func:`meta_dtensor` places it."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    placements = tuple(Replicate() if mesh.size(m) == 1 else p for m, p in
+                       enumerate(to_placements(mesh, entries)))
+    return distribute_tensor(t, mesh, placements)
+
+
 def shard_tree(tree: Any, specs: Any, mesh) -> Any:
     """Every tensor leaf of ``tree`` (nested dicts and NamedTuples, such as
     ``make_caches``' tree or a batch) as a meta DTensor placed by the leaf
@@ -284,15 +297,21 @@ def shard_tree(tree: Any, specs: Any, mesh) -> Any:
 
 
 def shard_model(model, mesh, specs: Any):
-    """Replace every weight of ``model`` (a ``Model``), in place, by a meta
+    """Replace every weight of ``model`` (a ``Model``), in place, by a
     DTensor placed by ``specs`` (:func:`param_pspecs` of the model's tree):
-    a per-layer weight takes its segment's spec without the leading layer
-    None, a hybrid's shared block likewise. Returns the model."""
+    a meta DTensor for a meta weight, else the weight's values, each rank
+    keeping its block (:func:`distribute`). A per-layer weight takes its
+    segment's spec without the leading layer None, a hybrid's shared block
+    likewise. Returns the model."""
+    def make(p, entries):
+        if p.is_meta:
+            return meta_dtensor(p.shape, p.dtype, mesh, entries)
+        return distribute(p.detach(), mesh, entries)
+
     def place(module, spec_of):
         for name, p in list(module.named_parameters(recurse=False)):
             setattr(module, name, torch.nn.Parameter(
-                meta_dtensor(p.shape, p.dtype, mesh, spec_of(name)),
-                requires_grad=p.requires_grad))
+                make(p, spec_of(name)), requires_grad=p.requires_grad))
 
     place(model, lambda name: specs[name])
     for seg_name, blocks in model.segments.items():

@@ -12,6 +12,13 @@ KV``, masked with ``NEG_INF``.
 Caches are updated in place: where the JAX package returns a new buffer
 from ``dynamic_update_slice``/``.at[].set`` under a donating ``jit``, the
 port writes into the tensor it was given and returns that same tensor.
+
+Over DTensors (the dry run) attention runs on each rank's blocks through
+``local_map``, as XLA partitions JAX's: prefill with the batch and the
+heads local (no collective), decode over a cache whose sequence is sharded
+with every head, each rank's block of positions giving a partial softmax
+(o, lse) that :func:`merge_blocks` combines over the sequence axes by
+all-reduces.
 """
 from __future__ import annotations
 
@@ -110,6 +117,66 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, h * hd).to(q.dtype)
 
 
+def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_sdpa` over one block of the key positions, as a partial
+    softmax: (o (B,Sq,H,hd) float32, normalized within the block, lse
+    (B,Sq,H) float32, the log of its denominator); a query row with no
+    valid position in the block has o = 0 and lse = -inf."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd).float()
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) / (hd ** 0.5)
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    full = mask.any(-1)                                       # (B|1, Sq)
+    lse = torch.logsumexp(scores, dim=-1).permute(0, 3, 1, 2)  # (B,Sq,KV,G)
+    lse = torch.where(full[:, :, None, None], lse, float("-inf"))
+    out = torch.where(full[:, :, None, None, None], out, 0.0)
+    return out.reshape(b, sq, h, hd), lse.reshape(b, sq, h)
+
+
+def merge_blocks(o: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
+    """The softmax over every rank's block of positions from each block's
+    partial (o (..., H, D) normalized within the block, lse (..., H)):
+    ``sum_r w_r o_r / sum_r w_r`` with ``w_r = exp(lse_r - max_r lse_r)``,
+    the max and both sums all-reduced over ``group`` (the sequence axes).
+    A block with no valid position (lse = -inf) weighs 0. On a group of
+    one rank, ``o`` itself."""
+    from repro_torch.core import parallel as par
+
+    if group is None:
+        return o
+    w = torch.exp(lse - par.max_replicated(lse, group))
+    num = par.sum_replicated(o * w[..., None], group)
+    return num / par.sum_replicated(w, group)[..., None]
+
+
+def _decode_seq_blocks(q: torch.Tensor, k, v, mask: torch.Tensor
+                       ) -> torch.Tensor:
+    """:func:`_sdpa` of one decode step over DTensor caches (B,S,KV,hd)
+    whose batch and sequence are sharded: the query's heads come whole to
+    every rank of its batch block, each rank attends its block of
+    positions, and the blocks merge over the sequence axes
+    (:func:`merge_blocks`). Returns (B, 1, H*hd) in q's dtype."""
+    from repro_torch.core import parallel as par
+
+    mesh = k.device_mesh
+    seq = dt.shard_axes(k, 1)
+    group = par.axes_group(mesh, seq)
+
+    def body(q, k, v, mask):
+        o, lse = _sdpa_block(q, k, v, mask)
+        o = merge_blocks(o, lse, group)
+        return o.reshape(q.shape[0], q.shape[1], -1).to(q.dtype)
+
+    return dt.blockwise(
+        body, mesh, (dt.batch_like(q, k), k, v, mask),
+        [(0, None), (0, 1), (0, 1), (0 if mask.shape[0] > 1 else None, 2)],
+        [(0, None)], dt.shard_axes(k, 0), seq)
+
+
 def _pick_chunk(s: int, target: int = 512) -> int:
     """Query chunk of the chunked prefill loops: ``min(s, target)``, the
     last chunk taking what is left. The JAX package halves the chunk until
@@ -183,29 +250,71 @@ def attention_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, positions)
+    attend = _heads_local if dt.is_dtensor(q) else _attend_full
+    return attend(q, k, v, cfg) @ p.wo, (k, v)
+
+
+def _heads_local(q, k, v, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`_attend_full` over DTensors, on each rank's blocks as XLA
+    partitions JAX's: the batch as the query's is sharded, the query heads
+    over ``model`` when they divide over it (``dt.head_axes``), the K/V
+    heads likewise, or, where they do not divide (Qwen3-8B's 8 over 16),
+    whole on every rank, which then attends with the K/V heads of its own
+    query heads and sums their gradient over ``model``. No collective in
+    the forward."""
+    from repro_torch.core import parallel as par
+
+    mesh = q.device_mesh
+    h, kvh = q.shape[2], k.shape[2]
+    heads = dt.head_axes(mesh, h)
+    cut_kv = bool(heads) and dt.head_axes(mesh, kvh) == heads
+    n = par.axis_size(mesh, heads)
+    h0 = par.axis_index(mesh, heads) * (h // n) if heads else 0
+    g = h // kvh
+
+    def body(q, k, v):
+        if heads and not cut_kv:
+            hl = q.shape[2]
+            if hl % g == 0 or g % hl == 0:     # whole groups, or one's part
+                k, v = (t.narrow(2, h0 // g, max(1, hl // g)) for t in (k, v))
+            else:                              # a K/V head per query head
+                idx = torch.tensor([(h0 + i) // g for i in range(hl)],
+                                   device=k.device)
+                k, v = (t.index_select(2, idx) for t in (k, v))
+        return _attend_full(q, k, v, cfg)
+
+    kv_dims = (0, 2) if cut_kv else (0, None)
+    return dt.blockwise(body, mesh, (q, k, v), [(0, 2), kv_dims, kv_dims],
+                        [(0, 2)], dt.shard_axes(q, 0), heads)
+
+
+def _attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Attention of :func:`attention_prefill`: q (B,S,H,hd), k/v
+    (B,S,KV,hd) -> (B, S, H*hd) in q's dtype, chunked over queries (or the
+    block-skipped loop)."""
+    b, s = q.shape[:2]
     chunk = _pick_chunk(s)
     if cfg.attention_kind != "bidirectional" and block_skip_enabled():
-        out = _flash_causal(q, k, v, cfg, chunk)
-        return out @ p.wo, (k, v)
+        return _flash_causal(q, k, v, cfg, chunk)
 
     kf, vf = k.float(), v.float()
-    kv_pos = torch.arange(s, device=x.device)
+    kv_pos = torch.arange(s, device=q.device)
     win = cfg.sliding_window
     outs = []
     for lo in range(0, s, chunk):
         hi = min(lo + chunk, s)
         if cfg.attention_kind == "bidirectional":
             mask = torch.ones((1, hi - lo, s), dtype=torch.bool,
-                              device=x.device)
+                              device=q.device)
         else:
-            q_pos = torch.arange(lo, hi, device=x.device)
+            q_pos = torch.arange(lo, hi, device=q.device)
             mask = kv_pos[None, :] <= q_pos[:, None]
             if win and s > win:
                 mask &= kv_pos[None, :] > q_pos[:, None] - win
             mask = mask[None]
         outs.append(_sdpa(q[:, lo:hi], kf, vf, mask))
-    out = torch.cat(outs, dim=1)
-    return out @ p.wo, (k, v)
+    return torch.cat(outs, dim=1)
 
 
 def _positions_of(cache_len: torch.Tensor, b: int) -> torch.Tensor:
@@ -303,7 +412,8 @@ def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     slot = decode_slot(cache_len, cap, ring)
     update_cache(cache_k, k_new, slot)
     update_cache(cache_v, v_new, slot)
-    out = _sdpa(q, cache_k, cache_v, decode_valid_mask(cache_len, cap, ring))
+    attend = _decode_seq_blocks if dt.is_dtensor(cache_k) else _sdpa
+    out = attend(q, cache_k, cache_v, decode_valid_mask(cache_len, cap, ring))
     return out @ p.wo, cache_k, cache_v
 
 

@@ -10,6 +10,11 @@ chunked form.
 Both chunked forms take a ragged last chunk (masked rows of ``dt = 0``)
 where the JAX package halves the chunk until it divides the prompt length;
 the decomposition is exact for any chunking, so the two agree to rounding.
+
+Over DTensors (the dry run) the causal conv and the scan run on each
+rank's blocks through ``local_map``: the conv on its batch and channels,
+the scan on its batch and its SSM heads (over ``model``, as JAX's specs
+shard ``in_proj``'s columns), with B and C whole.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import dtensor as dtn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_autograd
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: F401
@@ -70,7 +76,12 @@ def _split_proj(p: Mamba, x: torch.Tensor, cfg: ModelConfig):
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
-    """Depthwise causal conv. xbc: (B,S,C); w: (K,C)."""
+    """Depthwise causal conv. xbc: (B,S,C); w: (K,C). A DTensor ``xbc``
+    is convolved on each rank's batch and channels, its sequence whole."""
+    if dtn.is_dtensor(xbc):
+        return dtn.blockwise(_causal_conv, xbc.device_mesh, (xbc, w, b),
+                             [(0, 2), (None, 1), (None, 0)], [(0, 2)],
+                             dtn.shard_axes(xbc, 0), dtn.shard_axes(xbc, 2))
     k, s = w.shape[0], xbc.shape[1]
     pad = F.pad(xbc, (0, 0, k - 1, 0))
     out = torch.zeros(xbc.shape, dtype=torch.float32, device=xbc.device)
@@ -113,10 +124,9 @@ def mamba_prefill(p: Mamba, x: torch.Tensor, cfg: ModelConfig
     xin = xbc[..., :din].reshape(bsz, s, h, cfg.ssm_head_dim)
     bmat = xbc[..., din: din + n]
     cmat = xbc[..., din + n:]
-    y, h_final = ssd_scan_autograd(xin.float().contiguous(), dt.contiguous(),
-                                   p.A_log.float().contiguous(),
-                                   bmat.float().contiguous(),
-                                   cmat.float().contiguous(), cfg.ssm_chunk)
+    y, h_final = _scan(xin.float().contiguous(), dt.contiguous(),
+                       p.A_log.float().contiguous(), bmat.float().contiguous(),
+                       cmat.float().contiguous(), cfg.ssm_chunk)
     y = y + p.D[None, None, :, None] * xin.float()
     y = y.reshape(bsz, s, din).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(z.dtype), p.norm_gain, cfg.norm_eps)
@@ -126,6 +136,24 @@ def mamba_prefill(p: Mamba, x: torch.Tensor, cfg: ModelConfig
     conv_state = xbc_raw[:, s - (k - 1):, :] if s >= k - 1 else F.pad(
         xbc_raw, (0, 0, k - 1 - s, 0))
     return out, h_final, conv_state
+
+
+def _scan(x, dt, a_log, bmat, cmat, chunk: int):
+    """``ssd_scan_autograd``; over DTensors, on each rank's batch and SSM
+    heads through ``local_map`` (the kernel's Function on CUDA blocks, the
+    plain chunked scan on meta), B and C whole on every rank: y (B,S,H,P)
+    and h_final (B,H,P,N) come out sharded as the heads are."""
+    if not dtn.is_dtensor(x):
+        return ssd_scan_autograd(x, dt, a_log, bmat, cmat, chunk)
+    mesh = x.device_mesh
+
+    def body(*blocks):
+        return ssd_scan_autograd(*(t.contiguous() for t in blocks), chunk)
+
+    return dtn.blockwise(body, mesh, (x, dt, a_log, bmat, cmat),
+                         [(0, 2), (0, 2), (None, 0), (0, None), (0, None)],
+                         [(0, 2), (0, 1)], dtn.shard_axes(x, 0),
+                         dtn.head_axes(mesh, x.shape[2]))
 
 
 def mamba_decode(p: Mamba, x: torch.Tensor, h_state: torch.Tensor,

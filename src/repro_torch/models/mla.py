@@ -17,6 +17,13 @@ The latent cache is (B, S, kv_lora_rank + qk_rope_head_dim). Decode and
 extend write the new entries into the cache they are given, in place, and
 return that same tensor (the JAX package returns a fresh buffer from a
 donating ``jit``).
+
+Over DTensors (the dry run) the attention runs on each rank's blocks
+through ``local_map``, as XLA partitions JAX's: prefill with the batch and
+the heads local; decode over a latent cache whose sequence is sharded,
+each rank's block of positions through the kernel wrapper with
+``return_lse`` and the blocks merged by all-reduces
+(``attention.merge_blocks``).
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.models.attention import (NEG_INF, _pick_chunk, _positions_of,
                                           block_skip_enabled, extend_positions,
-                                          update_cache, write_tokens)
+                                          merge_blocks, update_cache,
+                                          write_tokens)
 from repro_torch.models.layers import apply_rope, rms_norm, weight
 
 
@@ -147,7 +155,10 @@ def mla_causal_attention(q_nope, q_rope, k_nope, k_rope, vfull,
                          cfg: ModelConfig) -> torch.Tensor:
     """Causal attention of the unabsorbed form over the whole sequence:
     (B,S,H,nope), (B,S,H,rope), (B,S,H,nope), (B,S,rope), (B,S,H,vd) ->
-    (B,S,H,vd) f32, in query chunks of ``_pick_chunk(S)``."""
+    (B,S,H,vd) f32, in query chunks of ``_pick_chunk(S)``. Over DTensors,
+    on each rank's batch and heads (:func:`_heads_local`)."""
+    if dt.is_dtensor(q_nope):
+        return _heads_local(q_nope, q_rope, k_nope, k_rope, vfull, cfg)
     s = q_nope.shape[1]
     scale = 1.0 / ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** 0.5)
     chunk = _pick_chunk(s)
@@ -173,6 +184,56 @@ def mla_causal_attention(q_nope, q_rope, k_nope, k_rope, vfull,
     return torch.cat(outs, dim=1)
 
 
+def _heads_local(q_nope, q_rope, k_nope, k_rope, vfull, cfg: ModelConfig):
+    """:func:`mla_causal_attention` over DTensors, through ``local_map``
+    as XLA partitions JAX's (``wq_b``, ``wk_b`` and ``wv_b`` columns over
+    ``model``): the batch as the query's is sharded, the heads over
+    ``model`` when they divide (``dt.head_axes``), the shared ``k_rope``
+    whole on every rank (its gradient summed over ``model``). No DTensor
+    op sees a sharded head dimension, and the mixer issues no collective
+    in the forward."""
+    mesh = q_nope.device_mesh
+    heads = (0, 2)
+    return dt.blockwise(
+        lambda *a: mla_causal_attention(*a, cfg), mesh,
+        (q_nope, q_rope, k_nope, k_rope, vfull),
+        [heads, heads, heads, (0, None), heads], [heads],
+        dt.shard_axes(q_nope, 0), dt.head_axes(mesh, q_nope.shape[2]))
+
+
+def _decode_seq_blocks(q_lat, q_rope, cache, rows_len: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """The kernel wrapper over a DTensor latent cache whose batch and
+    sequence are sharded, as XLA partitions JAX's softmax over the sharded
+    sequence: the query's heads come whole to every rank of its batch
+    block (8 x 128 x 576 floats a layer for R1), each rank attends its
+    block of positions ``[v0, v0 + S_l)`` with its rows' bounds
+    ``cache_len - v0`` (an empty row where negative) and ``return_lse``,
+    and the blocks' (o, lse) merge by all-reduces over the sequence axes.
+    On CUDA blocks the kernel runs, on meta the plain version. Returns
+    o_lat (B,H,R)."""
+    from repro_torch.core import parallel as par
+
+    mesh = cache.device_mesh
+    seq = dt.shard_axes(cache, 1)
+    group = par.axes_group(mesh, seq)
+    v0 = dt.shard_offsets(cache)[1]
+
+    def body(q_lat, q_rope, block, lens):
+        o, lse = mla_ops.mla_decode_attention(
+            q_lat.contiguous(), q_rope.contiguous(),
+            block.float().contiguous(), (lens - v0).contiguous(), scale,
+            return_lse=True)
+        return merge_blocks(o, lse, group)
+
+    rows = (0, None)
+    return dt.blockwise(body, mesh, (dt.batch_like(q_lat, cache),
+                                     dt.batch_like(q_rope, cache), cache,
+                                     rows_len),
+                        [rows, rows, (0, 1), rows], [rows],
+                        dt.shard_axes(cache, 0), seq)
+
+
 def mla_decode(p: MLA, x: torch.Tensor, cache: torch.Tensor,
                cache_len: torch.Tensor, cfg: ModelConfig
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -195,9 +256,13 @@ def mla_decode(p: MLA, x: torch.Tensor, cache: torch.Tensor,
     q_lat = torch.einsum("bshe,rhe->bshr", q_nope.float(), wk.float())
     scale = 1.0 / ((nope + rope) ** 0.5)
     rows_len = cache_len.to(torch.int32).expand(b).contiguous()
-    o_lat = mla_ops.mla_decode_attention(
-        q_lat[:, 0].contiguous(), q_rope[:, 0].float().contiguous(),
-        cache.float().contiguous(), rows_len, scale)[:, None]  # (B,1,H,kvr)
+    if dt.is_dtensor(cache):
+        o_lat = _decode_seq_blocks(q_lat[:, 0], q_rope[:, 0].float(), cache,
+                                   rows_len, scale)[:, None]
+    else:
+        o_lat = mla_ops.mla_decode_attention(
+            q_lat[:, 0].contiguous(), q_rope[:, 0].float().contiguous(),
+            cache.float().contiguous(), rows_len, scale)[:, None]
 
     wv = dt.fit_heads(p.wv_b, h).reshape(kvr, h, vd)
     out = torch.einsum("bshr,rhe->bshe", o_lat, wv.float())
