@@ -246,10 +246,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    kernel but the SSD scan may launch.
 17. dryrun: the port's dry run (``repro_torch.launch.dryrun``), shapes
    only, each pair in a process of its own on a fake process group, all
-   started together: DeepSeek-R1 and Kimi K2 decode_32k on 16 x 16 (Kimi
-   also on 2 x 16 x 16) and Qwen3-8B train_4k must be ``ok`` (their three
-   roofline terms, computed from the H100's data-sheet rates, argument
-   GiB a rank and collective bytes by kind are printed); then a 1 x 1
+   started together: the nine pairs of DRYRUN_PRODUCTION (DeepSeek-R1,
+   OLMoE and Kimi K2 decode_32k on 16 x 16, Kimi also on 2 x 16 x 16;
+   Qwen3-8B, R1, Mamba2 and Zamba2 train_4k; R1 prefill_32k) must be
+   ``ok``, with argument bytes equal to JAX's and collective bytes at most
+   DRYRUN_COLL_FACTOR times JAX's (OLMoE decode_32k, whose expert
+   redundancy is a permute, DRYRUN_OLMOE_FACTOR); their three roofline
+   terms, computed from the H100's data-sheet rates, argument GiB a rank
+   and collective bytes by kind are printed, each pair's total beside
+   JAX's and the CPU sweep's (DRYRUN_CPU_SWEEP: the permute bytes, which
+   the port issues itself, equal to the sweep's, the total within
+   DRYRUN_SWEEP_SPREAD of it either way; OLMoE's collective term below
+   DRYRUN_OLMOE_COLL_S); then a 1 x 1
    record of the decode step of each serve config (the R1 and Kimi cuts,
    Qwen3-8B, OLMoE, Mamba2, Zamba2: batch 8, capacity 2048, float32
    caches), whose argument bytes must equal the bytes its serve's engine
@@ -566,6 +574,7 @@ FAULT_DECODE_BATCH = 4
 # 1 x 1 record (the config function of each), beside the step measured on
 # the card at DRYRUN_STEP_LEN tokens a row.
 DRYRUN_PRODUCTION = (("deepseek-r1", "decode_32k", False),
+                     ("olmoe-1b-7b", "decode_32k", False),
                      ("kimi-k2-1t-a32b", "decode_32k", False),
                      ("kimi-k2-1t-a32b", "decode_32k", True),
                      ("qwen3-8b", "train_4k", False),
@@ -584,6 +593,10 @@ JAX_DRYRUN = {
         "all-gather": 1958952960, "all-reduce": 533280960,
         "reduce-scatter": 0, "all-to-all": 4257693696,
         "collective-permute": 38397016}),
+    "olmoe-1b-7b × decode_32k × 16x16": (1913336352, {
+        "all-gather": 16777216, "all-reduce": 35801152,
+        "reduce-scatter": 0, "all-to-all": 335675392,
+        "collective-permute": 403062864}),
     "kimi-k2-1t-a32b × decode_32k × 16x16": (26113403424, {
         "all-gather": 253928843264, "all-reduce": 337369152,
         "reduce-scatter": 0, "all-to-all": 6606770176,
@@ -619,6 +632,33 @@ JAX_DRYRUN = {
 # DRYRUN_R1_COLL_S (23.95 ms then).
 DRYRUN_R1 = "deepseek-r1 × decode_32k × 16x16"
 DRYRUN_R1_AG_BYTES, DRYRUN_R1_COLL_S = 0.5e9, 8e-3
+# Every production pair's collective bytes a rank at most
+# DRYRUN_COLL_FACTOR times JAX's; OLMoE decode_32k, whose expert
+# redundancy moves as a permute (a rank receives its slots' experts, JAX's
+# ``jnp.repeat`` partitioned), at most DRYRUN_OLMOE_FACTOR times, and its
+# collective term below DRYRUN_OLMOE_COLL_S (115 ms when DTensor gathered
+# every expert for the repeat).
+DRYRUN_OLMOE = "olmoe-1b-7b × decode_32k × 16x16"
+DRYRUN_COLL_FACTOR, DRYRUN_OLMOE_FACTOR = 2.0, 1.25
+DRYRUN_OLMOE_COLL_S = 2e-3
+# Each pair's collective bytes a rank, in all and permuted, in a CPU sweep
+# under torch 2.13 (``python -m repro_torch.launch.dryrun``), printed
+# beside the card's. The permute is the port's own (LEP's redundancy) and
+# must read the same on both versions; the total, in part DTensor's
+# choice, within DRYRUN_SWEEP_SPREAD of the sweep's either way, so that a
+# change of a pair's collectives fails here until the sweep is taken anew.
+DRYRUN_CPU_SWEEP = {
+    "deepseek-r1 × decode_32k × 16x16": (2711142960, 0),
+    "olmoe-1b-7b × decode_32k × 16x16": (404930688, 201326592),
+    "kimi-k2-1t-a32b × decode_32k × 16x16": (130837500384, 0),
+    "kimi-k2-1t-a32b × decode_32k × 2x16x16": (131097180544, 0),
+    "qwen3-8b × train_4k × 16x16": (156772043780, 0),
+    "deepseek-r1 × train_4k × 16x16": (401924582868, 0),
+    "deepseek-r1 × prefill_32k × 16x16": (169817211344, 0),
+    "mamba2-780m × train_4k × 16x16": (43735503940, 0),
+    "zamba2-1.2b × train_4k × 16x16": (54876159556, 0),
+}
+DRYRUN_SWEEP_SPREAD = 2.0
 DRYRUN_SERVES = (("serve-lep", "serve_config"), ("serve-kimi", "kimi_config"),
                  ("serve-dense", "dense_config"),
                  ("serve-olmoe-lep", "olmoe_config"),
@@ -3706,7 +3746,33 @@ def dryrun_phase(torch, serve_rows) -> None:
                     f"{rec['collectives']['all-gather']} B and collective "
                     f"term {rec['collective_s']} s, over "
                     f"{DRYRUN_R1_AG_BYTES} B and {DRYRUN_R1_COLL_S} s")
+            total = sum(rec["collectives"][k] for k in jax_coll)
+            jax_total = sum(jax_coll.values())
+            factor = DRYRUN_OLMOE_FACTOR if what == DRYRUN_OLMOE \
+                else DRYRUN_COLL_FACTOR
+            if total > factor * jax_total:
+                raise AssertionError(
+                    f"dryrun {what}: collective bytes {total} over "
+                    f"{factor} x JAX's {jax_total}")
+            if what == DRYRUN_OLMOE and \
+                    rec["collective_s"] >= DRYRUN_OLMOE_COLL_S:
+                raise AssertionError(
+                    f"dryrun {what}: collective term {rec['collective_s']} "
+                    f"s, over {DRYRUN_OLMOE_COLL_S} s")
+            sweep, sweep_permute = DRYRUN_CPU_SWEEP[what]
+            permute = rec["collectives"]["collective-permute"]
+            if permute != sweep_permute or not (
+                    sweep / DRYRUN_SWEEP_SPREAD <= total
+                    <= sweep * DRYRUN_SWEEP_SPREAD):
+                raise AssertionError(
+                    f"dryrun {what}: collective bytes {total}, permuted "
+                    f"{permute}, against the CPU sweep's {sweep} and "
+                    f"{sweep_permute}")
             log(f"dryrun: {what}: " + json.dumps({
+                "collective_bytes": total, "jax_collective_bytes": jax_total,
+                "to_jax": total / jax_total,
+                "cpu_sweep_collective_bytes": sweep,
+                "cpu_sweep_permute_bytes": sweep_permute,
                 "compute_ms": 1e3 * rec["compute_s"],
                 "memory_ms": 1e3 * rec["memory_s"],
                 "collective_ms": 1e3 * rec["collective_s"],

@@ -44,6 +44,7 @@ issues no collective and copies no weight.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -409,9 +410,12 @@ def _on_blocks(run, p, x, cfg: ModelConfig, mesh, lay: _Layout,
     entered as JAX enters its ``shard_map``: each rank takes its block of
     the token rows (its batch block split over the axes the batch is
     replicated over), the router replicated, and its expert slots and
-    F-shard placed as the plan says -- the weights repeated ``r`` times
-    first when serving with redundancy, as JAX repeats them -- and runs the
-    routed experts on them with this layout's collectives. The shared
+    F-shard placed as the plan says, and runs the routed experts on them
+    with this layout's collectives. Serving with redundancy ``r``, slot s
+    holds expert s // r: the weights enter as their specs place them, and
+    each rank receives the experts of its slots that its own block lacks
+    from ranks whose block holds them (:func:`_slot_experts`), as XLA
+    partitions JAX's ``jnp.repeat`` into a collective permute. The shared
     experts run on the DTensors, tensor-parallel as their specs place
     them."""
     from torch.distributed.tensor import Replicate, Shard
@@ -435,10 +439,23 @@ def _on_blocks(run, p, x, cfg: ModelConfig, mesh, lay: _Layout,
                      Replicate() for a in names)
 
     ws = (p.w_gate, p.w_up, p.w_down)
+    w_in = (placed(2), placed(2), placed(1))
     if r > 1:
-        ws = tuple(w.repeat_interleave(r, dim=0) for w in ws)
+        if torch.is_grad_enabled() and any(w.requires_grad for w in ws):
+            raise ValueError("expert redundancy serves only; a training "
+                             "step runs with redundancy=1")
+        # Each weight's experts cut as its spec cuts them, its F-shard as
+        # the plan's.
+        w_in = tuple(tuple(pl if pl.is_shard(0) else Shard(fd)
+                           if a == ffn_shard_axis else Replicate()
+                           for a, pl in zip(names, w.placements))
+                     for w, fd in zip(ws, (2, 2, 1)))
+        moves = _redundancy_moves(mesh, w_in[0], cfg.num_experts, ep_axes, r,
+                                  ffn_shard_axis)
 
     def body(x_loc, router, wg, wu, wd):
+        if r > 1:
+            wg, wu, wd = _slot_experts((wg, wu, wd), *moves)
         local = _LocalExperts(router, wg, wu, wd)
         out, aux = run(local, x_loc, cfg, lay, local_experts=True)
         return out, aux["aux_loss"], aux["dropped"]
@@ -446,13 +463,78 @@ def _on_blocks(run, p, x, cfg: ModelConfig, mesh, lay: _Layout,
     rep = dt.replicated(mesh)
     out, aux, dropped = local_map(
         body, out_placements=(rows, rep, rep),
-        in_placements=(rows, rep, placed(2), placed(2),
-                       placed(1)),
+        in_placements=(rows, rep) + w_in,
         redistribute_inputs=True, device_mesh=mesh)(x, p.router, *ws)
     if p.has_shared:
         out = out + swiglu(x, p.shared_gate, p.shared_up,
                            p.shared_down).to(out.dtype)
     return out, {"aux_loss": aux, "dropped": dropped}
+
+
+def _redundancy_moves(mesh, placements, n_experts: int,
+                      ep_axes: Tuple[str, ...], r: int,
+                      ffn_shard_axis: Optional[str] = None):
+    """Where each expert of this rank's slots comes from, when slot s holds
+    expert s // r, the slots cut over ``ep_axes`` and the experts held in
+    blocks cut over the axes where ``placements`` has ``Shard(0)`` (in the
+    mesh's order): (this rank's first expert, the expert of each of its
+    slots, [(expert, source rank)] to receive, [(expert, destination
+    rank)] to send). A rank receives only the experts its own block lacks,
+    each once, from a rank of its own F-shard; every rank computes the
+    same plan, each transfer from the holder that sends least so far
+    (lowest rank first), so the sends spread over the holders, and each
+    pair lists its transfers in the same (expert) order."""
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, mesh.mesh.shape))
+    ranks = mesh.mesh.reshape(-1).tolist()
+    coords = [dict(zip(names, c)) for c in
+              itertools.product(*(range(n) for n in sizes.values()))]
+
+    def flat(c, axes):
+        i = 0
+        for a in axes:
+            i = i * sizes[a] + c[a]
+        return i
+
+    cut = tuple(a for a, pl in zip(names, placements) if pl.is_shard(0))
+    per_block = n_experts // math.prod(sizes[a] for a in cut)
+    n_ep = math.prod(sizes[a] for a in ep_axes)
+    slots_loc = n_experts * r // n_ep
+    shard = (ffn_shard_axis,) if ffn_shard_axis else ()
+    block = {rk: flat(c, cut) for rk, c in zip(ranks, coords)}
+    holders = {}
+    for rk, c in zip(ranks, coords):
+        holders.setdefault((block[rk], flat(c, shard)), []).append(rk)
+    sent = dict.fromkeys(ranks, 0)
+    moves = []                      # (source, destination, expert)
+    for rk, c in zip(ranks, coords):
+        lo = flat(c, ep_axes) * slots_loc
+        for e in sorted({s // r for s in range(lo, lo + slots_loc)}):
+            if block[rk] != e // per_block:
+                src = min(holders[e // per_block, flat(c, shard)],
+                          key=lambda h: (sent[h], h))
+                sent[src] += 1
+                moves.append((src, rk, e))
+    me = dist.get_rank()
+    lo = flat(coords[ranks.index(me)], ep_axes) * slots_loc
+    return (block[me] * per_block,
+            [s // r for s in range(lo, lo + slots_loc)],
+            [(e, src) for src, dst, e in moves if dst == me],
+            [(e, dst) for src, dst, e in moves if src == me])
+
+
+def _slot_experts(ws, first: int, slot_expert, recv, send):
+    """This rank's slots of each of the weights ``ws`` (its block of
+    experts, from expert ``first`` on), its missing experts received and
+    the ones other ranks need from it sent (``_redundancy_moves``)."""
+    out = []
+    for w in ws:
+        got = {e: w.new_empty(w.shape[1:]) for e, _ in recv}
+        par.send_recv([(w[e - first], dst) for e, dst in send],
+                      [(got[e], src) for e, src in recv])
+        out.append(torch.stack([got[e] if e in got else w[e - first]
+                                for e in slot_expert]))
+    return tuple(out)
 
 
 @dataclasses.dataclass

@@ -28,6 +28,8 @@ transposes give it:
 * ``max_replicated`` is the elementwise max over the ranks (an all-reduce)
   of a softmax's running statistics; it carries no gradient, as the max a
   softmax subtracts is a constant of its derivative.
+* ``send_recv`` moves blocks point to point (a collective permute: LEP's
+  expert redundancy); it carries no gradient.
 
 Each collective on a group of one rank is skipped (``group`` is then None):
 an axis of one rank moves and copies nothing.
@@ -43,6 +45,9 @@ import torch.distributed as dist
 
 _MESH = None
 _GROUPS: Dict[Tuple[int, Tuple[str, ...]], Any] = {}
+#: batches that :func:`send_recv` has begun in this process: a counter of
+#: collectives tells one permute from the next by it
+p2p_batches = 0
 
 
 def set_current_mesh(mesh) -> None:
@@ -256,3 +261,27 @@ def max_replicated(x: torch.Tensor, group) -> torch.Tensor:
     x = x.clone()
     dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
+
+
+def send_recv(sends: Sequence[Tuple[torch.Tensor, int]],
+              recvs: Sequence[Tuple[torch.Tensor, int]]) -> None:
+    """Point to point, as one batch: each ``(tensor, peer)`` of ``sends``
+    goes to the global rank ``peer``, each ``(buffer, peer)`` of ``recvs``
+    is filled from ``peer``, in place; returns when all are done. Peers
+    must list each other's transfers in the same order. A batch
+    (``dist.batch_isend_irecv``) keeps two ranks that send to each other
+    from waiting on each other; on meta tensors (a step traced on a fake
+    group, which has no backend for them) the ops go one by one."""
+    global p2p_batches
+    ops = [dist.P2POp(dist.isend, t.contiguous(), peer) for t, peer in sends]
+    ops += [dist.P2POp(dist.irecv, buf, peer) for buf, peer in recvs]
+    if not ops:
+        return
+    p2p_batches += 1
+    if ops[0].tensor.is_meta:
+        works = [op.op(op.tensor, op.peer) for op in ops]
+    else:
+        works = dist.batch_isend_irecv(ops)
+    for work in works:
+        if work is not None:
+            work.wait()

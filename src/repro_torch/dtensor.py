@@ -1,18 +1,22 @@
 """Helpers for a step traced over DTensors.
 
 The dry run (``launch/dryrun.py``) traces rank 0's step with every weight,
-cache and input a DTensor placed by ``launch/sharding.py``'s specs, so that
-DTensor's sharding propagation inserts the collectives that JAX's SPMD
-partitioner inserts. Where the model writes into a cache in place, or
-enters a parallel path written over explicit collectives (LEP, the hybrid
-MLA prefill), it works on this rank's shard through these helpers, as a
-``shard_map`` body works on its block. On plain tensors nothing here runs,
-and ``torch.distributed.tensor`` (a second to import) is not imported.
+cache and input a DTensor placed by ``launch/sharding.py``'s specs. Where
+XLA's partitioning of JAX's step decides a collective -- the projections
+(:func:`linear`), the mixers (:func:`blockwise`), the vocabulary's
+reductions, the embedding, the global norm -- these helpers run the op on
+each rank's blocks through ``local_map`` and issue that collective
+themselves (``core/parallel.py``), as a ``shard_map`` body works on its
+block; elementwise ops between blocks placed alike are left to DTensor,
+and move nothing. A cache written in place and LEP and the hybrid MLA
+prefill work on this rank's shard likewise. On plain tensors nothing here
+runs, and ``torch.distributed.tensor`` (a second to import) is not
+imported.
 """
 from __future__ import annotations
 
 import sys
-from typing import TYPE_CHECKING, Sequence, Tuple
+from typing import TYPE_CHECKING, Optional, Sequence, Tuple
 
 import torch
 
@@ -63,6 +67,17 @@ def without_shard(placements: Sequence, dim: int) -> Tuple:
                  for p in placements)
 
 
+def whole_last(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last dimension whole on every rank (an all-gather
+    where it is cut), its other placements kept; a plain tensor as it
+    is."""
+    if not is_dtensor(x):
+        return x
+    x = reduce_partial(x)
+    return x.redistribute(x.device_mesh,
+                          without_shard(x.placements, x.ndim - 1))
+
+
 def reduce_partial(x: torch.Tensor) -> torch.Tensor:
     """``x`` with every pending sum over a mesh dimension done (an
     all-reduce), its other placements kept; a plain tensor as it is."""
@@ -73,6 +88,37 @@ def reduce_partial(x: torch.Tensor) -> torch.Tensor:
     placements = tuple(Replicate() if p.is_partial() else p
                        for p in x.placements)
     return x.redistribute(x.device_mesh, placements)
+
+
+def placed_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` placed as ``ref`` (one redistribution: a pending sum is
+    reduce-scattered onto a shard, all-reduced onto a replica); anything
+    but two DTensors as it is."""
+    if not (is_dtensor(x) and is_dtensor(ref)) \
+            or tuple(x.placements) == tuple(ref.placements):
+        return x
+    return x.redistribute(ref.device_mesh, tuple(ref.placements))
+
+
+def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The square root of the sum of squares of every element of the
+    DTensors ``leaves`` (over one mesh), a plain scalar, the same on every
+    rank: each rank sums the squares of its blocks, a block that is
+    replicated over some axes only on the ranks at coordinate 0 of them
+    (so each element counts once), and one all-reduce over the mesh sums
+    the scalars."""
+    from repro_torch.core import parallel as par
+
+    mesh = leaves[0].device_mesh
+    coord = mesh.get_coordinate()
+    local = [x.to_local() for x in leaves]
+    total = torch.zeros((), dtype=torch.float32, device=local[0].device)
+    for x, block in zip(leaves, local):
+        if all(c == 0 for c, p in zip(coord, x.placements)
+               if not p.is_shard()):
+            total = total + torch.sum(torch.square(block.float()))
+    group = par.axes_group(mesh, tuple(mesh.mesh_dim_names))
+    return torch.sqrt(par.sum_replicated(total, group))
 
 
 def fit_heads(x, n: int, dim: int = -1):
@@ -120,6 +166,36 @@ def take_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
         redistribute_inputs=True, device_mesh=x.device_mesh)(x, index)[0])
 
 
+def logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(x, dim=-1)``. On a DTensor cut on its last
+    dimension (a vocabulary) each rank reduces its block, and the rows'
+    max and sums of exponentials are all-reduced over the cut, as XLA
+    partitions the reduction: a value per row moves, never the rows."""
+    last = x.ndim - 1
+    if not is_dtensor(x) or not any(p.is_shard(last) for p in x.placements):
+        return torch.logsumexp(x, dim=-1)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.core import parallel as par
+
+    mesh = x.device_mesh
+    group = par.axes_group(mesh, shard_axes(x, last))
+
+    def body(block):
+        block = _prepared(block, None)
+        m = par.max_replicated(block.amax(dim=-1), group)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        total = par.sum_replicated(
+            torch.exp(block - m[..., None]).sum(dim=-1), group)
+        return (m + torch.log(total),)
+
+    out = tuple(Replicate() if p.is_shard(last) else p for p in x.placements)
+    return local_map(body, out_placements=(out,),
+                     in_placements=(tuple(x.placements),),
+                     redistribute_inputs=True, device_mesh=mesh)(x)[0]
+
+
 def shard_axes(x, dim: int) -> Tuple[str, ...]:
     """The mesh axes over which the DTensor ``x`` shards dimension
     ``dim``, in the mesh's order."""
@@ -128,15 +204,6 @@ def shard_axes(x, dim: int) -> Tuple[str, ...]:
     dim = dim % x.ndim
     return tuple(a for a, p in zip(x.device_mesh.mesh_dim_names, x.placements)
                  if isinstance(p, Shard) and p.dim == dim)
-
-
-def head_axes(mesh, n: int) -> Tuple[str, ...]:
-    """The axes ``n`` heads shard over: ``model`` when they divide over
-    it, as the specs shard the head projections' columns, else none."""
-    names = tuple(mesh.mesh_dim_names)
-    if "model" in names and n % mesh.size(names.index("model")) == 0:
-        return ("model",)
-    return ()
 
 
 def blockwise(fn, mesh, args: Sequence, dims: Sequence, out_dims: Sequence,
@@ -184,6 +251,116 @@ def blockwise(fn, mesh, args: Sequence, dims: Sequence, out_dims: Sequence,
         in_placements=tuple(placed(*d) for d in dims),
         redistribute_inputs=True, device_mesh=mesh)(*args)
     return got if len(out_dims) > 1 else got[0]
+
+
+def linear(x: torch.Tensor, w: torch.Tensor,
+           parts: Optional[Sequence[int]] = None):
+    """``x @ w``, x (..., K) with its rows (dim 0: a batch or token axis)
+    and w (K, N); with ``parts`` (column counts summing to N), the tuple of
+    the products with each part's columns. For a DTensor weight the product
+    runs on each rank's blocks through ``local_map``, with the collectives
+    XLA's partitioner gives the same product, decided per mesh axis:
+
+    * an axis that cuts x's rows and w (its FSDP shard, either dim): w is
+      all-gathered over it in the forward and its gradient reduce-scattered
+      back in the backward (ZeRO-3), so the activations stay cut over
+      their rows and never move;
+    * an axis that cuts x's rows and not w: w's gradient is summed over it;
+    * an axis that cuts w's columns and not x: the output is cut on its
+      last dim over it, and x's gradient summed over it;
+    * an axis that cuts w's columns and x's last dim: x is all-gathered
+      over it first (its gradient reduce-scattered back), then as above;
+    * an axis that cuts w's rows (a row-parallel product): x's last dim is
+      cut alike where it is not (each rank takes its block), and the
+      partial products are summed over it (an all-reduce).
+
+    With ``parts``, each rank computes its block of every part's columns,
+    so each part comes out cut on its last dim as a product of its own
+    would: from w gathered whole over the axes that cut its columns (its
+    gradient reduce-scattered back) where w's rows are fewer than x's (a
+    training step's tokens), else from the product's own columns gathered
+    over them (a decode step's few rows). x's pending sums are taken
+    first. A plain weight, a layout none of these covers, or parts that do
+    not divide over the ranks, is ``x @ w`` as DTensor partitions it (and
+    sliced)."""
+    if not is_dtensor(w):
+        y = x @ w
+        return y if parts is None else _split_last(y, parts)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.core import parallel as par
+
+    mesh = w.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    x = reduce_partial(x) if is_dtensor(x) else DTensor.from_local(
+        x, mesh, replicated(mesh), run_check=False)
+    last = x.ndim - 1
+    w_gather, w_sum, x_sum, x_gather, x_split, row_sum, out = \
+        [], [], [], [], [], [], []
+    for a, xp, wp in zip(names, x.placements, w.placements):
+        if xp.is_shard(0) and isinstance(wp, Shard):
+            w_gather.append((a, wp.dim))
+        elif xp.is_shard(0) and wp.is_replicate():
+            w_sum.append(a)
+        elif xp.is_replicate() and wp.is_shard(1):
+            x_sum.append(a)
+        elif xp.is_shard(last) and wp.is_shard(1):
+            x_gather.append(a)
+        elif xp.is_replicate() and wp.is_shard(0):
+            x_split.append(a)
+        elif xp.is_shard(last) and wp.is_shard(0):
+            row_sum.append(a)
+        elif not (xp.is_replicate() and wp.is_replicate()):
+            return _split_last(x @ w, parts) if parts else x @ w
+        out.append(Shard(0) if xp.is_shard(0) else
+                   Shard(last) if wp.is_shard(1) else Replicate())
+    n_cols = par.axis_size(mesh, x_sum)
+    if parts and (x_gather or x_split or row_sum
+                  or any(n % n_cols for n in parts)):
+        return _split_last(linear(x, w), parts)
+    group = lambda axes: par.axes_group(mesh, axes)  # noqa: E731
+    i_cols = par.axis_index(mesh, x_sum)
+    rows = x.to_local().numel() // x.shape[-1]
+    whole_w = w.shape[0] * w.element_size() <= rows * x.element_size()
+
+    def body(xb, wb):
+        xb, wb = _prepared(xb, group(x_sum)), _prepared(wb, group(w_sum))
+        for a in reversed(x_gather):         # innermost axis first
+            xb = par.all_gather(xb, group((a,)), dim=-1)
+        for a in x_split:                    # outermost axis first
+            xb = par.split_replicated(xb, group((a,)), dim=-1)
+        for a, d in reversed(w_gather):
+            wb = par.all_gather(wb, group((a,)), dim=d)
+        if parts is None:
+            return (par.sum_replicated(xb @ wb, group(row_sum + x_split)),)
+        if whole_w:
+            wb = par.all_gather(wb, group(x_sum), dim=1)
+        else:
+            y = par.all_gather(xb @ wb, group(x_sum), dim=-1)
+        blocks, lo = [], 0
+        for n in parts:
+            cut = slice(lo + i_cols * (n // n_cols),
+                        lo + (i_cols + 1) * (n // n_cols))
+            blocks.append(xb @ wb[:, cut] if whole_w else y[..., cut])
+            lo += n
+        return tuple(blocks)
+
+    n_out = 1 if parts is None else len(parts)
+    got = local_map(body, out_placements=(tuple(out),) * n_out,
+                    in_placements=(tuple(x.placements),
+                                   tuple(w.placements)),
+                    redistribute_inputs=True, device_mesh=mesh)(x, w)
+    return got[0] if parts is None else tuple(got)
+
+
+def _split_last(y: torch.Tensor, parts: Sequence[int]) -> Tuple:
+    """``y`` cut into ``parts`` along its last dimension."""
+    out, lo = [], 0
+    for n in parts:
+        out.append(y[..., lo:lo + n])
+        lo += n
+    return tuple(out)
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -247,16 +424,21 @@ def embedding(tokens: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """``F.embedding(tokens, weight)`` for a DTensor table: each rank looks
     its tokens up in its block of rows (0 for a token outside it) and the
     lookups are summed over the row shards (an all-reduce), as XLA
-    partitions the gather; never a gather of the whole table."""
+    partitions the gather; never a gather of the whole table. The table's
+    gradient is summed over the axes that cut the tokens (each rank saw
+    its own)."""
     from torch.distributed.tensor import DTensor, Partial, Shard
     from torch.distributed.tensor.experimental import local_map
 
     tokens = tokens if is_dtensor(tokens) else DTensor.from_local(
         tokens, weight.device_mesh, replicated(weight.device_mesh),
         run_check=False)
+    from repro_torch.core import parallel as par
+
     v0 = shard_offsets(weight)[0]
-    out = []
-    for wp, tp in zip(weight.placements, tokens.placements):
+    out, token_axes = [], []
+    for a, wp, tp in zip(weight.device_mesh.mesh_dim_names,
+                         weight.placements, tokens.placements):
         if isinstance(wp, Shard):
             if isinstance(tp, Shard):
                 raise ValueError("tokens and the table's rows or columns "
@@ -264,8 +446,12 @@ def embedding(tokens: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
             out.append(Partial() if wp.dim == 0 else Shard(tokens.ndim))
         else:
             out.append(tp)
+            if isinstance(tp, Shard):
+                token_axes.append(a)
+    group = par.axes_group(weight.device_mesh, token_axes)
 
     def look(tok, block):
+        block = _prepared(block, group)
         rel = tok.long() - v0
         ok = (rel >= 0) & (rel < block.shape[0])
         rows = torch.nn.functional.embedding(

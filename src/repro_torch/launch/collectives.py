@@ -11,8 +11,12 @@ paths call themselves through ``torch.distributed``
 (``core/parallel.py``: ``all_to_all_single``, ``all_gather_into_tensor``,
 ``reduce_scatter_tensor``, ``all_reduce``), and adds each one's output
 bytes on this rank to its kind, as ``hlo_analysis.py`` sums the output
-shapes of the HLO's collectives. A collective it cannot name raises, so
-none goes uncounted.
+shapes of the HLO's collectives. A point-to-point transfer
+(``core/parallel.send_recv``) counts as a collective permute: each batch
+of sends and receives is one permute, whose bytes on a rank are the larger
+of what the rank sends and what it receives in that batch, as a permute's
+output (what XLA counts) is sent by one rank while another receives it.
+A collective it cannot name raises, so none goes uncounted.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
+from repro_torch.core import parallel
 from repro_torch.launch.roofline import COLLECTIVE_OPS
 
 #: operator name -> the kind of ``COLLECTIVE_OPS`` it counts under
@@ -85,6 +90,10 @@ class CollectiveCounter(TorchDispatchMode):
         super().__init__()
         self.counts = zero_counts()
         self.largest = {k: 0 for k in COLLECTIVE_OPS}
+        # the permute bytes of the batches before the current one, the
+        # current batch's number and its bytes sent and received
+        self._permuted, self._batch = 0, None
+        self._p2p = {"c10d::send": 0, "c10d::recv_": 0}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -103,7 +112,15 @@ class CollectiveCounter(TorchDispatchMode):
                 raise NotImplementedError(f"uncounted collective {name}")
             kind = KIND[name]
             nbytes = _nbytes(args[0] if name.startswith("c10d::") else out)
-            self.counts[kind] += nbytes
+            if name in self._p2p:
+                if self._batch != parallel.p2p_batches:
+                    self._batch = parallel.p2p_batches
+                    self._permuted = self.counts[kind]
+                    self._p2p = dict.fromkeys(self._p2p, 0)
+                self._p2p[name] += nbytes
+                self.counts[kind] = self._permuted + max(self._p2p.values())
+            else:
+                self.counts[kind] += nbytes
             self.largest[kind] = max(self.largest[kind], nbytes)
             self.counts["count"] += 1
         self.record(func, args, kwargs, out)

@@ -14,9 +14,14 @@ per-device HLO. PyTorch has no SPMD compiler; the port traces instead:
 * every weight, cache and input is a DTensor over that mesh, placed by the
   specs of ``launch/sharding.py``, its local block a meta tensor: nothing
   is allocated and nothing is computed, and no card is needed;
-* DTensor's sharding propagation stands where XLA's partitioner stands; LEP
-  and the hybrid MLA prefill are entered from the DTensor batch through
-  ``local_map``, as JAX enters them through ``shard_map``;
+* the collectives are those XLA's partitioner gives JAX's step, issued by
+  the port itself: the projections, mixers, vocabulary reductions and the
+  global norm run on each rank's blocks through ``local_map``
+  (``dtensor.py``), each gradient is placed once as its parameter before
+  AdamW updates each rank's blocks, and LEP (its expert redundancy a
+  permute) and the hybrid MLA prefill are entered from the DTensor batch
+  through ``local_map``, as JAX enters them through ``shard_map``;
+  DTensor's sharding propagation places the rest (elementwise ops, norms);
 * :class:`StepCounter` sees every op rank 0 runs on its local blocks: the
   collectives (``launch/collectives.py``), the FLOPs
   (``torch.utils.flop_counter``'s formulas), the bytes every op reads and

@@ -89,7 +89,7 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     (RoPE for every attention kind, as in JAX)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    q, k, v = (dt.linear(x, w) for w in (p.wq, p.wk, p.wv))
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = dt.fit_heads(q, h).reshape(b, s, h, hd)
@@ -251,23 +251,24 @@ def attention_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                                  device=x.device).expand(b, s)
     q, k, v = _project_qkv(p, x, cfg, positions)
     attend = _heads_local if dt.is_dtensor(q) else _attend_full
-    return attend(q, k, v, cfg) @ p.wo, (k, v)
+    return dt.linear(attend(q, k, v, cfg), p.wo), (k, v)
 
 
 def _heads_local(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     """:func:`_attend_full` over DTensors, on each rank's blocks as XLA
     partitions JAX's: the batch as the query's is sharded, the query heads
-    over ``model`` when they divide over it (``dt.head_axes``), the K/V
-    heads likewise, or, where they do not divide (Qwen3-8B's 8 over 16),
-    whole on every rank, which then attends with the K/V heads of its own
-    query heads and sums their gradient over ``model``. No collective in
-    the forward."""
+    as their projection cut them (over ``model`` where the specs cut its
+    columns; whole on every rank where they replicate it, as they do a MoE
+    segment's attention), the K/V heads likewise, or, where they are whole
+    while the query's are cut (Qwen3-8B's 8 over 16), whole on every rank,
+    which then attends with the K/V heads of its own query heads and sums
+    their gradient over ``model``. No collective in the forward."""
     from repro_torch.core import parallel as par
 
     mesh = q.device_mesh
     h, kvh = q.shape[2], k.shape[2]
-    heads = dt.head_axes(mesh, h)
-    cut_kv = bool(heads) and dt.head_axes(mesh, kvh) == heads
+    heads = dt.shard_axes(q, 2)
+    cut_kv = bool(heads) and dt.shard_axes(k, 2) == heads
     n = par.axis_size(mesh, heads)
     h0 = par.axis_index(mesh, heads) * (h // n) if heads else 0
     g = h // kvh
@@ -414,7 +415,7 @@ def attention_decode(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     update_cache(cache_v, v_new, slot)
     attend = _decode_seq_blocks if dt.is_dtensor(cache_k) else _sdpa
     out = attend(q, cache_k, cache_v, decode_valid_mask(cache_len, cap, ring))
-    return out @ p.wo, cache_k, cache_v
+    return dt.linear(out, p.wo), cache_k, cache_v
 
 
 def write_tokens(cache: torch.Tensor, new: torch.Tensor,
@@ -473,7 +474,7 @@ def attention_extend(p: Attention, x: torch.Tensor, cache_k: torch.Tensor,
     kv_idx = torch.arange(cap, dtype=torch.int32, device=x.device)
     mask = kv_idx[None, None, :] <= positions[:, :, None]      # (B, S, cap)
     out = _sdpa(q, cache_k, cache_v, mask)
-    return out @ p.wo, cache_k, cache_v
+    return dt.linear(out, p.wo), cache_k, cache_v
 
 
 def make_cache(cfg: ModelConfig, n_layers: int, batch: int, seq_len: int,

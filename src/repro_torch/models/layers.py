@@ -6,6 +6,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch import dtensor as dt
+
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
@@ -38,9 +40,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = x @ w_gate
-    u = x @ w_up
-    return (F.silu(g) * u) @ w_down
+    g = dt.linear(x, w_gate)
+    u = dt.linear(x, w_up)
+    return dt.linear(F.silu(g) * u, w_down)
 
 
 def dense_init(shape: Sequence[int], dtype: torch.dtype,

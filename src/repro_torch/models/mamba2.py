@@ -64,12 +64,14 @@ class Mamba(nn.Module):
 
 
 def _split_proj(p: Mamba, x: torch.Tensor, cfg: ModelConfig):
+    """z, xBC and dt: ``in_proj``'s product cut into its parts. Over
+    DTensors each rank computes its own block of each part's columns
+    (``dtensor.linear``'s ``parts``), so the parts of a model-sharded
+    product are never gathered to be cut."""
     din = cfg.d_model * cfg.ssm_expand
     n = cfg.ssm_state
-    zxbcdt = x @ p.in_proj
-    z = zxbcdt[..., :din]
-    xbc = zxbcdt[..., din: 2 * din + 2 * n]
-    dt_raw = zxbcdt[..., 2 * din + 2 * n:]
+    z, xbc, dt_raw = dtn.linear(x, p.in_proj, (din, din + 2 * n,
+                                               cfg.ssm_heads))
     dt = F.softplus(dt_raw.float() + p.dt_bias)
     return z, xbc, dt  # dt: (b,s,h) f32
 
@@ -119,23 +121,54 @@ def mamba_prefill(p: Mamba, x: torch.Tensor, cfg: ModelConfig
     bsz, s, d = x.shape
     din = d * cfg.ssm_expand
     n, h = cfg.ssm_state, cfg.ssm_heads
-    z, xbc_raw, dt = _split_proj(p, x, cfg)
-    xbc = _causal_conv(xbc_raw, p.conv_w, p.conv_b)
-    xin = xbc[..., :din].reshape(bsz, s, h, cfg.ssm_head_dim)
-    bmat = xbc[..., din: din + n]
-    cmat = xbc[..., din + n:]
+    k = cfg.ssm_conv
+    if dtn.is_dtensor(p.in_proj):
+        z, xin, bmat, cmat, dt, conv_state = _conv_blocks(p, x, cfg)
+    else:
+        z, xbc_raw, dt = _split_proj(p, x, cfg)
+        xbc = _causal_conv(xbc_raw, p.conv_w, p.conv_b)
+        xin, bmat, cmat = (xbc[..., :din], xbc[..., din: din + n],
+                           xbc[..., din + n:])
+        # conv state: the last (K-1) raw xbc inputs
+        conv_state = _conv_tail(xbc_raw, k)
+    xin = xin.reshape(bsz, s, h, cfg.ssm_head_dim)
     y, h_final = _scan(xin.float().contiguous(), dt.contiguous(),
                        p.A_log.float().contiguous(), bmat.float().contiguous(),
                        cmat.float().contiguous(), cfg.ssm_chunk)
     y = y + p.D[None, None, :, None] * xin.float()
     y = y.reshape(bsz, s, din).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(z.dtype), p.norm_gain, cfg.norm_eps)
-    out = y @ p.out_proj
-    # conv state: the last (K-1) raw xbc inputs
-    k = cfg.ssm_conv
-    conv_state = xbc_raw[:, s - (k - 1):, :] if s >= k - 1 else F.pad(
-        xbc_raw, (0, 0, k - 1 - s, 0))
+    out = dtn.linear(y, p.out_proj)
     return out, h_final, conv_state
+
+
+def _conv_tail(xbc_raw: torch.Tensor, k: int) -> torch.Tensor:
+    """The last (K-1) positions of ``xbc_raw`` (B,S,C), zeros in front of a
+    shorter sequence."""
+    s = xbc_raw.shape[1]
+    return xbc_raw[:, s - (k - 1):, :] if s >= k - 1 else F.pad(
+        xbc_raw, (0, 0, k - 1 - s, 0))
+
+
+def _conv_blocks(p: Mamba, x: torch.Tensor, cfg: ModelConfig):
+    """:func:`mamba_prefill`'s z, x, B, C, dt and conv state over DTensors:
+    in_proj's x and B|C columns as parts of their own (each rank its block
+    of each, ``dtensor.linear``'s ``parts``), each convolved with its
+    channels of the depthwise conv, so x comes out cut by SSM heads, as
+    the scan takes it, and only B and C (2N channels) are gathered for it
+    (once, both together), never the whole xBC. The same arithmetic as the
+    plain path: the conv is per channel."""
+    din = cfg.d_model * cfg.ssm_expand
+    n = cfg.ssm_state
+    z, x_raw, bc_raw, dt_raw = dtn.linear(
+        x, p.in_proj, (din, din, 2 * n, cfg.ssm_heads))
+    dt = F.softplus(dt_raw.float() + p.dt_bias)
+    xs = _causal_conv(x_raw, p.conv_w[:, :din], p.conv_b[:din])
+    bc = dtn.whole_last(_causal_conv(bc_raw, p.conv_w[:, din:],
+                                     p.conv_b[din:]))
+    k = cfg.ssm_conv
+    tail = torch.cat([_conv_tail(x_raw, k), _conv_tail(bc_raw, k)], dim=-1)
+    return z, xs, bc[..., :n], bc[..., n:], dt, tail
 
 
 def _scan(x, dt, a_log, bmat, cmat, chunk: int):
@@ -153,7 +186,7 @@ def _scan(x, dt, a_log, bmat, cmat, chunk: int):
     return dtn.blockwise(body, mesh, (x, dt, a_log, bmat, cmat),
                          [(0, 2), (0, 2), (None, 0), (0, None), (0, None)],
                          [(0, 2), (0, 1)], dtn.shard_axes(x, 0),
-                         dtn.head_axes(mesh, x.shape[2]))
+                         dtn.shard_axes(x, 2))
 
 
 def mamba_decode(p: Mamba, x: torch.Tensor, h_state: torch.Tensor,
@@ -170,7 +203,9 @@ def mamba_decode(p: Mamba, x: torch.Tensor, h_state: torch.Tensor,
     new_conv_state = window[:, 1:, :]
     conv_out = torch.einsum("bkc,kc->bc", window.float(), p.conv_w.float()) \
         + p.conv_b.float()
-    xbc = F.silu(conv_out)
+    # Over DTensors the row's channels are gathered once, to be cut by
+    # heads and to give every rank B and C.
+    xbc = F.silu(dtn.whole_last(conv_out))
     xin = xbc[..., :din].reshape(bsz, h, cfg.ssm_head_dim)
     bmat, cmat = xbc[..., din: din + n], xbc[..., din + n:]
     a = -torch.exp(p.A_log)
@@ -182,7 +217,7 @@ def mamba_decode(p: Mamba, x: torch.Tensor, h_state: torch.Tensor,
     y = y + p.D[None, :, None] * xin
     y = y.reshape(bsz, 1, din).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(z.dtype), p.norm_gain, cfg.norm_eps)
-    out = y @ p.out_proj
+    out = dtn.linear(y, p.out_proj)
     return out, h_state, new_conv_state
 
 

@@ -78,13 +78,13 @@ def _mla_qkv_latent(p: MLA, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     h = cfg.num_heads
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = x @ p.wq_a
+    q = dt.linear(x, p.wq_a)
     q = rms_norm(q, p.q_ln, cfg.norm_eps)
-    q = dt.fit_heads(q @ p.wq_b, h).reshape(b, s, h, nope + rope)
+    q = dt.fit_heads(dt.linear(q, p.wq_b), h).reshape(b, s, h, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    kv = x @ p.wkv_a
+    kv = dt.linear(x, p.wkv_a)
     c_kv, k_rope = kv[..., :cfg.kv_lora_rank], kv[..., cfg.kv_lora_rank:]
     c_kv = rms_norm(c_kv, p.kv_ln, cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
@@ -143,10 +143,10 @@ def mla_prefill(p: MLA, x: torch.Tensor, cfg: ModelConfig,
                                  device=x.device).expand(b, s)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(p, x, cfg, positions)
 
-    k_nope = dt.fit_heads(c_kv @ p.wk_b, h).reshape(b, s, h, nope)
-    vfull = dt.fit_heads(c_kv @ p.wv_b, h).reshape(b, s, h, vd)
+    k_nope = dt.fit_heads(dt.linear(c_kv, p.wk_b), h).reshape(b, s, h, nope)
+    vfull = dt.fit_heads(dt.linear(c_kv, p.wv_b), h).reshape(b, s, h, vd)
     out = mla_causal_attention(q_nope, q_rope, k_nope, k_rope, vfull, cfg)
-    out = out.reshape(b, s, h * vd).to(x.dtype) @ p.wo
+    out = dt.linear(out.reshape(b, s, h * vd).to(x.dtype), p.wo)
     latent = torch.cat([c_kv, k_rope], dim=-1)
     return out, latent
 
@@ -186,10 +186,11 @@ def mla_causal_attention(q_nope, q_rope, k_nope, k_rope, vfull,
 
 def _heads_local(q_nope, q_rope, k_nope, k_rope, vfull, cfg: ModelConfig):
     """:func:`mla_causal_attention` over DTensors, through ``local_map``
-    as XLA partitions JAX's (``wq_b``, ``wk_b`` and ``wv_b`` columns over
-    ``model``): the batch as the query's is sharded, the heads over
-    ``model`` when they divide (``dt.head_axes``), the shared ``k_rope``
-    whole on every rank (its gradient summed over ``model``). No DTensor
+    as XLA partitions JAX's: the batch as the query's is sharded, the heads
+    as their projection cut them (over ``model`` where the specs cut the
+    columns of ``wq_b``, ``wk_b`` and ``wv_b``; whole on every rank where
+    they replicate them, as in a MoE segment), the shared ``k_rope`` whole
+    on every rank (its gradient summed over the heads' axes). No DTensor
     op sees a sharded head dimension, and the mixer issues no collective
     in the forward."""
     mesh = q_nope.device_mesh
@@ -198,7 +199,7 @@ def _heads_local(q_nope, q_rope, k_nope, k_rope, vfull, cfg: ModelConfig):
         lambda *a: mla_causal_attention(*a, cfg), mesh,
         (q_nope, q_rope, k_nope, k_rope, vfull),
         [heads, heads, heads, (0, None), heads], [heads],
-        dt.shard_axes(q_nope, 0), dt.head_axes(mesh, q_nope.shape[2]))
+        dt.shard_axes(q_nope, 0), dt.shard_axes(q_nope, 2))
 
 
 def _decode_seq_blocks(q_lat, q_rope, cache, rows_len: torch.Tensor,
@@ -266,7 +267,7 @@ def mla_decode(p: MLA, x: torch.Tensor, cache: torch.Tensor,
 
     wv = dt.fit_heads(p.wv_b, h).reshape(kvr, h, vd)
     out = torch.einsum("bshr,rhe->bshe", o_lat, wv.float())
-    out = out.reshape(b, 1, h * vd).to(x.dtype) @ p.wo
+    out = dt.linear(out.reshape(b, 1, h * vd).to(x.dtype), p.wo)
     return out, cache
 
 
@@ -301,7 +302,7 @@ def mla_extend(p: MLA, x: torch.Tensor, cache: torch.Tensor, offset,
     o_lat = torch.einsum("bhst,btr->bshr", probs, ck)          # (B,S,H,kvr)
     wv = p.wv_b.reshape(kvr, h, vd)
     out = torch.einsum("bshr,rhe->bshe", o_lat, wv.float())
-    out = out.reshape(b, s, h * vd).to(x.dtype) @ p.wo
+    out = dt.linear(out.reshape(b, s, h * vd).to(x.dtype), p.wo)
     return out, cache
 
 

@@ -210,7 +210,7 @@ def embed_inputs(params: Model, cfg: ModelConfig,
 def unembed(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     head = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return x @ head
+    return dt.linear(x, head)
 
 
 # ---------------------------------------------------------------------------
@@ -946,10 +946,10 @@ def lm_loss(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     logits, aux = forward(params, cfg, batch, moe_fn)
     if cfg.frontend == "vision_patches" and "prefix_emb" in batch:
         logits = logits[:, batch["prefix_emb"].shape[1]:, :]
-    # Over DTensors a pending sum over the model axis (the lm_head's
-    # contraction) is taken first: logsumexp and the pick need whole rows.
+    # Over DTensors a pending sum over the model axis is taken first; the
+    # logsumexp and the pick reduce each rank's block of the vocabulary.
     logits = dt.reduce_partial(logits).float()
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = dt.logsumexp(logits)
     gold = dt.take_last(logits, batch["labels"].long())
     nll = (lse - gold).mean()
     loss = nll + cfg.router_aux_loss_coef * aux["aux_loss"]

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import dtensor as dt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.microbatch import microbatched_loss
 from repro_torch.device import DeviceLike, check_on, resolve_device
@@ -61,7 +62,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, moe_fn=None,
         with trainable(params) as leaves:
             loss, metrics = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        # Over DTensors each gradient is placed once as its parameter (a
+        # pending sum reduce-scattered onto a shard or all-reduced onto a
+        # replica), so the update runs on each rank's blocks.
+        grads = [torch.zeros_like(p) if g is None else dt.placed_like(g, p)
                  for p, g in zip(leaves, grads)]
         params, opt_state, opt_metrics = adamw_update(
             opt_cfg, params, grads, opt_state)

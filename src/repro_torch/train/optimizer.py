@@ -13,6 +13,12 @@ layer's norm gain decays, ``final_norm`` does not), as in JAX.
 Where JAX returns new arrays, :func:`adamw_update` writes the parameters
 and the moments in place (under ``no_grad``) and returns them: a full-width
 model's moments are gigabytes, and a second copy would double them.
+
+Over DTensors (a step traced or run over a mesh) the gradients come placed
+as their parameters and the moments are placed so too (JAX's ``o_spec``):
+each rank updates its own blocks with no collective, and the global norm is
+each rank's sum of squares of its blocks, all-reduced as one scalar
+(:func:`repro_torch.dtensor.global_norm`), as XLA partitions JAX's update.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Any, List, NamedTuple, Tuple
 import torch
 from torch import nn
 
+from repro_torch import dtensor as dt
 from repro_torch.device import DeviceLike, check_on, resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -87,8 +94,11 @@ def init_opt_state(params: Any, device: DeviceLike = None) -> OptState:
 
 
 def _global_norm(tree: Any) -> torch.Tensor:
+    leaves = tree_leaves(tree)
+    if dt.is_dtensor(leaves[0]):
+        return dt.global_norm(leaves)
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+                          for x in leaves))
 
 
 def adamw_update(cfg: OptConfig, params: Any, grads: Any, state: OptState
@@ -103,16 +113,21 @@ def adamw_update(cfg: OptConfig, params: Any, grads: Any, state: OptState
     lr = lr_at(cfg, state.step)
     bc1 = 1 - torch.pow(cfg.b1, step.float())
     bc2 = 1 - torch.pow(cfg.b2, step.float())
+    # A replicated DTensor step's scalars meet each rank's blocks as its own.
+    lr_, bc1, bc2 = (t.to_local() if dt.is_dtensor(t) else t
+                     for t in (lr, bc1, bc2))
     with torch.no_grad():
         for (p, rank), g, m, v in zip(_leaves(params), tree_leaves(grads),
                                       tree_leaves(state.mu),
                                       tree_leaves(state.nu)):
+            if dt.is_dtensor(p):        # this rank's blocks, placed alike
+                p, g, m, v = (t.to_local() for t in (p, g, m, v))
             g = g.float() * scale
             m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
             v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
             u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
             if rank >= 2:                 # decoupled decay, matrices only
                 u = u + cfg.weight_decay * p.float()
-            p.copy_((p.float() - lr * u).to(p.dtype))
+            p.copy_((p.float() - lr_ * u).to(p.dtype))
     return params, OptState(step, state.mu, state.nu), {"grad_norm": gnorm,
                                                          "lr": lr}

@@ -3,8 +3,8 @@
 
 JAX's ``dryrun.py`` and ``variants.py`` set ``XLA_FLAGS`` to 512 host
 devices when imported, and the port's fake process group is global state,
-so each side runs in a subprocess of its own, both started together under
-one deadline:
+so each side runs in subprocesses of its own (JAX's in two, its train
+pairs apart), all started together under one deadline:
 
 * the pure functions (``skip_reason``, ``analytic_flops``,
   ``train_memory_bytes``, ``model_flops``, ``input_specs``' shapes and
@@ -18,8 +18,17 @@ one deadline:
   taken out: its pattern skips a tuple-shaped collective whose type
   carries one, which is how LEP's all-to-alls of eight ranks print); the
   other kinds are printed beside JAX's;
+* every pair's collective bytes at most NEAR_JAX times JAX's (index
+  comments taken out), the decode pairs with expert redundancy within
+  REDUNDANT_FACTOR, their experts moved by a permute (no all-gather as
+  large as one expert's three matrices);
+* ``adamw_update`` over DTensor gradients placed as their parameters
+  issues no collective but the global norm's scalar all-reduces, at most
+  one per mesh dimension;
+* ``scripts/torch_dryrun_sites.py``'s sites sum to the counter's totals;
 * the collective counter sees a ``core/parallel.py`` all-to-all as well as
-  a DTensor redistribution, with each op's output bytes;
+  a DTensor redistribution, with each op's output bytes, and counts each
+  batch of point-to-point transfers as one permute;
 * variants on the fake 2 x 4 group (INT8 weights, a scalar length, two
   microbatches, the hybrid prefill through ``local_map``, block skipping);
 * one ``run_one`` per family on a fake 16 x 16 group returns ``ok`` (a
@@ -53,7 +62,22 @@ MOE_ARCHS = ("olmoe-1b-7b", "kimi-k2-1t-a32b", "deepseek-r1")
 #: (arch, kind, batch, seq) on the fake 2 x 4 group, at smoke width
 PAIRS = [("qwen3-8b", "decode", 8, 64), ("olmoe-1b-7b", "decode", 8, 64),
          ("deepseek-r1", "decode", 8, 64), ("mamba2-780m", "decode", 8, 64),
-         ("qwen3-8b", "train", 8, 64)]
+         ("qwen3-8b", "train", 8, 64), ("deepseek-r1", "train", 8, 64),
+         ("olmoe-1b-7b", "train", 8, 64), ("mamba2-780m", "train", 8, 64)]
+#: JAX compiles the last three train pairs in a process of its own, started
+#: with the others: they take about as long as all else on JAX's side
+JAX_PAIR_PARTS = (PAIRS[:5], PAIRS[5:])
+#: every pair's collective bytes a rank at most this factor of JAX's (both
+#: partition the same step; the port's collectives are its own where the
+#: projections, the optimizer and LEP's redundancy issue them, DTensor's
+#: elsewhere); before they were held to it they read 2.2-7.5x
+NEAR_JAX = 2.0
+#: the decode pairs with expert redundancy (4 experts x 2 over 8 ranks): the
+#: experts move as a permute, each rank receiving its slot's expert, as XLA
+#: partitions JAX's ``jnp.repeat``: total and permute bytes within this
+#: factor of JAX's (the permute either way)
+REDUNDANT = ("olmoe-1b-7b/decode", "deepseek-r1/decode")
+REDUNDANT_FACTOR = 1.25
 #: decode pairs (arch, batch, seq, replaced fields) of the attention's
 #: collectives on the fake 2 x 4 group: R1 with 8 experts, one a rank (no
 #: redundancy, so no expert gather of DTensor's stands beside the
@@ -90,7 +114,7 @@ JAX_SIDE = textwrap.dedent('''
     import jax
     import numpy as np
     from jax.sharding import Mesh
-    from repro.configs import INPUT_SHAPES, get_config, list_configs
+    from repro.configs import INPUT_SHAPES, get_config
     from repro.configs import smoke_variant
     from repro.configs.base import InputShape
     from repro.core.parallel import set_current_mesh
@@ -99,8 +123,8 @@ JAX_SIDE = textwrap.dedent('''
     from repro.launch.sharding import param_pspecs, to_shardings
     from repro.models import init_params
 
-    pairs, moe_archs, variants, score_pairs = (json.loads(a)
-                                               for a in sys.argv[1:5])
+    pairs, moe_archs, variants, score_pairs, configs = (
+        json.loads(a) for a in sys.argv[1:6])
     out = {"pure": {}, "quant": {}, "lep": {}, "pairs": {}, "scores": {}}
 
     def flat(tree, prefix=""):
@@ -111,7 +135,7 @@ JAX_SIDE = textwrap.dedent('''
             return r
         return {prefix: tree}
 
-    for name in list_configs():
+    for name in configs:
         cfg = get_config(name)
         for sname, shape in INPUT_SHAPES.items():
             specs = D.input_specs(cfg, shape)
@@ -125,7 +149,7 @@ JAX_SIDE = textwrap.dedent('''
 
     prod = make_production_mesh()
     shapes, real_eval_shape = {}, jax.eval_shape
-    for name in list_configs():
+    for name in configs:
         cfg = get_config(name)
         shapes[name] = jax.eval_shape(
             lambda k, cfg=cfg: init_params(k, cfg), jax.random.PRNGKey(0))
@@ -204,10 +228,36 @@ PORT_SIDE = textwrap.dedent('''
     out = {"pairs": {}, "run_one": {}, "scores": {}}
     mesh = D.fake_mesh({"data": 2, "model": 4})
     for arch, kind, b, s in pairs:
-        r = D._measure(smoke_variant(get_config(arch)),
-                       InputShape("p", s, b, kind), mesh)
+        cfg = smoke_variant(get_config(arch))
+        r = D._measure(cfg, InputShape("p", s, b, kind), mesh)
         out["pairs"][f"{arch}/{kind}"] = {
-            "argument_bytes": r["argument_bytes"], "collectives": r["coll"]}
+            "argument_bytes": r["argument_bytes"], "collectives": r["coll"],
+            "largest": r["coll_largest"],
+            "expert_bytes": 3 * cfg.d_model * cfg.d_ff * 4}
+
+    from repro_torch.train.optimizer import OptConfig, OptState, adamw_update
+    params = D.sharded_model(smoke_variant(get_config("qwen3-8b")), mesh,
+                             train=True)
+    leaves = list(params.parameters())
+    zeros = lambda: [torch.zeros_like(p, dtype=torch.float32)  # noqa
+                     for p in leaves]
+    opt = OptState(meta_dtensor((), torch.int32, mesh, ()), zeros(), zeros())
+    with CollectiveCounter() as c:
+        adamw_update(OptConfig(), params, zeros(), opt)
+    out["adamw"] = [c.counts, c.largest, mesh.ndim]
+
+    import importlib.util
+    import repro_torch
+    from pathlib import Path
+    path = Path(repro_torch.__file__).parents[2] / "scripts" / \
+        "torch_dryrun_sites.py"
+    spec = importlib.util.spec_from_file_location("sites", path)
+    sites_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sites_mod)
+    sites, totals = sites_mod.measure_sites(
+        smoke_variant(get_config("qwen3-8b")),
+        InputShape("p", sites_mod.SEQ, sites_mod.BATCH, "decode"), mesh)
+    out["sites"] = [sites, totals]
     for arch, b, s, fields in score_pairs:
         cfg = dataclasses.replace(smoke_variant(get_config(arch)), **fields)
         r = D._measure(cfg, InputShape("p", s, b, "decode"), mesh)
@@ -224,6 +274,10 @@ PORT_SIDE = textwrap.dedent('''
         y.redistribute(mesh, (Replicate(), Shard(1)))
         y.redistribute(mesh, (Replicate(), Replicate()))
     out["direct"], out["redistribute"] = direct.counts, redist.counts
+    with CollectiveCounter() as permute:
+        par.send_recv([(x, 1)], [(x[:2].clone(), 2)])
+        par.send_recv([(x[:2], 1)], [(x.clone(), 3)])
+    out["permute"] = permute.counts
 
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.launch import variants as V
@@ -256,14 +310,19 @@ PORT_SIDE = textwrap.dedent('''
 
 @pytest.fixture(scope="module")
 def sides(tmp_path_factory):
-    """Both subprocesses, started together; their JSON results."""
+    """The subprocesses (JAX's side in two, JAX_PAIR_PARTS, and the
+    port's), started together; their JSON results, JAX's merged."""
     tmp = tmp_path_factory.mktemp("dryrun")
     (tmp / "jax_side.py").write_text(JAX_SIDE)
     (tmp / "port_side.py").write_text(PORT_SIDE)
     deadline = time.monotonic() + TIMEOUT_S
+    first, rest = JAX_PAIR_PARTS
     procs = [_start(tmp / "jax_side.py",
-                    [json.dumps(PAIRS), json.dumps(MOE_ARCHS),
-                     json.dumps(variants.VARIANTS), json.dumps(SCORE_PAIRS)]),
+                    [json.dumps(first), json.dumps(MOE_ARCHS),
+                     json.dumps(variants.VARIANTS), json.dumps(SCORE_PAIRS),
+                     json.dumps(CONFIGS)]),
+             _start(tmp / "jax_side.py",
+                    [json.dumps(rest)] + [json.dumps([])] * 4),
              _start(tmp / "port_side.py",
                     [json.dumps(PAIRS), json.dumps(FAMILIES),
                      json.dumps(VARIANT_CASES), json.dumps(SCORE_PAIRS)])]
@@ -276,7 +335,8 @@ def sides(tmp_path_factory):
             results.append(json.loads(stdout.strip().splitlines()[-1]))
     finally:
         _kill_all(procs)
-    return {"jax": results[0], "port": results[1]}
+    results[0]["pairs"].update(results[1]["pairs"])
+    return {"jax": results[0], "port": results[2]}
 
 
 @pytest.mark.parametrize("shape_name", SHAPES)
@@ -344,6 +404,56 @@ def test_argument_bytes_equal_jax(sides, pair):
     assert got["argument_bytes"] == want["argument_bytes"]
 
 
+def _total(coll):
+    return sum(v for k, v in coll.items() if k != "count")
+
+
+@pytest.mark.parametrize("pair", [f"{a}/{k}" for a, k, _, _ in PAIRS])
+def test_step_collectives_near_jax(sides, pair):
+    """Rank 0's collective bytes on the fake 2 x 4 group at most NEAR_JAX
+    times JAX's, counted with the index comments taken out; the decode
+    pairs with expert redundancy within REDUNDANT_FACTOR, their experts a
+    permute within REDUNDANT_FACTOR of JAX's either way and no all-gather
+    as large as one expert's three matrices (DTensor gathered every expert
+    for the repeat before)."""
+    got, want = sides["port"]["pairs"][pair], sides["jax"]["pairs"][pair]
+    port, ref = _total(got["collectives"]), _total(
+        want["collectives_untupled"])
+    print(pair, "port", got["collectives"], "jax",
+          want["collectives_untupled"], f"{port / ref:.2f}x")
+    assert port <= NEAR_JAX * ref
+    if pair in REDUNDANT:
+        assert port <= REDUNDANT_FACTOR * ref
+        permute = got["collectives"]["collective-permute"]
+        jax_permute = want["collectives_untupled"]["collective-permute"]
+        assert jax_permute / REDUNDANT_FACTOR <= permute \
+            <= jax_permute * REDUNDANT_FACTOR
+        assert got["largest"]["all-gather"] < got["expert_bytes"]
+
+
+def test_adamw_issues_only_the_norms_scalar(sides):
+    """``adamw_update`` over Qwen3's DTensor weights, gradients and moments
+    placed alike on the fake 2 x 4 group: no collective but the global
+    norm's all-reduce of one float32 scalar, at most one per mesh
+    dimension."""
+    counts, largest, ndim = sides["port"]["adamw"]
+    assert 1 <= counts["count"] <= ndim
+    assert largest["all-reduce"] == 4
+    assert counts["all-reduce"] == 4 * counts["count"]
+    assert _total(counts) == counts["all-reduce"]
+
+
+def test_sites_sum_to_counter_totals(sides):
+    """``scripts/torch_dryrun_sites.py`` on Qwen3's smoke decode at 2 x 4:
+    its sites' bytes of each kind sum to the counter's total."""
+    sites, totals = sides["port"]["sites"]
+    assert _total(totals) > 0
+    for kind in totals:
+        if kind != "count":
+            assert sum(by.get(kind, 0) for by in sites.values()) \
+                == totals[kind], kind
+
+
 @pytest.mark.parametrize("pair", LEP_PAIRS)
 def test_lep_all_to_all_bytes_equal_jax(sides, pair):
     """LEP's dispatch and combine, where JAX's HLO has no other
@@ -384,6 +494,16 @@ def test_counter_sees_direct_and_dtensor_collectives(sides):
     red = sides["port"]["redistribute"]
     assert red["all-to-all"] == 128 and red["all-gather"] == 512 \
         and red["count"] == 2
+
+
+def test_counter_counts_each_permute_batch_apart(sides):
+    """Two batches of ``core/parallel.send_recv``, each sending 512 bytes
+    and receiving 128 or the other way round: each batch is one permute of
+    its larger side, 1024 bytes in all (640 if the step's sends and
+    receives were taken whole)."""
+    assert sides["port"]["permute"] == {
+        "all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
+        "all-to-all": 0, "collective-permute": 1024, "count": 4}
 
 
 @pytest.mark.parametrize("case", [f"{n}/{k}" for n, k in VARIANT_CASES])

@@ -1,9 +1,10 @@
 """The mixers over DTensors (``local_map`` entries of ``models/mla.py``,
 ``models/attention.py`` and ``models/mamba2.py``) against the JAX package's
 functions, on the CPU: gloo ranks over a 1 x 2 and a 2 x 2 ``DeviceMesh``
-(two subprocesses started together under one deadline), every weight,
-input and cache a DTensor placed by the port's specs, the same seeded
-numpy values through JAX's functions in this process.
+(two subprocesses, their ranks forked, started together under one
+deadline), every weight, input and cache a DTensor placed by the port's
+specs, the same seeded numpy values through JAX's functions in this
+process (its LEP and train step in a third subprocess, JAX_EXTRA).
 
 * Decode over caches whose batch is sharded over ``data`` and sequence
   over ``model``: MLA (``mla_decode``, against the ``jnp`` branch of JAX's)
@@ -21,6 +22,18 @@ numpy values through JAX's functions in this process.
   one K/V head and Mamba2, against ``jax.value_and_grad``: the loss within
   1e-5, each gradient within 2e-4 of its leaf's largest (the tolerances of
   ``test_torch_train.py``).
+* One whole ``make_train_step`` at 1 x 2 and 2 x 2 (``lm_loss``, the
+  gradients placed as their parameters, ``adamw_update`` on each rank's
+  blocks), moments placed as the parameters, on R1 (dense layers only),
+  Qwen3 and Mamba2, against JAX's ``train.make_train_step`` on the same
+  weights and batch: every parameter and both moments within 2e-4 of the
+  leaf's largest, with no warmup (so the step moves every weight by more
+  than that), and the global gradient norm within 1e-5.
+* LEP over a DTensor batch at 2 x 2 with ``redundancy=2`` on full-mesh EP,
+  the experts placed over ``model`` (each rank receives the experts its
+  slots lack: a permute), against JAX's LEP function on a forced 4-device
+  mesh (a subprocess of its own): within 1e-5 of the largest entry, as
+  ``test_torch_lep2d.py`` holds its modes.
 
 In this process: the MLA plain version's ``return_lse`` against a direct
 log-sum-exp, an empty row (o = 0, lse = -inf) included, and the kernel's
@@ -42,6 +55,7 @@ from repro.models import init_params as j_init_params
 from repro.models import lm_loss as j_lm_loss
 from repro.models import mamba2 as j_mamba
 from repro.models import mla as j_mla
+from repro.models import moe as j_moe
 from repro_torch.kernels.mla_attention.ref import (mla_decode_attention_pieces,
                                                    mla_decode_attention_ref)
 from test_torch_lep import _kill_all, _start
@@ -58,6 +72,15 @@ S_PREFILL, S_SSD = 24, 64
 #: (arch, replaced fields) trained at 1 x 2
 TRAIN = {"deepseek-r1": {"num_experts": 0},
          "qwen3-8b": {"num_kv_heads": 1}, "mamba2-780m": {}}
+#: (arch, replaced fields) taken one whole train step at 1 x 2 and 2 x 2
+STEP = {"deepseek-r1": {"num_experts": 0}, "qwen3-8b": {},
+        "mamba2-780m": {}}
+STEP_TOL = 2e-4          # of each leaf's largest |value|
+#: the optimizer of that step: no warmup, so the first step moves each
+#: weight by about lr = 3e-4, above STEP_TOL of a leaf's largest value
+STEP_OPT = {"warmup_steps": 1}
+LEP_TOKENS = 24          # 6 rows a rank on 2 x 2
+LEP_KW = {"ep_axes": ["data", "model"], "redundancy": 2}
 
 PORT_SIDE = textwrap.dedent('''
     import dataclasses, json, sys
@@ -72,6 +95,8 @@ PORT_SIDE = textwrap.dedent('''
                                              shard_model)
     from repro_torch.models import attention, lm_loss, mamba2, mla
     from repro_torch.train import trainable
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import OptConfig, OptState
 
     def nest(flat):
         tree = {}
@@ -103,7 +128,7 @@ PORT_SIDE = textwrap.dedent('''
                 requires_grad=False))
         return module
 
-    def run(rank, world, shape, inp, outp, init, train):
+    def run(rank, world, shape, inp, outp, init, plan):
         from torch.distributed.tensor.experimental import \
             implicit_replication
 
@@ -112,10 +137,36 @@ PORT_SIDE = textwrap.dedent('''
         torch.set_num_threads(1)
         mesh = make_debug_mesh(*shape)
         with implicit_replication():     # as the dry run traces a step
-            cases(rank, mesh, inp, outp, train)
+            cases(rank, mesh, inp, outp, json.loads(plan))
         dist.destroy_process_group()
 
-    def cases(rank, mesh, inp, outp, train):
+    def sharded(d, key, arch, fields, mesh):
+        """(cfg, JAX's weights under ``key`` as a tree, as a Model placed
+        by the training specs, the batch placed by its specs)."""
+        cfg = dataclasses.replace(smoke_variant(get_config(arch)), **fields)
+        tree = nest({k[len(key) + 3:]: d[k] for k in d.files
+                     if k.startswith(f"{key}:p:")})
+        model = params_from_jax_numpy(tree, cfg, "cpu")
+        specs = param_pspecs(cfg, mesh, param_tree(model), train=True)
+        model = shard_model(model, mesh, specs)
+        raw = {k: torch.from_numpy(d[f"{key}:{k}"])
+               for k in ("tokens", "labels")}
+        bspec = batch_pspecs(cfg, mesh, raw)
+        batch = {k: distribute(v, mesh, bspec[k]) for k, v in raw.items()}
+        return cfg, tree, model, batch
+
+    def as_tree(values, cfg, tree, prefix):
+        """``values`` (one per parameter, in ``parameters()`` order) as
+        JAX's flat tree, keyed under ``prefix``."""
+        holder = params_from_jax_numpy(tree, cfg, "cpu")
+        for w, v in zip(holder.parameters(), values):
+            w.data.copy_(0 if v is None else (
+                v.full_tensor() if hasattr(v, "full_tensor") else v))
+        return {f"{prefix}:{k}": v
+                for k, v in flat(param_tree(holder)).items()}
+
+    def cases(rank, mesh, inp, outp, plan):
+        train = plan["grads"]
         d = np.load(inp)
         t = lambda k: torch.from_numpy(d[k])
         cpu = torch.device("cpu")
@@ -170,7 +221,7 @@ PORT_SIDE = textwrap.dedent('''
          out["mamba_conv"]) = mamba2.mamba_prefill(
             p, distribute(t("mamba_x"), mesh, rows), m2)
 
-        for arch, fields in (json.loads(train) or {}).items():
+        for arch, fields in train.items():
             cfg = dataclasses.replace(smoke_variant(get_config(arch)),
                                       **fields)
             model = params_from_jax_numpy(nest(weights(f"p:{arch}:")), cfg,
@@ -193,6 +244,43 @@ PORT_SIDE = textwrap.dedent('''
             out.update({f"grad:{arch}:{k}": v
                         for k, v in flat(param_tree(holder)).items()})
 
+        for arch, fields in plan["steps"].items():
+            cfg, tree, model, batch = sharded(d, f"step:{arch}", arch,
+                                              fields, mesh)
+            leaves = list(model.parameters())
+            opt = OptState(distribute(torch.zeros((), dtype=torch.int32),
+                                      mesh, ()),
+                           *([torch.zeros_like(w, dtype=torch.float32)
+                              for w in leaves] for _ in range(2)))
+            model, opt, metrics = make_train_step(
+                cfg, OptConfig(**plan["opt"]))(model, opt, batch)
+            out[f"gnorm:{arch}"] = metrics["grad_norm"]
+            for name, values in (("param", model.parameters()),
+                                 ("mu", opt.mu), ("nu", opt.nu)):
+                out.update(as_tree(list(values), cfg, tree,
+                                   f"step:{arch}:{name}"))
+
+        if plan["lep"]:
+            from repro_torch.convert import moe_from_jax_numpy
+            from repro_torch.core.lep import make_lep_moe_fn
+
+            cfg = dataclasses.replace(smoke_variant(get_config(
+                "olmoe-1b-7b")), capacity_factor=8.0)
+            moe = moe_from_jax_numpy({k[4:]: d[k][None] for k in d.files
+                                      if k.startswith("lep:")}, cfg, 0,
+                                     "cpu")
+            for name in ("w_gate", "w_up", "w_down"):
+                setattr(moe, name, torch.nn.Parameter(distribute(
+                    getattr(moe, name).detach(), mesh, ("model", None, None)),
+                    requires_grad=False))
+            moe.router = torch.nn.Parameter(distribute(
+                moe.router.detach(), mesh, ()), requires_grad=False)
+            kw = dict(plan["lep"], ep_axes=tuple(plan["lep"]["ep_axes"]))
+            fn = make_lep_moe_fn(mesh=mesh, **kw)
+            o, aux = fn(moe, distribute(t("lep_x"), mesh, ("data", None)),
+                        cfg)
+            out["lep"], out["lep:dropped"] = o, aux["dropped"]
+
         got = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
                for k, v in out.items()}
         if rank == 0:
@@ -200,7 +288,70 @@ PORT_SIDE = textwrap.dedent('''
 
     if __name__ == "__main__":
         world, shape = int(sys.argv[1]), tuple(json.loads(sys.argv[2]))
-        mp.spawn(run, args=(world, shape, *sys.argv[3:]), nprocs=world)
+        # forked: a spawned rank would import everything again
+        mp.start_processes(run, args=(world, shape, *sys.argv[3:]),
+                           nprocs=world, start_method="fork")
+''')
+
+#: JAX's cases in a process of their own, started with the ranks: LEP over
+#: a forced 4-device 2 x 2 mesh on the same weights and tokens as the
+#: port's DTensor case, and JAX's ``make_train_step`` for each arch of STEP
+#: (jitted on one device) on the weights and batch the ranks take
+JAX_EXTRA = textwrap.dedent('''
+    import dataclasses, json, sys
+    import jax, jax.numpy as jnp, numpy as np
+    from repro.configs import get_config, smoke_variant
+    from repro.core.lep import make_lep_moe_fn
+    from repro.launch.mesh import make_debug_mesh
+    from repro.train.loop import make_train_step
+    from repro.train.optimizer import OptConfig, init_opt_state
+    d = np.load(sys.argv[1])
+    kw, steps, opt = (json.loads(a) for a in sys.argv[2:5])
+    out = {}
+
+    def smoke(arch, **fields):
+        return dataclasses.replace(smoke_variant(get_config(arch)), **fields)
+
+    def nest(prefix):
+        tree = {}
+        for key in d.files:
+            if key.startswith(prefix):
+                *path, leaf = key[len(prefix):].split("/")
+                node = tree
+                for k in path:
+                    node = node.setdefault(k, {})
+                node[leaf] = jnp.asarray(d[key])
+        return tree
+
+    def flat(tree, prefix=""):
+        r = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                r.update(flat(v, prefix + k + "/"))
+            else:
+                r[prefix + k] = np.asarray(v)
+        return r
+
+    cfg = smoke("olmoe-1b-7b", capacity_factor=8.0)
+    mesh = make_debug_mesh(2, 2)
+    fn = make_lep_moe_fn(mesh, **dict(kw, ep_axes=tuple(kw["ep_axes"])))
+    with mesh:
+        o, aux = jax.jit(lambda pp, xx: fn(pp, xx, cfg))(
+            nest("lep:"), jnp.asarray(d["lep_x"]))
+    out["lep"], out["lep:dropped"] = np.asarray(o), np.asarray(aux["dropped"])
+    for arch, fields in steps.items():
+        cfg = smoke(arch, **fields)
+        params = nest(f"step:{arch}:p:")
+        batch = {k: jnp.asarray(d[f"step:{arch}:{k}"])
+                 for k in ("tokens", "labels")}
+        new, state, metrics = jax.jit(make_train_step(
+            cfg, OptConfig(**opt)))(params, init_opt_state(params), batch)
+        out[f"gnorm:{arch}"] = np.asarray(metrics["grad_norm"])
+        for name, tree in (("param", new), ("mu", state.mu),
+                           ("nu", state.nu)):
+            out.update({f"step:{arch}:{name}:{k}": v
+                        for k, v in flat(tree).items()})
+    np.savez(sys.argv[5], **out)
 ''')
 
 
@@ -257,25 +408,43 @@ def inputs():
         for k in ("tokens", "labels"):
             d[f"{arch}:{k}"] = rng.randint(0, cfg.vocab_size,
                                            (2, 16)).astype(np.int32)
+    for arch, fields in STEP.items():
+        cfg = _smoke(arch, **fields)
+        params = jax.jit(j_init_params, static_argnums=(1,))(
+            jax.random.PRNGKey(1), cfg)
+        d.update({f"step:{arch}:p:{k}": v for k, v in _flat(params).items()})
+        for k in ("tokens", "labels"):
+            d[f"step:{arch}:{k}"] = rng.randint(0, cfg.vocab_size,
+                                                (2, 16)).astype(np.int32)
+    olmoe = _smoke("olmoe-1b-7b")
+    d.update({f"lep:{k}": np.asarray(v[0]) for k, v in j_moe.init_moe_params(
+        jax.random.PRNGKey(5), olmoe, 1, jnp.float32).items()})
+    d["lep_x"] = f(LEP_TOKENS, olmoe.d_model)
     return d
 
 
 @pytest.fixture(scope="module")
 def sides(inputs, tmp_path_factory):
-    """Both meshes' ranks, started together under one deadline, and JAX's
-    side computed while they run: (rank 0's gathered arrays by mesh,
-    JAX's arrays)."""
+    """Both meshes' ranks and JAX_EXTRA, started together under one
+    deadline, and the rest of JAX's side computed while they run: (rank
+    0's gathered arrays by mesh, JAX's arrays)."""
     import json
 
     tmp = tmp_path_factory.mktemp("sharded")
     np.savez(tmp / "in.npz", **inputs)
     (tmp / "port_side.py").write_text(PORT_SIDE)
     deadline = time.monotonic() + TIMEOUT_S
+    (tmp / "jax_extra.py").write_text(JAX_EXTRA)
     procs = {name: _start(tmp / "port_side.py", [
         str(shape[0] * shape[1]), json.dumps(shape), str(tmp / "in.npz"),
         str(tmp / f"{name}.npz"), f"file://{tmp / f'gloo_{name}'}",
-        json.dumps(TRAIN if name == "1x2" else {})])
+        json.dumps({"grads": TRAIN if name == "1x2" else {}, "steps": STEP,
+                    "opt": STEP_OPT,
+                    "lep": LEP_KW if name == "2x2" else None})])
         for name, shape in MESHES.items()}
+    procs["jax_extra"] = _start(tmp / "jax_extra.py", [
+        str(tmp / "in.npz"), json.dumps(LEP_KW), json.dumps(STEP),
+        json.dumps(STEP_OPT), str(tmp / "jax_extra.npz")], xla_devices=4)
     try:
         want = _jax_side(inputs)
         for proc in procs.values():
@@ -284,6 +453,7 @@ def sides(inputs, tmp_path_factory):
             assert proc.returncode == 0, stderr[-4000:]
     finally:
         _kill_all(list(procs.values()))
+    want.update(np.load(tmp / "jax_extra.npz"))
     return {name: dict(np.load(tmp / f"{name}.npz")) for name in MESHES}, want
 
 
@@ -369,6 +539,47 @@ def test_sharded_train_gradients_match_jax(sides, arch):
     assert keys == sorted(k for k in got if k.startswith(f"grad:{arch}:"))
     for k in keys:
         _close(got[k], jax_side[k], GRAD_TOL)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", list(STEP))
+def test_sharded_train_step_matches_jax(sides, arch, mesh):
+    """One ``make_train_step`` over the training specs (FSDP over ``data``
+    at 2 x 2): both AdamW moments after the step and every parameter,
+    against JAX's ``make_train_step`` on the same weights and batch, and
+    the metrics' global gradient norm. With no warmup the first step moves
+    each weight by about lr x sign(g), 3e-4, so a step skipped, doubled or
+    of the wrong sign is outside the tolerance; where the gradient is
+    within the tolerance of 0 it may take either sign: the weights are
+    held where the first moment (0.1 g) is clear of 0, as
+    ``test_torch_lep2d.py`` holds them."""
+    ports, want = sides
+    got = ports[mesh]
+    np.testing.assert_allclose(got[f"gnorm:{arch}"], want[f"gnorm:{arch}"],
+                               rtol=LOSS_RTOL)
+    keys = sorted(k for k in want if k.startswith(f"step:{arch}:"))
+    assert keys and keys == sorted(k for k in got
+                                   if k.startswith(f"step:{arch}:"))
+    for k in keys:
+        if ":param:" not in k:
+            _close(got[k], want[k], STEP_TOL)
+            continue
+        mu = want[k.replace(":param:", ":mu:")]
+        clear = np.abs(mu) > STEP_TOL * max(float(np.abs(mu).max()), 1e-30)
+        assert clear.any() or not mu.any(), k
+        scale = max(float(np.abs(want[k]).max()), 1e-30)
+        err = float(np.abs(got[k] - want[k])[clear].max(initial=0.0))
+        assert err <= STEP_TOL * scale, (k, err, scale)
+
+
+def test_sharded_lep_redundancy_matches_jax(sides):
+    """LEP with ``redundancy=2`` over a DTensor batch at 2 x 2, the experts
+    placed over ``model`` and permuted to the slots: the output and the
+    dropped count against JAX's LEP on four devices."""
+    ports, want = sides
+    got = ports["2x2"]
+    _close(got["lep"], want["lep"])
+    assert int(got["lep:dropped"]) == int(want["lep:dropped"])
 
 
 def _lse_inputs(lens, s=24, seed=0):
