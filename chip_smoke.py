@@ -244,7 +244,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    within DENSE_AGREE_ATOL of a forward over the longer sequence);
    HuBERT-XLarge (1.26 B) over 1024 audio frames (finite logits). No
    kernel but the SSD scan may launch.
-17. dryrun: the port's dry run (``repro_torch.launch.dryrun``), shapes
+17. examples: the port's examples and dev smoke through their ``main`` on
+   the card, at the JAX examples' own sizes (EXAMPLES):
+   ``examples/torch_quickstart.py`` (its INT8 linear through the
+   dispatch-quantize and INT8 GEMM kernels; the relative error printed),
+   ``examples/torch_serve_pdc.py`` on Qwen3 and on R1 with MTP (the MLA
+   kernel), ``examples/torch_mtp_speculative.py`` (tokens equal to greedy
+   decoding), ``examples/torch_train_moe_100m.py`` for EXAMPLE_TRAIN_STEPS
+   steps (the last loss below the first) and ``scripts/torch_dev_smoke.py``
+   over every config (the Mamba2 and Zamba2 prefills through the SSD
+   scan). One line each with its key numbers and kernel launches; each of
+   the four kernels must launch in the phase.
+18. dryrun: the port's dry run (``repro_torch.launch.dryrun``), shapes
    only, each pair in a process of its own on a fake process group, all
    started together: the nine pairs of DRYRUN_PRODUCTION (DeepSeek-R1,
    OLMoE and Kimi K2 decode_32k on 16 x 16, Kimi also on 2 x 16 x 16;
@@ -256,8 +267,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    and collective bytes by kind are printed, each pair's total beside
    JAX's and the CPU sweep's (DRYRUN_CPU_SWEEP: the permute bytes, which
    the port issues itself, equal to the sweep's, the total within
-   DRYRUN_SWEEP_SPREAD of it either way; OLMoE's collective term below
-   DRYRUN_OLMOE_COLL_S); then a 1 x 1
+   DRYRUN_SWEEP_TOL of it; OLMoE's collective term below DRYRUN_OLMOE_COLL_S;
+   R1 train_4k at most DRYRUN_R1_TRAIN_FACTOR times JAX's; Qwen3-8B
+   train_4k's all-gather, K/V projections included, under
+   DRYRUN_QWEN3_AG_BYTES); then a 1 x 1
    record of the decode step of each serve config (the R1 and Kimi cuts,
    Qwen3-8B, OLMoE, Mamba2, Zamba2: batch 8, capacity 2048, float32
    caches), whose argument bytes must equal the bytes its serve's engine
@@ -269,7 +282,7 @@ Each path phase (serve, serve-lep, int8, serve-mtp's two serves,
 serve-ems's two turns, cli, hybrid-prefill, serve-hybrid, kimi-lep-agree's
 calls, serve-kimi, serve-kimi-tokens, serve-dense, the ring serve, int8-dense,
 serve-faults, serve-olmoe, serve-olmoe-lep, serve-ssm, train-ssm, ckpt,
-serve-zamba, cli-zamba, forward)
+serve-zamba, cli-zamba, forward, each example)
 sets every kernel's launch count to 0 just before it and reads the counts
 just after; the kernels line lists each kernel's by path. The last
 two lines of standard output are a ``{"kernels": [...]}`` JSON object (one
@@ -644,26 +657,46 @@ DRYRUN_OLMOE_COLL_S = 2e-3
 # Each pair's collective bytes a rank, in all and permuted, in a CPU sweep
 # under torch 2.13 (``python -m repro_torch.launch.dryrun``), printed
 # beside the card's. The permute is the port's own (LEP's redundancy) and
-# must read the same on both versions; the total, in part DTensor's
-# choice, within DRYRUN_SWEEP_SPREAD of the sweep's either way, so that a
-# change of a pair's collectives fails here until the sweep is taken anew.
+# must read the same on both versions; the total within DRYRUN_SWEEP_TOL
+# of the sweep's, so that a change of a pair's collectives fails here
+# until the sweep is taken anew.
 DRYRUN_CPU_SWEEP = {
     "deepseek-r1 × decode_32k × 16x16": (2711142960, 0),
     "olmoe-1b-7b × decode_32k × 16x16": (404930688, 201326592),
     "kimi-k2-1t-a32b × decode_32k × 16x16": (130837500384, 0),
-    "kimi-k2-1t-a32b × decode_32k × 2x16x16": (131097180544, 0),
-    "qwen3-8b × train_4k × 16x16": (156772043780, 0),
-    "deepseek-r1 × train_4k × 16x16": (401924582868, 0),
-    "deepseek-r1 × prefill_32k × 16x16": (169817211344, 0),
-    "mamba2-780m × train_4k × 16x16": (43735503940, 0),
-    "zamba2-1.2b × train_4k × 16x16": (54876159556, 0),
+    "kimi-k2-1t-a32b × decode_32k × 2x16x16": (131093682560, 0),
+    "qwen3-8b × train_4k × 16x16": (79575887876, 0),
+    "deepseek-r1 × train_4k × 16x16": (240666593748, 0),
+    "deepseek-r1 × prefill_32k × 16x16": (120433426896, 0),
+    "mamba2-780m × train_4k × 16x16": (25614242884, 0),
+    "zamba2-1.2b × train_4k × 16x16": (30916738628, 0),
 }
-DRYRUN_SWEEP_SPREAD = 2.0
+DRYRUN_SWEEP_TOL = 0.01
+# R1 train_4k at most this factor of JAX's bytes; Qwen3-8B train_4k's
+# all-gather a rank under this many bytes (9.66 GB when k and v were
+# gathered whole for its 8 K/V heads over 16 ranks).
+DRYRUN_R1_TRAIN = "deepseek-r1 × train_4k × 16x16"
+DRYRUN_R1_TRAIN_FACTOR = 1.3
+DRYRUN_QWEN3 = "qwen3-8b × train_4k × 16x16"
+DRYRUN_QWEN3_AG_BYTES = 1e9
 DRYRUN_SERVES = (("serve-lep", "serve_config"), ("serve-kimi", "kimi_config"),
                  ("serve-dense", "dense_config"),
                  ("serve-olmoe-lep", "olmoe_config"),
                  ("serve-ssm", "ssm_config"), ("serve-zamba", "zamba_config"))
 DRYRUN_BATCH, DRYRUN_CAPACITY, DRYRUN_STEP_LEN = 8, 2048, 1000
+# examples: (name, file under the repo, arguments of its ``main``) of the
+# port's examples and dev smoke, run on the card in this process; the
+# training example's steps (the JAX example's default).
+EXAMPLE_TRAIN_STEPS = 300
+EXAMPLES = (("torch_quickstart", "examples/torch_quickstart.py", []),
+            ("torch_serve_pdc", "examples/torch_serve_pdc.py", []),
+            ("torch_serve_pdc r1 mtp", "examples/torch_serve_pdc.py",
+             ["--arch", "deepseek-r1", "--mtp"]),
+            ("torch_mtp_speculative", "examples/torch_mtp_speculative.py",
+             []),
+            ("torch_train_moe_100m", "examples/torch_train_moe_100m.py",
+             ["--steps", str(EXAMPLE_TRAIN_STEPS)]),
+            ("torch_dev_smoke", "scripts/torch_dev_smoke.py", []))
 DRYRUN_TIMEOUT_S = 300
 SPILL_GATED = ("int8_gemm", "mla_decode_attention", "dispatch_quant")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -3694,6 +3727,83 @@ def one_rank_records() -> None:
     print(json.dumps(out))
 
 
+def load_entry(rel: str):
+    """An example or script of the repo (``rel`` from the repo's root) as
+    a module, loaded from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(Path(rel).stem, HERE / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(torch, device: str) -> dict:
+    """Each of EXAMPLES through its ``main`` on the card (its own lines
+    captured; the training example's checkpoint in a temporary
+    directory), counts set to 0 just before it and read just after: one
+    line each with its key numbers. Fails if an example fails, if the
+    quickstart's INT8 linear, the R1 serve or the dev smoke's SSM prefills
+    launch no kernel of theirs, if MTP's tokens part from greedy decoding
+    or if training does not lower the loss. Returns each kernel's
+    launches over the phase."""
+    import io
+    import tempfile
+
+    total = {k: 0 for k in KERNEL_MODULES}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, rel, argv in EXAMPLES:
+            argv = argv + ["--device", "cuda"]
+            if name == "torch_train_moe_100m":
+                argv += ["--ckpt", str(Path(tmp) / "ckpt")]
+            main = load_entry(rel).main
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                got = main(argv)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            total = {k: total[k] + counts[k] for k in total}
+            row = {"s": time.perf_counter() - t0, "kernel_launches": counts,
+                   "lines": len(out.getvalue().splitlines())}
+            if name == "torch_quickstart":
+                row.update(int8_rel_err=got["int8_rel_err"],
+                           greedy=got["greedy"],
+                           moe_aux_loss=got["moe_aux_loss"])
+                need = ("dispatch_quant", "int8_gemm")
+            elif name.startswith("torch_serve_pdc"):
+                row.update({k: got[k] for k in (
+                    "arch", "mtp", "reused_tokens", "hit_rate", "handoffs",
+                    "handoff_mib", "prefill_saved")})
+                need = ("mla_attention",) if "r1" in name else ()
+            elif name == "torch_mtp_speculative":
+                row.update({k: got[k] for k in (
+                    "iterations", "accepted", "tokens_per_iteration",
+                    "equal_to_greedy")})
+                if not got["equal_to_greedy"]:
+                    raise AssertionError(f"examples {name}: {got}")
+                need = ()
+            elif name == "torch_train_moe_100m":
+                row.update({k: got[k] for k in (
+                    "steps", "first_loss", "final_loss", "params_m")})
+                row["step_s"] = row["s"] / got["steps"]
+                if not got["final_loss"] < got["first_loss"]:
+                    raise AssertionError(f"examples {name}: {got}")
+                need = ()
+            else:
+                # NaN where the batch leaves no labelled token (the VLM's
+                # smoke prefix fills its 16 positions), as in JAX.
+                row["configs"] = {r["name"]: {
+                    k: r[k] if r[k] == r[k] else None
+                    for k in ("loss", "prefill_err") if k in r} for r in got}
+                need = ("ssd_scan",)
+            if not all(counts[k] for k in need):
+                raise AssertionError(f"examples {name}: no launch of "
+                                     f"{need}: {counts}")
+            log(f"examples: {name}: {json.dumps(row)} on {device}")
+    return total
+
+
 def dryrun_phase(torch, serve_rows) -> None:
     """The dry run on the production meshes and the 1 x 1 records, all in
     processes started together. Every production record must be ``ok``;
@@ -3748,8 +3858,9 @@ def dryrun_phase(torch, serve_rows) -> None:
                     f"{DRYRUN_R1_AG_BYTES} B and {DRYRUN_R1_COLL_S} s")
             total = sum(rec["collectives"][k] for k in jax_coll)
             jax_total = sum(jax_coll.values())
-            factor = DRYRUN_OLMOE_FACTOR if what == DRYRUN_OLMOE \
-                else DRYRUN_COLL_FACTOR
+            factor = DRYRUN_OLMOE_FACTOR if what == DRYRUN_OLMOE else \
+                DRYRUN_R1_TRAIN_FACTOR if what == DRYRUN_R1_TRAIN else \
+                DRYRUN_COLL_FACTOR
             if total > factor * jax_total:
                 raise AssertionError(
                     f"dryrun {what}: collective bytes {total} over "
@@ -3759,11 +3870,16 @@ def dryrun_phase(torch, serve_rows) -> None:
                 raise AssertionError(
                     f"dryrun {what}: collective term {rec['collective_s']} "
                     f"s, over {DRYRUN_OLMOE_COLL_S} s")
+            if what == DRYRUN_QWEN3 and rec["collectives"]["all-gather"] \
+                    >= DRYRUN_QWEN3_AG_BYTES:
+                raise AssertionError(
+                    f"dryrun {what}: all-gather "
+                    f"{rec['collectives']['all-gather']} B, over "
+                    f"{DRYRUN_QWEN3_AG_BYTES} B")
             sweep, sweep_permute = DRYRUN_CPU_SWEEP[what]
             permute = rec["collectives"]["collective-permute"]
-            if permute != sweep_permute or not (
-                    sweep / DRYRUN_SWEEP_SPREAD <= total
-                    <= sweep * DRYRUN_SWEEP_SPREAD):
+            if permute != sweep_permute or \
+                    abs(total - sweep) > DRYRUN_SWEEP_TOL * sweep:
                 raise AssertionError(
                     f"dryrun {what}: collective bytes {total}, permuted "
                     f"{permute}, against the CPU sweep's {sweep} and "
@@ -4103,6 +4219,15 @@ def main(argv=None) -> int:
     log(f"forward: phase {time.perf_counter() - tp:.1f} s")
 
     tp = time.perf_counter()
+    example_counts = examples_phase(torch, device)
+    if not all(example_counts.values()):
+        raise AssertionError(f"examples: a kernel never launched: "
+                             f"{example_counts}")
+    log(f"examples: phase {time.perf_counter() - tp:.1f} s, kernel "
+        f"launches {json.dumps(example_counts)}")
+    free_model(torch)
+
+    tp = time.perf_counter()
     dryrun_phase(torch, serve_rows)
     log(f"dryrun: phase {time.perf_counter() - tp:.1f} s")
 
@@ -4129,7 +4254,8 @@ def main(argv=None) -> int:
             "serve-ems turn 2": ems_counts["turn2"]["mla_attention"],
             "cli": cli["kernel_launches"]["mla_attention"],
             "serve-hybrid": hybrid_counts["mla_attention"],
-            "serve-dense": dense_counts["mla_attention"]},
+            "serve-dense": dense_counts["mla_attention"],
+            "examples": example_counts["mla_attention"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # The return_lse variant (the sharded decode's) and the serve's
         # cache merged from MLA_SPLIT_BLOCKS blocks, against the plain
@@ -4155,7 +4281,8 @@ def main(argv=None) -> int:
             "serve-kimi": kimi_counts["dispatch_quant"],
             "serve-kimi-tokens": kimi_tok_counts["dispatch_quant"],
             "int8": int8_counts["dispatch_quant"],
-            "int8-dense": dense_int8_counts["dispatch_quant"]},
+            "int8-dense": dense_int8_counts["dispatch_quant"],
+            "examples": example_counts["dispatch_quant"]},
         "max_abs_err": max(r["max_abs_err"]
                            for r in dq_rows + dq_ragged + olmoe_dq),
         "ms": dq_row["ms"],
@@ -4172,7 +4299,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/int8_gemm/int8_gemm.py:39",
         "launches": int8_counts["int8_gemm"],
         "launches_by_path": {"int8": int8_counts["int8_gemm"],
-                             "int8-dense": dense_int8_counts["int8_gemm"]},
+                             "int8-dense": dense_int8_counts["int8_gemm"],
+                             "examples": example_counts["int8_gemm"]},
         "max_abs_err": max(r["max_abs_err"] for r in int8_rows + int8_ragged
                            + dense_int8_rows),
         "ms": int8_total["ms"],
@@ -4194,7 +4322,8 @@ def main(argv=None) -> int:
             "cli-zamba": cli_zamba["kernel_launches"]["ssd_scan"],
             "forward": fwd_counts["ssd_scan"],
             "train-ssm": train_counts["ssd_scan"],
-            "ckpt": ckpt_counts["ssd_scan"]},
+            "ckpt": ckpt_counts["ssd_scan"],
+            "examples": example_counts["ssd_scan"]},
         "max_abs_err": max(r["max_abs_err"]
                            for r in ssd_rows + zamba_ssd_rows),
         "ms": ssd_rows[0]["ms"],

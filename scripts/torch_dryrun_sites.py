@@ -100,9 +100,10 @@ def _traceback(tb):
     return out
 
 
-def measure_sites(cfg, shape, mesh):
+def measure_sites(cfg, shape, mesh, ops=None):
     """(sites, totals) of one traced step: ``{site: {kind: bytes}}`` and
-    the counter's totals by kind."""
+    the counter's totals by kind; with a list ``ops``, each collective is
+    also appended to it as (site, kind, bytes)."""
     import torch
 
     from repro_torch.launch import dryrun
@@ -117,7 +118,10 @@ def measure_sites(cfg, shape, mesh):
             if func._schema.name in KIND:
                 kind = KIND[func._schema.name]
                 seen = sum(by.get(kind, 0) for by in sites.values())
-                sites[site_of_stack()][kind] += self.counts[kind] - seen
+                site = site_of_stack()
+                sites[site][kind] += self.counts[kind] - seen
+                if ops is not None:
+                    ops.append((site, kind, self.counts[kind] - seen))
             super().record(func, args, kwargs, out)
 
     real = dryrun.StepCounter

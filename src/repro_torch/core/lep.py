@@ -385,6 +385,10 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
                                      lay.all_group)
             aux = red[0] / lay.n_all
             dropped = red[1].round().to(torch.int64)
+        # Shared experts on the token split, their weights whole
+        # (:func:`_on_blocks`), so the split's one gather serves both.
+        if getattr(p, "shared", None) is not None:
+            out = out + swiglu(x_loc, *p.shared).to(out.dtype)
         # The token-split outputs back to every rank of the split.
         routed = par.gather_replicated(out, lay.tok_group)[:t]
 
@@ -416,8 +420,11 @@ def _on_blocks(run, p, x, cfg: ModelConfig, mesh, lay: _Layout,
     each rank receives the experts of its slots that its own block lacks
     from ranks whose block holds them (:func:`_slot_experts`), as XLA
     partitions JAX's ``jnp.repeat`` into a collective permute. The shared
-    experts run on the DTensors, tensor-parallel as their specs place
-    them."""
+    experts run where they move fewer bytes (:func:`_shared_on_split`): on
+    the routed experts' token split with their weights gathered whole, as
+    XLA partitions JAX's dense product beside the ``shard_map`` (a training
+    or prefill step's many rows), else on the DTensors, tensor-parallel as
+    their specs place them (a decode step's few rows)."""
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -453,22 +460,54 @@ def _on_blocks(run, p, x, cfg: ModelConfig, mesh, lay: _Layout,
         moves = _redundancy_moves(mesh, w_in[0], cfg.num_experts, ep_axes, r,
                                   ffn_shard_axis)
 
-    def body(x_loc, router, wg, wu, wd):
+    shared = (p.shared_gate, p.shared_up, p.shared_down) \
+        if p.has_shared and _shared_on_split(p, x) else ()
+    s_in = tuple(tuple(w.placements) for w in shared)
+
+    def body(x_loc, router, wg, wu, wd, *sw):
         if r > 1:
             wg, wu, wd = _slot_experts((wg, wu, wd), *moves)
-        local = _LocalExperts(router, wg, wu, wd)
+        whole = tuple(_whole(w, pl, mesh) for w, pl in zip(sw, s_in))
+        local = _LocalExperts(router, wg, wu, wd, shared=whole or None)
         out, aux = run(local, x_loc, cfg, lay, local_experts=True)
         return out, aux["aux_loss"], aux["dropped"]
 
     rep = dt.replicated(mesh)
     out, aux, dropped = local_map(
         body, out_placements=(rows, rep, rep),
-        in_placements=(rows, rep) + w_in,
-        redistribute_inputs=True, device_mesh=mesh)(x, p.router, *ws)
-    if p.has_shared:
+        in_placements=(rows, rep) + w_in + s_in,
+        redistribute_inputs=True, device_mesh=mesh)(x, p.router, *ws,
+                                                    *shared)
+    if p.has_shared and not shared:
         out = out + swiglu(x, p.shared_gate, p.shared_up,
                            p.shared_down).to(out.dtype)
     return out, {"aux_loss": aux, "dropped": dropped}
+
+
+def _shared_on_split(p, x) -> bool:
+    """Whether the shared experts of a DTensor step move fewer bytes on
+    LEP's token split, their three weights (D x F each) gathered whole,
+    than tensor-parallel, their products' rows of x's block (D wide)
+    all-reduced: ``3 F`` weight elements against x's rows, in bytes (R1's
+    6,144 against a training step's 65,536 rows a rank, or a decode
+    step's 8)."""
+    w = p.shared_gate
+    return 3 * w.shape[1] * w.element_size() \
+        <= x.to_local().shape[0] * x.element_size()
+
+
+def _whole(w: torch.Tensor, placements, mesh) -> torch.Tensor:
+    """A rank's block of a weight placed as ``placements``, gathered whole
+    for use on the rank's own tokens: all-gathered over the axes that cut
+    it (its gradient reduce-scattered back), its gradient summed over the
+    axes that replicate it."""
+    names = tuple(mesh.mesh_dim_names)
+    w = dt.prepared(w, par.axes_group(mesh, tuple(
+        a for a, pl in zip(names, placements) if not pl.is_shard())))
+    for a, pl in reversed(tuple(zip(names, placements))):
+        if pl.is_shard():
+            w = par.all_gather(w, par.axes_group(mesh, (a,)), dim=pl.dim)
+    return w
 
 
 def _redundancy_moves(mesh, placements, n_experts: int,
@@ -545,6 +584,8 @@ class _LocalExperts:
     w_up: torch.Tensor
     w_down: torch.Tensor
     has_shared: bool = False
+    #: the shared experts' (gate, up, down), whole, run on the token split
+    shared: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def pick_lep_plan(cfg: ModelConfig, mesh, serving: bool = False) -> dict:

@@ -25,6 +25,9 @@ transposes give it:
   backward passes each rank its own part of it.
 * ``grad_sum`` marks a replicated weight that each rank uses on its own
   share of the work: the identity forward, an all-reduce of the gradient.
+* ``all_reduce`` sums each rank's own partial (a norm's sum of squares over
+  a width cut over the ranks) for each rank to use on its own block: an
+  all-reduce both ways, as ``jax.lax.psum`` inside ``shard_map``.
 * ``max_replicated`` is the elementwise max over the ranks (an all-reduce)
   of a softmax's running statistics; it carries no gradient, as the max a
   softmax subtracts is a constant of its derivative.
@@ -145,6 +148,32 @@ def axes_group(mesh, axes: Sequence[str]):
     return _GROUPS[key]
 
 
+def block_group(mesh, axes: Sequence[str], size: int):
+    """The process group of this rank and the ranks beside it in blocks of
+    ``size`` consecutive coordinates along ``axes`` (flattened in the
+    mesh's order, their other coordinates equal): the ranks whose column
+    blocks make up one head that the axes cut into ``size`` pieces. None
+    for a block of one rank; the whole axes' group for a block as large
+    as they are. Called collectively, as :func:`axes_group`."""
+    axes = tuple(axes)
+    n = axis_size(mesh, axes)
+    if size == 1:
+        return None
+    if size == n:
+        return axes_group(mesh, axes)
+    key = (id(mesh), axes, size)
+    if key not in _GROUPS:
+        names = tuple(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims) or n % size:
+            raise ValueError(f"blocks of {size} along {axes} must follow "
+                             f"the mesh's order {names} and divide it")
+        rest = [i for i in range(len(names)) if i not in dims]
+        lists = mesh.mesh.permute(*rest, *dims).reshape(-1, size).tolist()
+        _GROUPS[key], _ = dist.new_subgroups_by_enumeration(lists)
+    return _GROUPS[key]
+
+
 # ---------------------------------------------------------------------------
 # Collectives on dim 0, with the gradient rules above
 # ---------------------------------------------------------------------------
@@ -205,7 +234,7 @@ _RULES = {"all_to_all": (_a2a, _a2a), "all_gather": (_gather0, _scatter0),
           "split_replicated": (_chunk0, _gather0),
           "gather_replicated": (_gather0, _chunk0),
           "sum_replicated": (_sum, _identity),
-          "grad_sum": (_identity, _sum)}
+          "grad_sum": (_identity, _sum), "all_reduce": (_sum, _sum)}
 
 
 def _apply(kind, x, group, dim=0):
@@ -250,6 +279,10 @@ def sum_replicated(x: torch.Tensor, group) -> torch.Tensor:
 
 def grad_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _apply("grad_sum", x, group)
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    return _apply("all_reduce", x, group)
 
 
 def max_replicated(x: torch.Tensor, group) -> torch.Tensor:

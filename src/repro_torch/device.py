@@ -1,6 +1,7 @@
 """Device selection shared by every entry point of the port."""
 from __future__ import annotations
 
+import argparse
 from typing import Optional, Union
 
 import torch
@@ -18,6 +19,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "CUDA is not available on this machine; pass device='cpu' to "
             "run the port on the CPU")
     return dev
+
+
+def add_device_arg(ap: argparse.ArgumentParser) -> None:
+    """An entry point's ``--device`` option, ``cuda`` by default."""
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "versions of the kernels)")
 
 
 def check_on(device: torch.device, tensor: torch.Tensor, what: str) -> None:

@@ -124,7 +124,13 @@ def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
 def fit_heads(x, n: int, dim: int = -1):
     """``x`` ready to have dimension ``dim`` (of n * d) viewed as (n, d): a
     DTensor sharded on it over ranks that do not divide ``n`` is replicated
-    on it first (DTensor cannot cut a head); anything else as it is."""
+    on it first (DTensor cannot cut a head); anything else as it is. Where
+    the ranks are a multiple of ``n``, a product that no cache keeps takes
+    each rank's own head instead (``linear``'s ``heads``); this gather is
+    left to a K/V that a cache keeps (a prefill's, a decode step's one
+    row), to a query whose heads the ranks do not divide, to ranks that
+    are neither a multiple nor a divisor of ``n``, and to a product whose
+    x's last dim or w's rows an axis cuts too."""
     if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Shard
@@ -135,6 +141,77 @@ def fit_heads(x, n: int, dim: int = -1):
            for m, p in enumerate(x.placements)):
         x = x.redistribute(mesh, without_shard(x.placements, dim))
     return x
+
+
+def column_ranks(w) -> int:
+    """The number of ranks over which the DTensor ``w``'s last dimension
+    is cut (1 for a plain tensor)."""
+    if not is_dtensor(w):
+        return 1
+    from repro_torch.core import parallel as par
+
+    return par.axis_size(w.device_mesh, shard_axes(w, w.ndim - 1))
+
+
+def repeat_heads(b: torch.Tensor, n: int) -> torch.Tensor:
+    """A bias (N,) of ``n`` heads, cut over ranks that are a multiple of
+    ``n``, laid out as ``linear``'s ``heads`` lays out its product: each
+    rank's whole head, gathered over the ranks that share it (its gradient
+    reduce-scattered back)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.core import parallel as par
+
+    mesh, axes = b.device_mesh, shard_axes(b, 0)
+    head = par.block_group(mesh, axes, par.axis_size(mesh, axes) // n)
+    placements = tuple(b.placements)
+    return local_map(
+        lambda t: (par.all_gather(prepared(t, None), head),),
+        out_placements=(placements,), in_placements=(placements,),
+        redistribute_inputs=True, device_mesh=mesh)(b)[0]
+
+
+def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
+    """``layers.rms_norm`` of a DTensor whose last dimension (the width the
+    norm reduces) is cut over some mesh axes, as XLA partitions it: each
+    rank sums the squares of its block's rows, one (..., 1) float32 tensor
+    is all-reduced over those axes (both ways: its backward reduces the
+    same small tensor once), and each rank normalizes its own block with
+    its slice of ``gain`` (replicated); the rows never move. ``gain``'s
+    gradient, each rank's slice, is summed over every axis that cuts x,
+    one all-reduce of its width."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.core import parallel as par
+
+    x = reduce_partial(x)
+    mesh, last = x.device_mesh, x.ndim - 1
+    names = tuple(mesh.mesh_dim_names)
+    cut = par.axes_group(mesh, shard_axes(x, last))
+    cutting = par.axes_group(mesh, tuple(
+        a for a, p in zip(names, x.placements) if p.is_shard()))
+    width, lo = x.shape[-1], shard_offsets(x)[last]
+    if not is_dtensor(gain):
+        gain = DTensor.from_local(gain, mesh, replicated(mesh),
+                                  run_check=False)
+
+    def body(xb, gb):
+        gb = prepared(gb, cutting).narrow(0, lo, xb.shape[-1])
+        xf = prepared(xb, None).float()
+        ss = par.all_reduce(xf.square().sum(dim=-1, keepdim=True), cut)
+        xf = xf * torch.rsqrt(ss / width + eps)
+        return ((xf * gb.float()).to(xb.dtype),)
+
+    return local_map(body, out_placements=(tuple(x.placements),),
+                     in_placements=(tuple(x.placements), replicated(mesh)),
+                     redistribute_inputs=True, device_mesh=mesh)(x, gain)[0]
+
+
+def cut_last(x) -> bool:
+    """Whether ``x`` is a DTensor with its last dimension cut."""
+    return is_dtensor(x) and any(p.is_shard(x.ndim - 1)
+                                 for p in x.placements)
 
 
 def take_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -183,7 +260,7 @@ def logsumexp(x: torch.Tensor) -> torch.Tensor:
     group = par.axes_group(mesh, shard_axes(x, last))
 
     def body(block):
-        block = _prepared(block, None)
+        block = prepared(block, None)
         m = par.max_replicated(block.amax(dim=-1), group)
         m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
         total = par.sum_replicated(
@@ -241,7 +318,7 @@ def blockwise(fn, mesh, args: Sequence, dims: Sequence, out_dims: Sequence,
     groups = [par.axes_group(mesh, whole_over(*d)) for d in dims]
 
     def body(*blocks):
-        got = fn(*(_prepared(x, g) for x, g in zip(blocks, groups)))
+        got = fn(*(prepared(x, g) for x, g in zip(blocks, groups)))
         return got if isinstance(got, tuple) else (got,)
 
     args = [DTensor.from_local(a, mesh, replicated(mesh), run_check=False)
@@ -253,13 +330,15 @@ def blockwise(fn, mesh, args: Sequence, dims: Sequence, out_dims: Sequence,
     return got if len(out_dims) > 1 else got[0]
 
 
-def linear(x: torch.Tensor, w: torch.Tensor,
-           parts: Optional[Sequence[int]] = None):
+def linear(x: torch.Tensor, w, parts: Optional[Sequence[int]] = None,
+           heads: Optional[Sequence[Optional[int]]] = None):
     """``x @ w``, x (..., K) with its rows (dim 0: a batch or token axis)
     and w (K, N); with ``parts`` (column counts summing to N), the tuple of
-    the products with each part's columns. For a DTensor weight the product
-    runs on each rank's blocks through ``local_map``, with the collectives
-    XLA's partitioner gives the same product, decided per mesh axis:
+    the products with each part's columns. ``w`` may be a sequence of
+    weights that read the same x: then the tuple of their products. For
+    DTensor weights the products run on each rank's blocks through
+    ``local_map``, with the collectives XLA's partitioner gives the same
+    product, decided per mesh axis:
 
     * an axis that cuts x's rows and w (its FSDP shard, either dim): w is
       all-gathered over it in the forward and its gradient reduce-scattered
@@ -274,6 +353,24 @@ def linear(x: torch.Tensor, w: torch.Tensor,
       cut alike where it is not (each rank takes its block), and the
       partial products are summed over it (an all-reduce).
 
+    Weights placed alike share one entry: each rank sums x's partial
+    gradients from every product before the one reduction over the axes
+    that cut their columns, as XLA's all-reduce reassociation does (q, k
+    and v; a SwiGLU's gate and up). Weights placed otherwise take one
+    entry each.
+
+    ``heads`` gives, per weight, the number of heads its columns hold (or
+    None). Where the axes that cut the columns (and not x) do not cut
+    whole heads but are a multiple of the head count (Qwen3-8B's 8 K/V
+    heads over 16 ranks), each rank computes the whole head its block lies
+    in, from the weight's columns of that head gathered over the ranks
+    that share it (its gradient reduce-scattered back), or from the
+    product's, whichever moves fewer bytes: that product comes out as the
+    heads repeated over those ranks (16 heads, each of the 8 twice), cut
+    over the axes. Where an axis also cuts x's last dim or w's rows, the
+    products come out as without ``heads``; a caller tells the two apart
+    by the product's width.
+
     With ``parts``, each rank computes its block of every part's columns,
     so each part comes out cut on its last dim as a product of its own
     would: from w gathered whole over the axes that cut its columns (its
@@ -283,14 +380,23 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     first. A plain weight, a layout none of these covers, or parts that do
     not divide over the ranks, is ``x @ w`` as DTensor partitions it (and
     sliced)."""
-    if not is_dtensor(w):
-        y = x @ w
-        return y if parts is None else _split_last(y, parts)
+    many = not isinstance(w, torch.Tensor)
+    ws = tuple(w) if many else (w,)
+    heads = tuple(heads) if heads is not None else (None,) * len(ws)
+    if not is_dtensor(ws[0]):
+        ys = tuple(x @ wi for wi in ws)
+        if parts is not None:
+            return _split_last(ys[0], parts)
+        return ys if many else ys[0]
+    if many and (parts is not None or len(
+            {tuple(wi.placements) for wi in ws}) > 1):
+        return tuple(linear(x, wi, heads=(n,)) for wi, n in zip(ws, heads))
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     from repro_torch.core import parallel as par
 
+    w = ws[0]
     mesh = w.device_mesh
     names = tuple(mesh.mesh_dim_names)
     x = reduce_partial(x) if is_dtensor(x) else DTensor.from_local(
@@ -312,46 +418,74 @@ def linear(x: torch.Tensor, w: torch.Tensor,
         elif xp.is_shard(last) and wp.is_shard(0):
             row_sum.append(a)
         elif not (xp.is_replicate() and wp.is_replicate()):
-            return _split_last(x @ w, parts) if parts else x @ w
+            ys = tuple(x @ wi for wi in ws)
+            return _split_last(ys[0], parts) if parts else \
+                (ys if many else ys[0])
         out.append(Shard(0) if xp.is_shard(0) else
                    Shard(last) if wp.is_shard(1) else Replicate())
     n_cols = par.axis_size(mesh, x_sum)
+    # Ranks that share one head, per weight (1: the axes cut whole heads).
+    share = [n_cols // n if n and n % n_cols and not n_cols % n else 1
+             for n in heads]
     if parts and (x_gather or x_split or row_sum
                   or any(n % n_cols for n in parts)):
         return _split_last(linear(x, w), parts)
+    if any(r > 1 for r in share) and (x_gather or x_split or row_sum):
+        return linear(x, ws if many else w)      # the heads whole
     group = lambda axes: par.axes_group(mesh, axes)  # noqa: E731
     i_cols = par.axis_index(mesh, x_sum)
     rows = x.to_local().numel() // x.shape[-1]
     whole_w = w.shape[0] * w.element_size() <= rows * x.element_size()
 
-    def body(xb, wb):
-        xb, wb = _prepared(xb, group(x_sum)), _prepared(wb, group(w_sum))
+    def body(xb, *wbs):
+        xb = prepared(xb, group(x_sum))
         for a in reversed(x_gather):         # innermost axis first
             xb = par.all_gather(xb, group((a,)), dim=-1)
         for a in x_split:                    # outermost axis first
             xb = par.split_replicated(xb, group((a,)), dim=-1)
-        for a, d in reversed(w_gather):
-            wb = par.all_gather(wb, group((a,)), dim=d)
-        if parts is None:
-            return (par.sum_replicated(xb @ wb, group(row_sum + x_split)),)
-        if whole_w:
-            wb = par.all_gather(wb, group(x_sum), dim=1)
-        else:
-            y = par.all_gather(xb @ wb, group(x_sum), dim=-1)
-        blocks, lo = [], 0
-        for n in parts:
-            cut = slice(lo + i_cols * (n // n_cols),
-                        lo + (i_cols + 1) * (n // n_cols))
-            blocks.append(xb @ wb[:, cut] if whole_w else y[..., cut])
-            lo += n
-        return tuple(blocks)
+        ys = []
+        for wb, rep in zip(wbs, share):
+            wb = prepared(wb, group(w_sum))
+            for a, d in reversed(w_gather):
+                wb = par.all_gather(wb, group((a,)), dim=d)
+            if rep > 1:
+                head = par.block_group(mesh, x_sum, rep)
+                ys.append(xb @ par.all_gather(wb, head, dim=1) if whole_w
+                          else par.all_gather(xb @ wb, head, dim=-1))
+            elif parts is None:
+                ys.append(par.sum_replicated(xb @ wb,
+                                             group(row_sum + x_split)))
+            else:
+                ys.extend(_parts_of(xb, wb, parts, whole_w, i_cols, n_cols,
+                                    group(x_sum)))
+        return tuple(ys)
 
-    n_out = 1 if parts is None else len(parts)
+    n_out = len(ws) if parts is None else len(parts)
     got = local_map(body, out_placements=(tuple(out),) * n_out,
-                    in_placements=(tuple(x.placements),
-                                   tuple(w.placements)),
-                    redistribute_inputs=True, device_mesh=mesh)(x, w)
-    return got[0] if parts is None else tuple(got)
+                    in_placements=(tuple(x.placements),)
+                    + (tuple(w.placements),) * len(ws),
+                    redistribute_inputs=True, device_mesh=mesh)(x, *ws)
+    return tuple(got) if many or parts is not None else got[0]
+
+
+def _parts_of(xb, wb, parts: Sequence[int], whole_w: bool, i_cols: int,
+              n_cols: int, group) -> list:
+    """:func:`linear`'s blocks of each part's columns on one rank: from
+    ``wb`` gathered whole over ``group`` (the axes that cut its columns)
+    where ``whole_w``, else from the product's columns gathered."""
+    from repro_torch.core import parallel as par
+
+    if whole_w:
+        wb = par.all_gather(wb, group, dim=1)
+    else:
+        y = par.all_gather(xb @ wb, group, dim=-1)
+    blocks, lo = [], 0
+    for n in parts:
+        cut = slice(lo + i_cols * (n // n_cols),
+                    lo + (i_cols + 1) * (n // n_cols))
+        blocks.append(xb @ wb[:, cut] if whole_w else y[..., cut])
+        lo += n
+    return blocks
 
 
 def _split_last(y: torch.Tensor, parts: Sequence[int]) -> Tuple:
@@ -377,10 +511,10 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def _prepared(x, group):
-    """A block for :func:`blockwise`'s ``fn``: with a gradient, one that
-    leaves contiguous and, where the block is whole over axes that cut
-    others, summed over them (``group``)."""
+def prepared(x, group):
+    """A block for a ``local_map`` body (:func:`blockwise`'s ``fn``): with a
+    gradient, one that leaves contiguous and, where the block is whole over
+    axes that cut others, summed over them (``group``)."""
     from repro_torch.core import parallel as par
 
     if not (isinstance(x, torch.Tensor) and x.requires_grad):
@@ -451,7 +585,7 @@ def embedding(tokens: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     group = par.axes_group(weight.device_mesh, token_axes)
 
     def look(tok, block):
-        block = _prepared(block, group)
+        block = prepared(block, group)
         rel = tok.long() - v0
         ok = (rel >= 0) & (rel < block.shape[0])
         rows = torch.nn.functional.embedding(

@@ -19,7 +19,7 @@ from typing import Optional, Sequence
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.data import make_batch_iter
-from repro_torch.device import resolve_device
+from repro_torch.device import add_device_arg, resolve_device
 from repro_torch.models import init_params
 from repro_torch.train import OptConfig, train
 
@@ -35,9 +35,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--full", action="store_true",
                     help="full-size config")
     ap.add_argument("--ckpt", default=None)
-    ap.add_argument("--device", default="cuda",
-                    help="torch device (default cuda; cpu runs the plain "
-                         "versions of the kernels)")
+    add_device_arg(ap)
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)

@@ -84,14 +84,27 @@ class Attention(nn.Module):
 
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
-    """x: (B, S, D) -> q (B,S,H,hd), k/v (B,S,KV,hd), with qk-norm + RoPE
-    (RoPE for every attention kind, as in JAX)."""
+                 positions: torch.Tensor, kv_out: bool = True):
+    """x: (B,S,D) -> q (B,S,H,hd), k/v (B,S,KV,hd), with qk-norm + RoPE
+    (RoPE for every attention kind, as in JAX). The three projections are
+    one entry (over DTensors, x's gradient is reduced once for them).
+    Without ``kv_out`` (no cache keeps the K/V), over DTensors whose query
+    heads the model axes cut whole but whose K/V heads they do not
+    (Qwen3-8B's 8 over 16), k and v may come out as the K/V head of each
+    rank's query heads, repeated over the ranks that share it
+    (``dtensor.linear``'s ``heads``): (B,S,R,hd), R the ranks that cut the
+    heads, never gathered whole."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = (dt.linear(x, w) for w in (p.wq, p.wk, p.wv))
+    n = dt.column_ranks(p.wk)
+    heads = (None, kv, kv) if not kv_out and h % n == 0 and kv % n \
+        and n % kv == 0 else None
+    q, k, v = dt.linear(x, (p.wq, p.wk, p.wv), heads=heads)
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
+        bk, bv = (p.bk, p.bv) if k.shape[-1] == kv * hd else (
+            dt.repeat_heads(t, kv) for t in (p.bk, p.bv))
+        q, k, v = q + p.bq, k + bk, v + bv
+    kv = k.shape[-1] // hd
     q = dt.fit_heads(q, h).reshape(b, s, h, hd)
     k = dt.fit_heads(k, kv).reshape(b, s, kv, hd)
     v = dt.fit_heads(v, kv).reshape(b, s, kv, hd)
@@ -240,18 +253,21 @@ def _flash_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig,
-                      positions: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
-                                                     torch.Tensor]]:
-    """Full-sequence attention, chunked over queries. Returns (out, (k, v)).
-    The causal mask adds the sliding window only when ``s`` exceeds it."""
+                      positions: Optional[torch.Tensor] = None,
+                      kv_out: bool = True):
+    """Full-sequence attention, chunked over queries. Returns (out, (k, v)),
+    or (out, None) without ``kv_out`` (no cache takes the K/V: a forward or
+    a training step, where over DTensors each rank computes only the K/V
+    heads its query heads read). The causal mask adds the sliding window
+    only when ``s`` exceeds it."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device).expand(b, s)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, kv_out)
     attend = _heads_local if dt.is_dtensor(q) else _attend_full
-    return dt.linear(attend(q, k, v, cfg), p.wo), (k, v)
+    return dt.linear(attend(q, k, v, cfg), p.wo), ((k, v) if kv_out
+                                                   else None)
 
 
 def _heads_local(q, k, v, cfg: ModelConfig) -> torch.Tensor:
@@ -259,10 +275,13 @@ def _heads_local(q, k, v, cfg: ModelConfig) -> torch.Tensor:
     partitions JAX's: the batch as the query's is sharded, the query heads
     as their projection cut them (over ``model`` where the specs cut its
     columns; whole on every rank where they replicate it, as they do a MoE
-    segment's attention), the K/V heads likewise, or, where they are whole
-    while the query's are cut (Qwen3-8B's 8 over 16), whole on every rank,
-    which then attends with the K/V heads of its own query heads and sums
-    their gradient over ``model``. No collective in the forward."""
+    segment's attention), the K/V heads likewise (each rank's own K/V
+    head, repeated over the ranks that share it, where the model axis does
+    not divide them: ``_project_qkv`` without ``kv_out``), or, where they
+    are whole while the query's are cut (a cache's K/V taken whole by
+    ``dtensor.fit_heads``), whole on every rank, which then attends with
+    the K/V heads of its own query heads and sums their gradient over
+    ``model``. No collective in the forward."""
     from repro_torch.core import parallel as par
 
     mesh = q.device_mesh

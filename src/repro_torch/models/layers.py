@@ -11,11 +11,15 @@ from repro_torch import dtensor as dt
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
-    dt = x.dtype
+    """Over a DTensor whose last dimension is cut, on each rank's block
+    (``dtensor.rms_norm``)."""
+    if dt.cut_last(x):
+        return dt.rms_norm(x, gain, eps)
+    dtype = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * gain.float()).to(dt)
+    return (x * gain.float()).to(dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -40,8 +44,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = dt.linear(x, w_gate)
-    u = dt.linear(x, w_up)
+    g, u = dt.linear(x, (w_gate, w_up))
     return dt.linear(F.silu(g) * u, w_down)
 
 

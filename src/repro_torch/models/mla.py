@@ -78,13 +78,12 @@ def _mla_qkv_latent(p: MLA, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     h = cfg.num_heads
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = dt.linear(x, p.wq_a)
+    q, kv = dt.linear(x, (p.wq_a, p.wkv_a))
     q = rms_norm(q, p.q_ln, cfg.norm_eps)
     q = dt.fit_heads(dt.linear(q, p.wq_b), h).reshape(b, s, h, nope + rope)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    kv = dt.linear(x, p.wkv_a)
     c_kv, k_rope = kv[..., :cfg.kv_lora_rank], kv[..., cfg.kv_lora_rank:]
     c_kv = rms_norm(c_kv, p.kv_ln, cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
@@ -143,8 +142,9 @@ def mla_prefill(p: MLA, x: torch.Tensor, cfg: ModelConfig,
                                  device=x.device).expand(b, s)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(p, x, cfg, positions)
 
-    k_nope = dt.fit_heads(dt.linear(c_kv, p.wk_b), h).reshape(b, s, h, nope)
-    vfull = dt.fit_heads(dt.linear(c_kv, p.wv_b), h).reshape(b, s, h, vd)
+    k_nope, vfull = dt.linear(c_kv, (p.wk_b, p.wv_b))
+    k_nope = dt.fit_heads(k_nope, h).reshape(b, s, h, nope)
+    vfull = dt.fit_heads(vfull, h).reshape(b, s, h, vd)
     out = mla_causal_attention(q_nope, q_rope, k_nope, k_rope, vfull, cfg)
     out = dt.linear(out.reshape(b, s, h * vd).to(x.dtype), p.wo)
     latent = torch.cat([c_kv, k_rope], dim=-1)

@@ -218,8 +218,9 @@ def unembed(params: Model, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _attn_block_prefill(pl_attn, x, cfg, positions):
-    """Returns (x + attention, the MLA latent or the GQA (k, v)). With
+def _attn_block_prefill(pl_attn, x, cfg, positions, kv_out: bool = True):
+    """Returns (x + attention, the MLA latent or the GQA (k, v); None for
+    GQA without ``kv_out``: ``attention_prefill``'s). With
     ``REPRO_MLA_HYBRID`` set to ``a2a`` or ``rs`` and a current mesh, the MLA
     prefill runs the paper's §4.3.1 SP -> TP -> SP form over the mesh's
     model axis (``core/hybrid_parallel.py``)."""
@@ -237,7 +238,7 @@ def _attn_block_prefill(pl_attn, x, cfg, positions):
                 return x + out, latent
         out, latent = mla_mod.mla_prefill(pl_attn, h, cfg, positions)
         return x + out, latent
-    out, kv = attn_mod.attention_prefill(pl_attn, h, cfg, positions)
+    out, kv = attn_mod.attention_prefill(pl_attn, h, cfg, positions, kv_out)
     return x + out, kv
 
 
@@ -853,7 +854,8 @@ def _seg_full(seg: Segment, params: Model, x: torch.Tensor,
                                               cache["ssm"]["conv"][gi])
             x = _mamba_prefill_layers(blocks[gi * pg:(gi + 1) * pg], x, cfg,
                                       *state)
-            x, fresh = _attn_block_prefill(shared.attn, x, cfg, positions)
+            x, fresh = _attn_block_prefill(shared.attn, x, cfg, positions,
+                                           cache is not None)
             if cache is not None:
                 for buf, new in zip(_seq_buffers(cfg, cache["shared_kv"]),
                                     fresh):
@@ -862,7 +864,8 @@ def _seg_full(seg: Segment, params: Model, x: torch.Tensor,
         return x, aux
     bufs = None if cache is None else _seq_buffers(cfg, cache)
     for li, blk in enumerate(blocks):
-        x, fresh = _attn_block_prefill(blk.attn, x, cfg, positions)
+        x, fresh = _attn_block_prefill(blk.attn, x, cfg, positions,
+                                       cache is not None)
         if bufs is not None:
             for buf, new in zip(bufs, [fresh] if cfg.attention_kind == "mla"
                                 else fresh):

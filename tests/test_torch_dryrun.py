@@ -26,6 +26,14 @@ pairs apart), all started together under one deadline:
   issues no collective but the global norm's scalar all-reduces, at most
   one per mesh dimension;
 * ``scripts/torch_dryrun_sites.py``'s sites sum to the counter's totals;
+* by op, on smoke train pairs (Qwen3 with 2 K/V heads, which the model
+  axis of 4 does not divide; R1; Mamba2): projections that read one input
+  (GQA's q/k/v, SwiGLU's gate/up, MLA's ``wq_a``/``wkv_a`` and
+  ``wk_b``/``wv_b``) reduce its gradient once in the backward, one
+  all-reduce a layer where the columns are cut; a Mamba2 step issues no
+  all-to-all and its norms no collective of DTensor's; Qwen3's K/V
+  gather each rank's head, fewer bytes than the whole k and v that the
+  step gathered when a cache took them (``fit_heads``);
 * the collective counter sees a ``core/parallel.py`` all-to-all as well as
   a DTensor redistribution, with each op's output bytes, and counts each
   batch of point-to-point transfers as one permute;
@@ -106,6 +114,26 @@ VARIANT_CASES = [("baseline", "decode"), ("int8_weights", "decode"),
                  ("baseline", "prefill"), ("hybrid_a2a", "prefill"),
                  ("hybrid_rs", "prefill"), ("block_skip", "prefill")]
 TIMEOUT_S = 240
+#: smoke train pairs traced op by op on the fake 2 x 4 group (rows of x a
+#: rank: BATCH x SEQ over data's 2 ranks), by name: (arch, replaced fields)
+OP_PAIRS = {"qwen3-kv2": ("qwen3-8b", {"num_kv_heads": 2}),
+            "r1": ("deepseek-r1", {}), "mamba2": ("mamba2-780m", {})}
+OP_ROWS = 8 * 64 // 2
+#: (pair, file, the projection's call, the input's width, the all-reduces
+#: of its gradient in the backward: one a layer whose columns the model
+#: axis cuts). Qwen3: both layers, attention and MLP; R1 (one dense layer
+#: then one MoE layer, whose attention the specs replicate): q/k/v once
+#: (wkv_a's columns are whole; its weight's gradient is summed over data,
+#: not its input's), wk_b/wv_b once, SwiGLU twice (the dense MLP and the
+#: MoE layer's shared expert, tensor-parallel at these few rows).
+SHARED_INPUTS = [
+    ("qwen3-kv2", "models/attention.py", "dt.linear(x, (p.wq, p.wk, p.wv)",
+     256, 2),
+    ("qwen3-kv2", "models/layers.py", "dt.linear(x, (w_gate, w_up))", 256,
+     2),
+    ("r1", "models/mla.py", "dt.linear(x, (p.wq_a, p.wkv_a))", 256, 1),
+    ("r1", "models/mla.py", "dt.linear(c_kv, (p.wk_b, p.wv_b))", 32, 1),
+    ("r1", "models/layers.py", "dt.linear(x, (w_gate, w_up))", 256, 2)]
 
 JAX_SIDE = textwrap.dedent('''
     import json, os, re, sys
@@ -223,8 +251,8 @@ PORT_SIDE = textwrap.dedent('''
     from repro_torch.launch.collectives import CollectiveCounter
     from repro_torch.launch.sharding import meta_dtensor
 
-    pairs, families, VARIANT_CASES, score_pairs = (json.loads(a)
-                                                   for a in sys.argv[1:5])
+    pairs, families, VARIANT_CASES, score_pairs, OP_PAIRS = (
+        json.loads(a) for a in sys.argv[1:6])
     out = {"pairs": {}, "run_one": {}, "scores": {}}
     mesh = D.fake_mesh({"data": 2, "model": 4})
     for arch, kind, b, s in pairs:
@@ -258,6 +286,26 @@ PORT_SIDE = textwrap.dedent('''
         smoke_variant(get_config("qwen3-8b")),
         InputShape("p", sites_mod.SEQ, sites_mod.BATCH, "decode"), mesh)
     out["sites"] = [sites, totals]
+    out["ops"] = {}
+    train = InputShape("p", sites_mod.SEQ, sites_mod.BATCH, "train")
+    for name, (arch, fields) in OP_PAIRS.items():
+        ops = []
+        cfg = dataclasses.replace(smoke_variant(get_config(arch)), **fields)
+        sites_mod.measure_sites(cfg, train, mesh, ops)
+        out["ops"][name] = ops
+    # The K/V taken whole (``fit_heads``), as a cache takes them.
+    from repro_torch.models import attention as A
+    real = A._project_qkv
+    A._project_qkv = lambda p, x, cfg, pos, kv_out=True: real(
+        p, x, cfg, pos)
+    try:
+        ops = []
+        arch, fields = OP_PAIRS["qwen3-kv2"]
+        sites_mod.measure_sites(dataclasses.replace(
+            smoke_variant(get_config(arch)), **fields), train, mesh, ops)
+        out["ops"]["qwen3-kv2 whole"] = ops
+    finally:
+        A._project_qkv = real
     for arch, b, s, fields in score_pairs:
         cfg = dataclasses.replace(smoke_variant(get_config(arch)), **fields)
         r = D._measure(cfg, InputShape("p", s, b, "decode"), mesh)
@@ -325,7 +373,8 @@ def sides(tmp_path_factory):
                     [json.dumps(rest)] + [json.dumps([])] * 4),
              _start(tmp / "port_side.py",
                     [json.dumps(PAIRS), json.dumps(FAMILIES),
-                     json.dumps(VARIANT_CASES), json.dumps(SCORE_PAIRS)])]
+                     json.dumps(VARIANT_CASES), json.dumps(SCORE_PAIRS),
+                     json.dumps(OP_PAIRS)])]
     results = []
     try:
         for proc in procs:
@@ -452,6 +501,67 @@ def test_sites_sum_to_counter_totals(sides):
         if kind != "count":
             assert sum(by.get(kind, 0) for by in sites.values()) \
                 == totals[kind], kind
+
+
+def _line(rel: str, text: str) -> str:
+    """``rel:N``, N the first line of ``src/repro_torch/rel`` holding
+    ``text``."""
+    import repro_torch
+    from pathlib import Path
+
+    lines = (Path(repro_torch.__file__).parent / rel).read_text() \
+        .splitlines()
+    return f"{rel}:{next(i + 1 for i, ln in enumerate(lines) if text in ln)}"
+
+
+@pytest.mark.parametrize("pair,rel,text,width,layers", SHARED_INPUTS,
+                         ids=[f"{p}:{t.split('(')[-1].rstrip(')')}"
+                              for p, _, t, _, _ in SHARED_INPUTS])
+def test_shared_input_gradient_reduced_once(sides, pair, rel, text, width,
+                                            layers):
+    """Projections that read one input sum their partial gradients of it
+    on each rank and all-reduce it once in the backward (XLA's all-reduce
+    reassociation): ``layers`` all-reduces of the input's gradient (rows x
+    width float32) at the call, where one a projection made as many times
+    that."""
+    site = _line(rel, text)
+    grads = [b for s, k, b in sides["port"]["ops"][pair]
+             if k == "all-reduce" and "(backward)" in s and s.endswith(site)
+             and b == OP_ROWS * width * 4]
+    assert len(grads) == layers, (site, grads)
+
+
+def test_mamba2_norms_issue_no_dtensor_collective(sides):
+    """A Mamba2 train step (its gated norm over ``din``, cut by SSM heads):
+    no all-to-all anywhere, and at the norms only the port's own
+    collectives (a row's sum of squares all-reduced both ways, the gain's
+    gradient summed): none that DTensor chose."""
+    ops = sides["port"]["ops"]["mamba2"]
+    norm = _line("models/layers.py", "return dt.rms_norm(x, gain, eps)")
+    gated = _line("models/mamba2.py", "y = rms_norm(y * F.silu(z.float())")
+    assert sum(b for _, k, b in ops if k == "all-to-all") == 0
+    at_norm = [s for s, _, _ in ops if s.endswith(norm) or gated in s]
+    assert at_norm and all(s.startswith("core/parallel.py")
+                           for s in at_norm), at_norm
+
+
+def test_qwen3_kv_heads_gather_less_than_whole(sides):
+    """Qwen3 with 2 K/V heads over a model axis of 4: each rank computes
+    the K/V head of its query heads, from that head's weight columns
+    gathered over the 2 ranks that share it, where the step gathered the
+    whole k and v when a cache took them: its all-gather bytes fall by
+    the whole k and v (2 layers x 2 x rows x 2 heads x 64 floats) less
+    one head's columns of each (2 x 2 x 256 x 64 floats), and no op is
+    issued at ``fit_heads`` of k or v."""
+    ops = sides["port"]["ops"]
+    new, old = (sum(b for _, k, b in ops[name] if k == "all-gather")
+                for name in ("qwen3-kv2", "qwen3-kv2 whole"))
+    whole, heads = 2 * 2 * OP_ROWS * 2 * 64 * 4, 2 * 2 * 256 * 64 * 4
+    assert old - new == whole - heads > 0
+    fit = [_line("models/attention.py", f"{t} = dt.fit_heads({t}, kv)")
+           for t in "kv"]
+    assert not [s for s, _, _ in ops["qwen3-kv2"]
+                if any(s.endswith(f) for f in fit)]
 
 
 @pytest.mark.parametrize("pair", LEP_PAIRS)

@@ -27,8 +27,14 @@ from repro_torch.serving.engine import DecodeEngine, PrefillEngine
 from repro_torch.train import init_opt_state, train
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from chip_smoke import load_entry  # noqa: E402
+
+#: the port's examples and dev smoke, run as scripts
+ENTRY_FILES = sorted((ROOT / "examples").glob("torch_*.py")) + [
+    ROOT / "scripts" / "torch_dev_smoke.py"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + ENTRY_FILES
 
 
 #: modules of the MTP / EMS / serve-CLI slice, of the Zamba2 and
@@ -81,6 +87,14 @@ def test_slice_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
+def test_entry_files_are_checked():
+    """The four port examples and the dev smoke are in the walk above."""
+    assert [p.name for p in ENTRY_FILES] == [
+        "torch_mtp_speculative.py", "torch_quickstart.py",
+        "torch_serve_pdc.py", "torch_train_moe_100m.py",
+        "torch_dev_smoke.py"]
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -97,7 +111,9 @@ def cpu_model():
                                    "ServingSystem", "init_mtp_params",
                                    "serve_cli", "train", "init_opt_state",
                                    "save_checkpoint", "load_checkpoint",
-                                   "train_cli"])
+                                   "train_cli", "torch_quickstart",
+                                   "torch_serve_pdc", "torch_mtp_speculative",
+                                   "torch_train_moe_100m", "torch_dev_smoke"])
 def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
                                                            cpu_model, entry,
                                                            tmp_path):
@@ -116,6 +132,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda,
         "save_checkpoint": lambda: save_checkpoint(str(tmp_path), params, 0),
         "load_checkpoint": lambda: load_checkpoint(str(tmp_path), cfg),
         "train_cli": lambda: train_cli.main(["--arch", "granite-3-2b"]),
+        **{name: (lambda rel=rel: load_entry(rel).main([])) for name, rel in (
+            ("torch_quickstart", "examples/torch_quickstart.py"),
+            ("torch_serve_pdc", "examples/torch_serve_pdc.py"),
+            ("torch_mtp_speculative", "examples/torch_mtp_speculative.py"),
+            ("torch_train_moe_100m", "examples/torch_train_moe_100m.py"),
+            ("torch_dev_smoke", "scripts/torch_dev_smoke.py"))},
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -25,7 +25,10 @@ process (its LEP and train step in a third subprocess, JAX_EXTRA).
 * One whole ``make_train_step`` at 1 x 2 and 2 x 2 (``lm_loss``, the
   gradients placed as their parameters, ``adamw_update`` on each rank's
   blocks), moments placed as the parameters, on R1 (dense layers only),
-  Qwen3 and Mamba2, against JAX's ``train.make_train_step`` on the same
+  Qwen3, Qwen3 and Qwen2.5 (QKV bias) with one K/V head (which the model
+  axis does not divide: each rank computes the K/V head of its query
+  heads, and its bias) and Mamba2, against JAX's
+  ``train.make_train_step`` on the same
   weights and batch: every parameter and both moments within 2e-4 of the
   leaf's largest, with no warmup (so the step moves every weight by more
   than that), and the global gradient norm within 1e-5.
@@ -34,6 +37,12 @@ process (its LEP and train step in a third subprocess, JAX_EXTRA).
   slots lack: a permute), against JAX's LEP function on a forced 4-device
   mesh (a subprocess of its own): within 1e-5 of the largest entry, as
   ``test_torch_lep2d.py`` holds its modes.
+* LEP's gradients at 2 x 2 on an R1 MoE layer with a shared expert whose
+  weights are narrow enough (``d_ff`` = LEP_SHARED_FF) that it runs on
+  the token split with its weights gathered whole, every weight placed by
+  the training specs: the output (1e-5) and the gradients of x and every
+  weight (2e-4 of each one's largest) of a seeded cotangent, against
+  ``jax.value_and_grad`` through JAX's LEP function on four devices.
 
 In this process: the MLA plain version's ``return_lse`` against a direct
 log-sum-exp, an empty row (o = 0, lse = -inf) included, and the kernel's
@@ -72,15 +81,34 @@ S_PREFILL, S_SSD = 24, 64
 #: (arch, replaced fields) trained at 1 x 2
 TRAIN = {"deepseek-r1": {"num_experts": 0},
          "qwen3-8b": {"num_kv_heads": 1}, "mamba2-780m": {}}
-#: (arch, replaced fields) taken one whole train step at 1 x 2 and 2 x 2
-STEP = {"deepseek-r1": {"num_experts": 0}, "qwen3-8b": {},
-        "mamba2-780m": {}}
+#: case -> (arch, replaced fields, meshes), taken one whole train step;
+#: one K/V head over the model axis of 2 (Qwen2.5's with its QKV bias)
+#: at 2 x 2 only
+STEP = {"deepseek-r1": ("deepseek-r1", {"num_experts": 0}, list(MESHES)),
+        "qwen3-8b": ("qwen3-8b", {}, list(MESHES)),
+        "qwen3-8b-kv1": ("qwen3-8b", {"num_kv_heads": 1}, ["2x2"]),
+        "qwen2.5-3b-kv1": ("qwen2.5-3b", {"num_kv_heads": 1}, ["2x2"]),
+        "mamba2-780m": ("mamba2-780m", {}, list(MESHES))}
 STEP_TOL = 2e-4          # of each leaf's largest |value|
 #: the optimizer of that step: no warmup, so the first step moves each
 #: weight by about lr = 3e-4, above STEP_TOL of a leaf's largest value
 STEP_OPT = {"warmup_steps": 1}
 LEP_TOKENS = 24          # 6 rows a rank on 2 x 2
 LEP_KW = {"ep_axes": ["data", "model"], "redundancy": 2}
+#: the shared-expert LEP case: 24 rows of x a rank (its batch over
+#: ``data``), experts 8 wide, so 3 x 8 weight elements a row are no more
+#: than x's rows and the shared expert runs on the token split
+LEP_SHARED_TOKENS, LEP_SHARED_FF = 48, 8
+#: ``dtensor.linear`` over q/k/v weights (D x 16, D x 8, D x 8: one K/V
+#: head of 8) asked for ``heads`` at 2 x 2, layout -> (x's spec, the
+#: weights' spec, the ranks that share the K/V head): the K/V head over
+#: the 2 ranks of ``model`` (x's rows over ``data``) takes the head path;
+#: x's last dim cut too, or the weights' rows cut over ``data``, where the
+#: head path does not hold, come out whole
+LINEAR_D = 16
+LINEAR = {"heads": (["data", None, None], [None, "model"], 2),
+          "x_cut": ([None, None, "model"], [None, ["data", "model"]], 1),
+          "w_rows": ([None, None, None], ["data", "model"], 1)}
 
 PORT_SIDE = textwrap.dedent('''
     import dataclasses, json, sys
@@ -211,6 +239,16 @@ PORT_SIDE = textwrap.dedent('''
                 out[f"gqa_decode{ring:d}:k"] = ck
                 out[f"gqa_decode{ring:d}:v"] = cv
 
+        from repro_torch import dtensor as dt
+        spec = lambda e: tuple(tuple(a) if isinstance(a, list) else a  # noqa
+                               for a in e)
+        for layout, (x_spec, w_spec, _) in plan["linear"].items():
+            ws = [distribute(t(f"lin_w{n}"), mesh, spec(w_spec))
+                  for n in "qkv"]
+            for n, y in zip("qkv", dt.linear(distribute(
+                    t("lin_x"), mesh, spec(x_spec)), ws, heads=(None, 1, 1))):
+                out[f"linear:{layout}:{n}"] = y
+
         m2 = smoke_variant(get_config("mamba2-780m"))
         ssd = [distribute(t(k), mesh, ()) for k in
                ("ssd_x", "ssd_dt", "ssd_a", "ssd_b", "ssd_c")]
@@ -244,8 +282,8 @@ PORT_SIDE = textwrap.dedent('''
             out.update({f"grad:{arch}:{k}": v
                         for k, v in flat(param_tree(holder)).items()})
 
-        for arch, fields in plan["steps"].items():
-            cfg, tree, model, batch = sharded(d, f"step:{arch}", arch,
+        for case, (arch, fields) in plan["steps"].items():
+            cfg, tree, model, batch = sharded(d, f"step:{case}", arch,
                                               fields, mesh)
             leaves = list(model.parameters())
             opt = OptState(distribute(torch.zeros((), dtype=torch.int32),
@@ -254,11 +292,11 @@ PORT_SIDE = textwrap.dedent('''
                               for w in leaves] for _ in range(2)))
             model, opt, metrics = make_train_step(
                 cfg, OptConfig(**plan["opt"]))(model, opt, batch)
-            out[f"gnorm:{arch}"] = metrics["grad_norm"]
+            out[f"gnorm:{case}"] = metrics["grad_norm"]
             for name, values in (("param", model.parameters()),
                                  ("mu", opt.mu), ("nu", opt.nu)):
                 out.update(as_tree(list(values), cfg, tree,
-                                   f"step:{arch}:{name}"))
+                                   f"step:{case}:{name}"))
 
         if plan["lep"]:
             from repro_torch.convert import moe_from_jax_numpy
@@ -280,6 +318,32 @@ PORT_SIDE = textwrap.dedent('''
             o, aux = fn(moe, distribute(t("lep_x"), mesh, ("data", None)),
                         cfg)
             out["lep"], out["lep:dropped"] = o, aux["dropped"]
+
+            from repro_torch.core.lep import pick_lep_plan
+            cfg = dataclasses.replace(smoke_variant(get_config(
+                "deepseek-r1")), capacity_factor=8.0, d_ff=plan["shared_ff"])
+            moe = moe_from_jax_numpy({k[11:]: d[k][None] for k in d.files
+                                      if k.startswith("lep_shared:")}, cfg,
+                                     0, "cpu")
+            specs = next(seg["moe"] for seg in param_pspecs(
+                cfg, mesh, param_shapes(cfg), train=True)["segments"].values()
+                if "moe" in seg)
+            for name, w in moe.named_parameters():
+                setattr(moe, name, torch.nn.Parameter(distribute(
+                    w.detach(), mesh, specs[name][1:]), requires_grad=False))
+            x = distribute(t("lep_shared_x"), mesh, ("data", None))
+            x.requires_grad_(True)
+            fn = make_lep_moe_fn(mesh=mesh, **pick_lep_plan(cfg, mesh))
+            with trainable(moe) as leaves:
+                o, _ = fn(moe, x, cfg)
+                grads = torch.autograd.grad(
+                    (o * distribute(t("lep_shared_cot"), mesh,
+                                    ("data", None))).sum(), [x] + leaves,
+                    allow_unused=True)       # the block's norm gain
+            out["lep_shared"], out["lep_shared:grad:x"] = o, grads[0]
+            for (name, w), g in zip(moe.named_parameters(), grads[1:]):
+                out[f"lep_shared:grad:{name}"] = torch.zeros(w.shape) \
+                    if g is None else g
 
         got = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
                for k, v in out.items()}
@@ -306,7 +370,7 @@ JAX_EXTRA = textwrap.dedent('''
     from repro.train.loop import make_train_step
     from repro.train.optimizer import OptConfig, init_opt_state
     d = np.load(sys.argv[1])
-    kw, steps, opt = (json.loads(a) for a in sys.argv[2:5])
+    kw, steps, opt, shared_ff = (json.loads(a) for a in sys.argv[2:6])
     out = {}
 
     def smoke(arch, **fields):
@@ -339,19 +403,31 @@ JAX_EXTRA = textwrap.dedent('''
         o, aux = jax.jit(lambda pp, xx: fn(pp, xx, cfg))(
             nest("lep:"), jnp.asarray(d["lep_x"]))
     out["lep"], out["lep:dropped"] = np.asarray(o), np.asarray(aux["dropped"])
-    for arch, fields in steps.items():
+    from repro.core.lep import pick_lep_plan
+    cfg = smoke("deepseek-r1", capacity_factor=8.0, d_ff=shared_ff)
+    fn = make_lep_moe_fn(mesh, **pick_lep_plan(cfg, mesh))
+    cot = jnp.asarray(d["lep_shared_cot"])
+    with mesh:
+        o = jax.jit(lambda pp, xx: fn(pp, xx, cfg)[0])(
+            nest("lep_shared:"), jnp.asarray(d["lep_shared_x"]))
+        gp, gx = jax.jit(jax.grad(lambda pp, xx: jnp.sum(
+            fn(pp, xx, cfg)[0] * cot), argnums=(0, 1)))(
+            nest("lep_shared:"), jnp.asarray(d["lep_shared_x"]))
+    out["lep_shared"], out["lep_shared:grad:x"] = np.asarray(o), np.asarray(gx)
+    out.update({f"lep_shared:grad:{k}": v for k, v in flat(gp).items()})
+    for case, (arch, fields) in steps.items():
         cfg = smoke(arch, **fields)
-        params = nest(f"step:{arch}:p:")
-        batch = {k: jnp.asarray(d[f"step:{arch}:{k}"])
+        params = nest(f"step:{case}:p:")
+        batch = {k: jnp.asarray(d[f"step:{case}:{k}"])
                  for k in ("tokens", "labels")}
         new, state, metrics = jax.jit(make_train_step(
             cfg, OptConfig(**opt)))(params, init_opt_state(params), batch)
-        out[f"gnorm:{arch}"] = np.asarray(metrics["grad_norm"])
+        out[f"gnorm:{case}"] = np.asarray(metrics["grad_norm"])
         for name, tree in (("param", new), ("mu", state.mu),
                            ("nu", state.nu)):
-            out.update({f"step:{arch}:{name}:{k}": v
+            out.update({f"step:{case}:{name}:{k}": v
                         for k, v in flat(tree).items()})
-    np.savez(sys.argv[5], **out)
+    np.savez(sys.argv[6], **out)
 ''')
 
 
@@ -408,18 +484,26 @@ def inputs():
         for k in ("tokens", "labels"):
             d[f"{arch}:{k}"] = rng.randint(0, cfg.vocab_size,
                                            (2, 16)).astype(np.int32)
-    for arch, fields in STEP.items():
+    for case, (arch, fields, _) in STEP.items():
         cfg = _smoke(arch, **fields)
         params = jax.jit(j_init_params, static_argnums=(1,))(
             jax.random.PRNGKey(1), cfg)
-        d.update({f"step:{arch}:p:{k}": v for k, v in _flat(params).items()})
+        d.update({f"step:{case}:p:{k}": v for k, v in _flat(params).items()})
         for k in ("tokens", "labels"):
-            d[f"step:{arch}:{k}"] = rng.randint(0, cfg.vocab_size,
+            d[f"step:{case}:{k}"] = rng.randint(0, cfg.vocab_size,
                                                 (2, 16)).astype(np.int32)
     olmoe = _smoke("olmoe-1b-7b")
     d.update({f"lep:{k}": np.asarray(v[0]) for k, v in j_moe.init_moe_params(
         jax.random.PRNGKey(5), olmoe, 1, jnp.float32).items()})
     d["lep_x"] = f(LEP_TOKENS, olmoe.d_model)
+    r1moe = _smoke("deepseek-r1", d_ff=LEP_SHARED_FF)
+    d.update({f"lep_shared:{k}": np.asarray(v[0]) for k, v in
+              j_moe.init_moe_params(jax.random.PRNGKey(6), r1moe, 1,
+                                    jnp.float32).items()})
+    d["lep_shared_x"] = f(LEP_SHARED_TOKENS, r1moe.d_model)
+    d["lep_shared_cot"] = f(LEP_SHARED_TOKENS, r1moe.d_model)
+    d.update(lin_x=f(B, S_PREFILL, LINEAR_D), lin_wq=f(LINEAR_D, 16),
+             lin_wk=f(LINEAR_D, 8), lin_wv=f(LINEAR_D, 8))
     return d
 
 
@@ -438,13 +522,19 @@ def sides(inputs, tmp_path_factory):
     procs = {name: _start(tmp / "port_side.py", [
         str(shape[0] * shape[1]), json.dumps(shape), str(tmp / "in.npz"),
         str(tmp / f"{name}.npz"), f"file://{tmp / f'gloo_{name}'}",
-        json.dumps({"grads": TRAIN if name == "1x2" else {}, "steps": STEP,
-                    "opt": STEP_OPT,
-                    "lep": LEP_KW if name == "2x2" else None})])
+        json.dumps({"grads": TRAIN if name == "1x2" else {},
+                    "steps": {case: (arch, fields) for case, (
+                        arch, fields, meshes) in STEP.items()
+                        if name in meshes},
+                    "opt": STEP_OPT, "shared_ff": LEP_SHARED_FF,
+                    "lep": LEP_KW if name == "2x2" else None,
+                    "linear": LINEAR if name == "2x2" else {}})])
         for name, shape in MESHES.items()}
     procs["jax_extra"] = _start(tmp / "jax_extra.py", [
-        str(tmp / "in.npz"), json.dumps(LEP_KW), json.dumps(STEP),
-        json.dumps(STEP_OPT), str(tmp / "jax_extra.npz")], xla_devices=4)
+        str(tmp / "in.npz"), json.dumps(LEP_KW),
+        json.dumps({case: step[:2] for case, step in STEP.items()}),
+        json.dumps(STEP_OPT), json.dumps(LEP_SHARED_FF),
+        str(tmp / "jax_extra.npz")], xla_devices=4)
     try:
         want = _jax_side(inputs)
         for proc in procs.values():
@@ -541,8 +631,9 @@ def test_sharded_train_gradients_match_jax(sides, arch):
         _close(got[k], jax_side[k], GRAD_TOL)
 
 
-@pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("arch", list(STEP))
+@pytest.mark.parametrize("arch,mesh", [
+    pytest.param(case, mesh, id=f"{case}-{mesh}") for mesh in MESHES
+    for case, (*_, meshes) in STEP.items() if mesh in meshes])
 def test_sharded_train_step_matches_jax(sides, arch, mesh):
     """One ``make_train_step`` over the training specs (FSDP over ``data``
     at 2 x 2): both AdamW moments after the step and every parameter,
@@ -580,6 +671,38 @@ def test_sharded_lep_redundancy_matches_jax(sides):
     got = ports["2x2"]
     _close(got["lep"], want["lep"])
     assert int(got["lep:dropped"]) == int(want["lep:dropped"])
+
+
+def test_sharded_lep_shared_expert_gradients_match_jax(sides):
+    """LEP at 2 x 2 on an R1 MoE layer whose shared expert runs on the
+    token split: the output and the gradients of x and of every weight
+    (the router, the routed and the shared experts) against JAX's LEP
+    under ``jax.grad``."""
+    ports, want = sides
+    got = ports["2x2"]
+    keys = sorted(k for k in want if k.startswith("lep_shared"))
+    assert keys == sorted(k for k in got if k.startswith("lep_shared"))
+    assert "lep_shared:grad:shared_gate" in keys
+    _close(got["lep_shared"], want["lep_shared"])
+    for k in keys:
+        if ":grad:" in k:
+            _close(got[k], want[k], GRAD_TOL)
+
+
+@pytest.mark.parametrize("layout", list(LINEAR))
+def test_sharded_linear_heads_matches_numpy(sides, inputs, layout):
+    """``dtensor.linear`` with ``heads`` at 2 x 2 against x @ w: q whole;
+    k and v as the K/V head repeated over the ranks that share it where
+    the head path holds, else whole (never a partial sum or a part of a
+    head)."""
+    ports, _ = sides
+    got, rep = ports["2x2"], LINEAR[layout][2]
+    x = inputs["lin_x"]
+    for n in "qkv":
+        want = x @ inputs[f"lin_w{n}"]
+        if n != "q":
+            want = np.concatenate([want] * rep, axis=-1)
+        _close(got[f"linear:{layout}:{n}"], want)
 
 
 def _lse_inputs(lens, s=24, seed=0):
