@@ -111,6 +111,16 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    serve with ``REPRO_MLA_HYBRID=a2a``: every prefill's 4 MLA layers
    through the hybrid, the MLA kernel decode steps x 4 times, tokens held
    against the serve phase's by margins (``hold_partings``).
+8c'''. sharded-step: over the same mesh, before R1's weights are freed,
+   the dry run's sharded steps on real tensors (``launch/sharded_step.py``:
+   ``decode-r1``, the served cut's decode step over f32 caches of 8 x
+   2048, and ``train-mamba2``, Mamba2-780m whole in f32 at B = 2, S =
+   512) through ``dryrun.build_step`` on the card, every weight drawn from
+   the seed and placed one at a time (R1's bit-equal to the serve's): the
+   kernels launched on the DTensor path (4 MLA and 1 dispatch-quantize,
+   48 SSD scans), each step against the same step unsharded on the card,
+   and the collective bytes the counter sees (0, equal to the dry run's
+   1 x 1 record of the same case, traced in a process of its own).
 8c''. kimi-lep-agree, serve-kimi, serve-kimi-tokens: with R1's weights
    freed, Kimi K2 at its widths (d_model 7168, 64 heads over 8 KV heads,
    384 experts top-8 of d_ff 2048, 1 shared expert, vocab 163840) cut to
@@ -698,6 +708,17 @@ EXAMPLES = (("torch_quickstart", "examples/torch_quickstart.py", []),
              ["--steps", str(EXAMPLE_TRAIN_STEPS)]),
             ("torch_dev_smoke", "scripts/torch_dev_smoke.py", []))
 DRYRUN_TIMEOUT_S = 300
+#: sharded-step: train-mamba2's (B, S) on one card; the decode case's
+#: tolerance of the reference's largest value (bf16 weights, as TOL of
+#: ``scripts/torch_parallel_nccl.py``); the launches each case's step must
+#: make on the DTensor path (R1's cut: 4 MLA layers, 1 MoE layer; Mamba2:
+#: one SSD scan a layer, the backward plain)
+SHARDED_TRAIN_SHAPE = (2, 512)
+SHARDED_DECODE_TOL = 0.02
+SHARDED_LAUNCHES = {"decode-r1": {"mla_attention": 4, "dispatch_quant": 1,
+                                  "int8_gemm": 0, "ssd_scan": 0},
+                    "train-mamba2": {"mla_attention": 0, "dispatch_quant": 0,
+                                     "int8_gemm": 0, "ssd_scan": 48}}
 SPILL_GATED = ("int8_gemm", "mla_decode_attention", "dispatch_quant")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 
@@ -3354,6 +3375,92 @@ def one_rank_mesh(torch, dev="cuda"):
     return make_debug_mesh(1, 1, dev)
 
 
+def sharded_step_phase(torch, params, mesh, dev="cuda") -> list:
+    """The dry run's sharded steps on real tensors over the 1 x 1 NCCL
+    mesh (``launch/sharded_step.py``'s ``decode-r1`` and ``train-mamba2``
+    at SHARDED_TRAIN_SHAPE), each through ``dryrun.build_step`` on the
+    card with its weights drawn from SEED and placed one at a time: the
+    kernels' launches on the DTensor path (counts set to 0 just before the
+    step and read just after: MLA once and dispatch-quantize once a layer
+    of theirs, 48 SSD scans), the collective bytes the counter sees (0,
+    equal to the dry run's 1 x 1 record of the same case, traced in a
+    process of its own while the steps run), and the step against the same
+    step unsharded on the card (``sharded_step.compare``: decode within
+    SHARDED_DECODE_TOL, the train step at its tolerances). R1's sharded
+    weights must equal the serve's ``params`` bit for bit, which are its
+    reference's. Returns one row per case."""
+    from repro_torch.launch import sharded_step as ss
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    b, s = SHARDED_TRAIN_SHAPE
+    records = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.sharded_step", "--cases",
+         "decode-r1,train-mamba2", "--mesh", "1x1", "--shape",
+         f"train-mamba2={b}x{s}"], cwd=HERE,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    rows = []
+    try:
+        for name, shape in (("decode-r1", None),
+                            ("train-mamba2", ss.case_shape(
+                                "train-mamba2", batch=b, seq_len=s))):
+            t0 = time.perf_counter()
+            _, shape, step, args = ss.case_step(name, mesh, dev, seed=SEED,
+                                                shape=shape)
+            sync()
+            build_s = time.perf_counter() - t0
+            row = {"case": name, "mesh": "1x1", "B": shape.global_batch,
+                   "S": shape.seq_len}
+            if name == "decode-r1":
+                row["weights_equal_serve"] = all(
+                    torch.equal(w.to_local(), p) for w, p in
+                    zip(args[0].parameters(), params.parameters()))
+            reset_counts()
+            t0 = time.perf_counter()
+            out, counts = ss.run_counted(step, args)
+            sync()
+            step_s = time.perf_counter() - t0
+            row["kernel_launches"] = read_counts()
+            got = ss.step_results(shape.kind, out)
+            del out, step, args
+            free_model(torch)
+            t0 = time.perf_counter()
+            want = ss.reference(name, dev, seed=SEED, shape=shape,
+                                params=params if name == "decode-r1"
+                                else None)
+            sync()
+            row.update(ss.compare(shape.kind, got, want, SHARDED_DECODE_TOL))
+            row.update(counter_bytes=ss.bytes_by_kind(counts),
+                       counter_count=counts["count"], build_s=build_s,
+                       step_s=step_s,
+                       reference_s=time.perf_counter() - t0)
+            del want, got
+            free_model(torch)
+            rows.append(row)
+        stdout, err = records.communicate(timeout=DRYRUN_TIMEOUT_S)
+        if records.returncode:
+            raise AssertionError(f"sharded-step records: {err[-3000:]}")
+        recs = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        if records.poll() is None:
+            records.kill()
+            records.wait()
+    for row in rows:
+        row["record_bytes"] = ss.bytes_by_kind(recs[row["case"]])
+        need = SHARDED_LAUNCHES[row["case"]]
+        if not (row["ok"] and row.get("weights_equal_serve", True)
+                and row["counter_bytes"] == row["record_bytes"]
+                and not any(row["counter_bytes"].values())
+                and not row["counter_count"]
+                and all(row["kernel_launches"][k] == n
+                        for k, n in need.items())):
+            raise AssertionError(f"sharded-step {row['case']}: {row}")
+    return rows
+
+
 @contextlib.contextmanager
 def hybrid_mode(mesh, mode):
     """Within the block ``REPRO_MLA_HYBRID`` is ``mode`` ("" for the plain
@@ -4048,6 +4155,14 @@ def main(argv=None) -> int:
         for key in ("ttft_p50_s", "tpot_p50_s", "decode_step_p50_s",
                     "decode_tokens_per_s")}))
     log(f"serve-hybrid: phase {time.perf_counter() - tp:.1f} s")
+    tp = time.perf_counter()
+    sharded = sharded_step_phase(torch, params, mesh)
+    for row in sharded:
+        log(f"sharded-step: {json.dumps(row)} on {device}")
+    sharded_counts = {k: sum(r["kernel_launches"][k] for r in sharded)
+                      for k in KERNEL_MODULES}
+    log(f"sharded-step: phase {time.perf_counter() - tp:.1f} s, kernel "
+        f"launches {json.dumps(sharded_counts)}")
     del params
     free_model(torch)
 
@@ -4255,7 +4370,8 @@ def main(argv=None) -> int:
             "cli": cli["kernel_launches"]["mla_attention"],
             "serve-hybrid": hybrid_counts["mla_attention"],
             "serve-dense": dense_counts["mla_attention"],
-            "examples": example_counts["mla_attention"]},
+            "examples": example_counts["mla_attention"],
+            "sharded-step": sharded_counts["mla_attention"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # The return_lse variant (the sharded decode's) and the serve's
         # cache merged from MLA_SPLIT_BLOCKS blocks, against the plain
@@ -4282,7 +4398,8 @@ def main(argv=None) -> int:
             "serve-kimi-tokens": kimi_tok_counts["dispatch_quant"],
             "int8": int8_counts["dispatch_quant"],
             "int8-dense": dense_int8_counts["dispatch_quant"],
-            "examples": example_counts["dispatch_quant"]},
+            "examples": example_counts["dispatch_quant"],
+            "sharded-step": sharded_counts["dispatch_quant"]},
         "max_abs_err": max(r["max_abs_err"]
                            for r in dq_rows + dq_ragged + olmoe_dq),
         "ms": dq_row["ms"],
@@ -4300,7 +4417,8 @@ def main(argv=None) -> int:
         "launches": int8_counts["int8_gemm"],
         "launches_by_path": {"int8": int8_counts["int8_gemm"],
                              "int8-dense": dense_int8_counts["int8_gemm"],
-                             "examples": example_counts["int8_gemm"]},
+                             "examples": example_counts["int8_gemm"],
+                             "sharded-step": sharded_counts["int8_gemm"]},
         "max_abs_err": max(r["max_abs_err"] for r in int8_rows + int8_ragged
                            + dense_int8_rows),
         "ms": int8_total["ms"],
@@ -4323,7 +4441,8 @@ def main(argv=None) -> int:
             "forward": fwd_counts["ssd_scan"],
             "train-ssm": train_counts["ssd_scan"],
             "ckpt": ckpt_counts["ssd_scan"],
-            "examples": example_counts["ssd_scan"]},
+            "examples": example_counts["ssd_scan"],
+            "sharded-step": sharded_counts["ssd_scan"]},
         "max_abs_err": max(r["max_abs_err"]
                            for r in ssd_rows + zamba_ssd_rows),
         "ms": ssd_rows[0]["ms"],

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""The parallel layer's collectives across four cards over NCCL.
+"""The parallel layer's collectives, and the dry run's sharded steps, across
+four cards over NCCL.
 
-    python3 scripts/torch_parallel_nccl.py                # needs 4 GPUs
+    python3 scripts/torch_parallel_nccl.py                 # needs 4 GPUs
+    python3 scripts/torch_parallel_nccl.py --cases train-qwen3,decode-r1
 
 Four ranks, one card each, over a 2 x 2 ``("data", "model")`` mesh
 (``launch.mesh.make_debug_mesh``; a file rendezvous in a temporary
-directory):
+directory). ``--cases`` takes any of ``lep``, ``hybrid``, ``decode-seq``
+and the sharded steps of ``launch/sharded_step.py``'s ``CASES``
+(default: all eight, in this order):
 
 1. lep: Kimi K2's MoE layer at its widths (384 experts top-8 of d_ff 2048,
    d_model 7168, one shared expert; bf16; the same seeded weights on every
@@ -33,19 +37,53 @@ directory):
    kernel), within TOL of its largest value, each card having launched
    the kernel once; ms of both.
 
+4. The dry run's sharded steps (``train-qwen3``, ``train-olmoe``,
+   ``train-mamba2``, ``decode-r1``, ``decode-olmoe``; their configs, depth
+   cuts and shapes in ``launch/sharded_step.py``'s ``CASES``) on real CUDA
+   tensors: ``dryrun.build_step`` on the card, every weight drawn from the
+   seed and placed by the specs one at a time, caches and batch placed as
+   the dry run places its meta tensors, TF32 off. Each is held against
+   the same step unsharded on rank 0's card, run over the row groups the
+   data ranks hold, at fixed tolerances (``sharded_step.compare``: a train
+   step's loss and global gradient norm within 1e-5, each parameter and
+   both moments within 2e-4 of the leaf's largest; a decode step's caches
+   and written rows within TOL, and on the rows ``Case.logits`` names its
+   logits within TOL and its greedy tokens equal where the top-2 margin
+   exceeds it; ``decode-r1``'s logits through the same step run again
+   with float32 weights, every row within TOL). Printed beside it, never
+   a limit: that reference against itself evaluated otherwise (``floor``:
+   a train step over the whole batch, a decode step with its caches
+   nudged by one part in 1e7), how far rounding alone moves it. And
+   its collective bytes by kind on rank 0
+   (``CollectiveCounter``) against the dry run's record of the same case
+   on a fake 2 x 2 group (``python -m repro_torch.launch.sharded_step``,
+   traced in a process of its own beside the ranks), byte for byte; and
+   against NCCL's own record of what it ran (the ``record_param_comms``
+   events of a ``torch.profiler`` trace of the step, in the counter's
+   convention), within 1 % by kind. Beside them: the kernels' launches on
+   the step, the NCCL kernels' device time from the same trace against the
+   record's computed collective term (no gate), build, step and reference
+   seconds, and each rank's peak GiB.
+
 Rank 0 prints one JSON line per case, then ``{"ok": true, ...}``; any
 failed check fails the run. The same collectives are held against JAX on
-the CPU by ``tests/test_torch_lep2d.py`` and
-``tests/test_torch_hybrid_parallel.py`` (gloo ranks).
+the CPU by ``tests/test_torch_lep2d.py``,
+``tests/test_torch_hybrid_parallel.py`` and
+``tests/test_torch_sharded_mixers.py`` (gloo ranks).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
+import os
 import statistics
+import subprocess
 import sys
 import tempfile
+import time
 from datetime import timedelta
 from pathlib import Path
 
@@ -54,6 +92,10 @@ sys.path.insert(0, str(HERE / "src"))
 
 WORLD, N_DATA, N_MODEL = 4, 2, 2
 DECODE_LENS = [971, 846, 300, 479, 2048, 994, 5, 296]   # 300, 5: block 0 only
+LAYER_CASES = ("lep", "hybrid", "decode-seq")
+#: NCCL's bytes of a kind against the counter's
+TRACE_RTOL = 0.01
+KERNEL_MODULES = ("mla_attention", "dispatch_quant", "int8_gemm", "ssd_scan")
 DECODE_S = 2048
 SEED = 0
 TOL = 0.02            # of the reference's largest |value|; bf16 outputs
@@ -103,33 +145,54 @@ def same_on_every_rank(torch, dist, t):
     return bool(flag.item())
 
 
-def run(rank, init, out_path):
+def run(rank, init, out_path, cases, trace_dir):
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import get_config
-    from repro_torch.core.hybrid_parallel import mla_prefill_hybrid
-    from repro_torch.core.lep import keep_local_experts, make_lep_moe_fn
     from repro_torch.launch.mesh import make_debug_mesh
-    from repro_torch.models.mla import MLA, mla_prefill
-    from repro_torch.models.moe import MoE
 
     torch.cuda.set_device(rank)
+    # Products in full float32 (no TF32), and bf16 products summed in
+    # float32 (cuBLAS may otherwise sum split-K partials in bf16).
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dist.init_process_group("nccl", init_method=init, rank=rank,
                             world_size=WORLD, timeout=timedelta(seconds=300))
     mesh = make_debug_mesh(N_DATA, N_MODEL, "cuda")
+    lines = []
+    if "lep" in cases:
+        lines += lep_rows(torch, dist, rank, mesh)
+    if "hybrid" in cases or "decode-seq" in cases:
+        lines += mla_rows(torch, dist, rank, mesh, cases)
+    for name in cases:
+        if name not in LAYER_CASES:
+            lines.append(sharded_step_row(torch, dist, rank, mesh, name,
+                                          trace_dir))
+    if rank == 0:
+        Path(out_path).write_text("\n".join(json.dumps(r) for r in lines))
+    dist.destroy_process_group()
+
+
+def gen_on(torch, seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def cut(name):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name), capacity_factor=8.0)
+
+
+def lep_rows(torch, dist, rank, mesh):
+    """Case 1: LEP at Kimi K2's MoE layer: the 1-D references on the whole
+    layer, then each mode on a fresh layer cut to the rank's share."""
+    from repro_torch.core.lep import keep_local_experts, make_lep_moe_fn
+    from repro_torch.models.moe import MoE
+
     device = torch.device("cuda", rank)
     dtype = torch.bfloat16
     lines = []
-
-    def cut(name):
-        return dataclasses.replace(get_config(name), capacity_factor=8.0)
-
-    def gen(seed):
-        return torch.Generator(device=device).manual_seed(seed)
-
-    # ---- 1. LEP at Kimi K2's MoE layer: the 1-D references on the whole
-    # layer, then each mode on a fresh layer cut to the rank's share.
+    gen = lambda seed: gen_on(torch, seed)  # noqa: E731
     cfg = cut("kimi-k2-1t-a32b")
     moe = MoE(cfg, device, dtype, gen(SEED))
     whole_bytes = sum(w.numel() * w.element_size()
@@ -169,12 +232,36 @@ def run(rank, init, out_path):
         del fn, out, moe
         torch.cuda.empty_cache()
     del refs
+    return lines
 
-    # ---- 2. The hybrid MLA prefill at DeepSeek-R1's widths.
+
+def mla_rows(torch, dist, rank, mesh, cases):
+    """Cases 2 and 3 on one MLA layer at DeepSeek-R1's widths."""
+    from repro_torch.models.mla import MLA
+
+    device = torch.device("cuda", rank)
+    dtype = torch.bfloat16
+    lines = []
+    gen = lambda seed: gen_on(torch, seed)  # noqa: E731
     cfg = cut("deepseek-r1")
     layer = MLA(cfg, device, dtype, gen(SEED))
+    if "hybrid" in cases:
+        lines += hybrid_rows(torch, dist, rank, mesh, layer, cfg, gen)
+    if "decode-seq" in cases:
+        lines.append(decode_seq_row(torch, dist, rank, layer, cfg, gen))
+    del layer
+    torch.cuda.empty_cache()
+    return lines
+
+
+def hybrid_rows(torch, dist, rank, mesh, layer, cfg, gen):
+    """Case 2: the hybrid MLA prefill at DeepSeek-R1's widths."""
+    from repro_torch.core.hybrid_parallel import mla_prefill_hybrid
+    from repro_torch.models.mla import mla_prefill
+
+    lines = []
     x = torch.randn((1, HYBRID_S, cfg.d_model), generator=gen(SEED + 1),
-                    device=device, dtype=dtype)
+                    device=layer.wq_a.device, dtype=layer.wq_a.dtype)
     plain, plain_lat = mla_prefill(layer, x, cfg)
     plain_ms = timed_ms(torch, lambda: mla_prefill(layer, x, cfg))
     for mode in ("a2a", "rs"):
@@ -191,10 +278,7 @@ def run(rank, init, out_path):
                 and row["latent_rel_err_vs_plain"] <= TOL
                 and row["ranks_equal"]):
             raise AssertionError(f"rank {rank}: {row}")
-    lines.append(decode_seq_row(torch, dist, rank, layer, cfg, gen))
-    if rank == 0:
-        Path(out_path).write_text("\n".join(json.dumps(r) for r in lines))
-    dist.destroy_process_group()
+    return lines
 
 
 def decode_seq_row(torch, dist, rank, layer, cfg, gen):
@@ -249,10 +333,149 @@ def decode_seq_row(torch, dist, rank, layer, cfg, gen):
     return row
 
 
+def kernel_counts():
+    import importlib
+
+    return {k: importlib.import_module(f"repro_torch.kernels.{k}.ops")
+            .LAUNCHES for k in KERNEL_MODULES}
+
+
+def sharded_step_row(torch, dist, rank, mesh, name, trace_dir):
+    """Case 4: one of the dry run's sharded steps on CUDA tensors over the
+    2 x 2 mesh, against the same step unsharded on rank 0's card; its
+    collectives as the counter counts them and as NCCL's trace records
+    them (the record's are added by ``main``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import sharded_step as ss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, shape, step, args = ss.case_step(name, mesh, "cuda", seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    before = kernel_counts()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+        if rank == 0 else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with prof:
+        out, counts = ss.run_counted(step, args)
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in kernel_counts().items()}
+    peak = torch.tensor([torch.cuda.max_memory_allocated() / 2 ** 30],
+                        device="cuda")
+    got = ss.step_results(shape.kind, out, keep=rank == 0)
+    del out, step, args
+    free(torch)
+    peaks = [torch.zeros_like(peak) for _ in range(WORLD)]
+    dist.all_gather(peaks, peak)
+    row = None
+    if rank == 0:
+        path = Path(trace_dir) / f"{name}.json"
+        prof.export_chrome_trace(str(path))
+        traced = ss.traced_collectives(json.loads(path.read_text()))
+        path.unlink()
+        t0 = time.perf_counter()
+        row = {"case": name, "mesh": "2x2", "B": shape.global_batch,
+               "S": shape.seq_len, "tf32": False,
+               **reference_row(torch, ss, name, shape, got),
+               "kernel_launches": launches,
+               "counter_bytes": ss.bytes_by_kind(counts),
+               "counter_count": counts["count"],
+               "nccl_trace_bytes": ss.bytes_by_kind(traced["counts"]),
+               "nccl_trace_count": traced["counts"]["count"],
+               "nccl_trace_unknown": traced["unknown"],
+               "nccl_kernel_ms": traced["kernel_ms"],
+               "record_collective_ms": ss.collective_ms(counts),
+               "build_s": build_s, "step_s": step_s,
+               "reference_s": time.perf_counter() - t0,
+               "peak_gib_per_rank": [p.item() for p in peaks]}
+        del got
+        free(torch)
+    dist.barrier()
+    if ss.CASES[name].logits == "f32":
+        f32 = f32_row(torch, rank, mesh, name)
+        if rank == 0:
+            row["f32"] = f32
+            row["ok"] = row["ok"] and f32["ok"]
+        dist.barrier()
+    return row
+
+
+def reference_row(torch, ss, name, shape, got):
+    """(Rank 0.) ``got`` against the step unsharded on this card over the
+    data ranks' row groups (``sharded_step.compare`` on the case's held
+    rows); beside it, as ``floor``, that reference against itself
+    evaluated otherwise -- a train step over the whole batch in one group,
+    a decode step with its caches nudged by ``sharded_step.NUDGE``."""
+    kind = shape.kind
+    # The floor's results wait on the host, so that one reference at a
+    # time holds the card (a train step's state and activations).
+    other = {k: v.cpu() for k, v in ss.reference(
+        name, "cuda", seed=SEED,
+        **({"n_micro": 1} if kind == "train" else
+           {"n_micro": N_DATA, "nudge": ss.NUDGE})).items()}
+    free(torch)
+    want = ss.reference(name, "cuda", n_micro=N_DATA, seed=SEED)
+    rows = ss.held_rows(name, shape, N_MODEL) if kind == "decode" else None
+    row = ss.compare(kind, got, want, TOL, rows)
+    floor = ss.compare(kind, other, want, TOL, rows)
+    row["floor"] = {k: floor[k] for k in (*ss.GATED[kind], "leaves_over",
+                                          "logits_err_by_row") if k in floor}
+    del want, other
+    free(torch)
+    return row
+
+
+def f32_row(torch, rank, mesh, name):
+    """Case ``name``'s step again with float32 weights over the same mesh
+    (every rank), against the same float32 step unsharded on rank 0's
+    card, every row held (``sharded_step.compare``); rank 0's row."""
+    from repro_torch.launch import sharded_step as ss
+
+    cfg = ss.case_config(name, dtype="float32")
+    _, shape, step, args = ss.case_step(name, mesh, "cuda", seed=SEED,
+                                        cfg=cfg)
+    out, _ = ss.run_counted(step, args)
+    got = ss.step_results(shape.kind, out, keep=rank == 0)
+    del out, step, args
+    free(torch)
+    row = None
+    if rank == 0:
+        want = ss.reference(name, "cuda", n_micro=N_DATA, seed=SEED, cfg=cfg)
+        row = {"dtype": "float32", **ss.compare(shape.kind, got, want, TOL)}
+        del want, got
+        free(torch)
+    return row
+
+
+def free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def trace_within(counter, traced):
+    """Whether NCCL's bytes of each kind are within TRACE_RTOL of the
+    counter's."""
+    return all(abs(traced[k] - n) <= TRACE_RTOL * n if n else traced[k] == 0
+               for k, n in counter.items())
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(
-        argv)
-    import subprocess
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cases", default=None,
+                    help="comma-separated cases (default: all)")
+    args = ap.parse_args(argv)
+    from repro_torch.launch.sharded_step import CASES
+
+    cases = args.cases.split(",") if args.cases else \
+        list(LAYER_CASES) + list(CASES)
+    unknown = [c for c in cases if c not in LAYER_CASES and c not in CASES]
+    if unknown:
+        ap.error(f"unknown cases {unknown}")
+    steps = [c for c in cases if c not in LAYER_CASES]
 
     import torch
     import torch.multiprocessing as mp
@@ -265,11 +488,47 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     tmp = Path(tempfile.mkdtemp(prefix="torch_parallel_nccl_"))
-    mp.spawn(run, args=(f"file://{tmp / 'rendezvous'}", str(tmp / "out")),
-             nprocs=WORLD)
-    print((tmp / "out").read_text(), flush=True)
+    # The dry run's records of the sharded steps on a fake 2 x 2 group, in
+    # a process of its own (a fake group and NCCL's cannot share one).
+    records = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.sharded_step", "--cases",
+         ",".join(steps), "--mesh", f"{N_DATA}x{N_MODEL}"],
+        env={**os.environ, "PYTHONPATH": str(HERE / "src")}, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) if steps else None
+    try:
+        mp.spawn(run, args=(f"file://{tmp / 'rendezvous'}", str(tmp / "out"),
+                            cases, str(tmp)), nprocs=WORLD)
+        recs = {}
+        if records is not None:
+            stdout, err = records.communicate(timeout=600)
+            if records.returncode:
+                raise AssertionError(f"the dry run's records: {err[-3000:]}")
+            recs = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        if records is not None and records.poll() is None:
+            records.kill()
+            records.wait()
+    failed = []
+    for line in (tmp / "out").read_text().splitlines():
+        row = json.loads(line)
+        if row["case"] in recs:
+            from repro_torch.launch.sharded_step import bytes_by_kind
+
+            record = bytes_by_kind(recs[row["case"]])
+            row["record_bytes"] = record
+            row["counter_equals_record"] = row["counter_bytes"] == record
+            row["nccl_trace_within_1pct"] = not row["nccl_trace_unknown"] \
+                and trace_within(row["counter_bytes"],
+                                 row["nccl_trace_bytes"])
+            if not (row["ok"] and row["counter_equals_record"]
+                    and row["nccl_trace_within_1pct"]):
+                failed.append(row["case"])
+        print(json.dumps(row), flush=True)
+    if failed:
+        print(f"torch_parallel_nccl: failed {failed}", file=sys.stderr)
+        return 1
     print(json.dumps({"ok": True, "kind": torch.cuda.get_device_name(0),
-                      "ranks": WORLD}), flush=True)
+                      "ranks": WORLD, "cases": cases}), flush=True)
     return 0
 
 

@@ -209,7 +209,9 @@ def _chunk0(x, group):
 
 
 def _sum(x, group):
-    x = x.clone()
+    # NCCL takes contiguous buffers only (gloo any): a gradient that
+    # reaches a backward's reduction may be a transposed view.
+    x = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(x, group=group)
     return x
 
@@ -291,7 +293,7 @@ def max_replicated(x: torch.Tensor, group) -> torch.Tensor:
     x = x.detach()
     if group is None:
         return x
-    x = x.clone()
+    x = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 

@@ -51,7 +51,7 @@ import os
 import time
 import traceback
 import weakref
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -63,7 +63,7 @@ from repro_torch.launch import roofline
 from repro_torch.launch.collectives import CollectiveCounter
 from repro_torch.launch.mesh import MULTI_POD_SHAPE, PRODUCTION_SHAPE
 from repro_torch.launch.sharding import (batch_pspecs, cache_pspecs,
-                                         meta_dtensor, param_pspecs,
+                                         distribute, param_pspecs,
                                          shard_model, shard_tree)
 from repro_torch.models import model as model_mod
 from repro_torch.models.attention import _pick_chunk, block_skip_enabled
@@ -123,14 +123,55 @@ def input_specs(cfg: ModelConfig, shape: InputShape
     return {"tokens": meta(b, 1), "cache_len": meta(b)}
 
 
-def _moe_fn_for(cfg: ModelConfig, mesh, serving: bool):
+def step_inputs(cfg: ModelConfig, shape: InputShape, device,
+                seed: int = 0, cache_dtype: torch.dtype = torch.bfloat16,
+                cache_len: Optional[Sequence[int]] = None) -> Dict[str, Any]:
+    """A real step's inputs as plain tensors on ``device``, drawn from
+    ``seed``, with :func:`input_specs`' shapes and dtypes: a train or
+    prefill step's batch (token ids uniform over the vocabulary, embeddings
+    normal); a decode step's one token a row, its caches (``make_caches``'
+    tree, every float buffer normal, the ``length`` leaves 0) and
+    ``cache_len`` (the given lengths, else uniform in [0, seq_len])."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(t):
+        if t.dtype.is_floating_point:
+            return torch.randn(t.shape, generator=gen, dtype=t.dtype,
+                               device=device)
+        return torch.randint(0, cfg.vocab_size, t.shape, generator=gen,
+                             dtype=t.dtype, device=device)
+
+    specs = input_specs(cfg, shape)
+    if shape.kind != "decode":
+        return {k: draw(v) for k, v in specs.items()}
+    caches = model_mod.make_caches(cfg, shape.global_batch, shape.seq_len,
+                                   cache_dtype, device)
+    for t in _tensors(caches):
+        if t.dtype.is_floating_point:
+            t.normal_(generator=gen)
+    if cache_len is None:
+        lens = torch.randint(0, shape.seq_len + 1, (shape.global_batch,),
+                             generator=gen, device=device, dtype=torch.int32)
+    else:
+        lens = torch.tensor(list(cache_len), dtype=torch.int32,
+                            device=device)
+    return {"tokens": draw(specs["tokens"]), "caches": caches,
+            "cache_len": lens}
+
+
+def _moe_fn_for(cfg: ModelConfig, mesh, serving: bool,
+                lep: Optional[dict] = None):
+    """LEP over ``mesh``, planned as ``lep`` (``make_lep_moe_fn``'s
+    keywords) or as JAX's plan, with INT8 dispatch unless ``lep`` says
+    otherwise; over no mesh, the 1-D LEP at world size 1 (no
+    collective)."""
     if not cfg.is_moe:
         return None
-    plan = pick_lep_plan(cfg, mesh, serving=serving)
-    return make_lep_moe_fn(mesh=mesh, ep_axes=plan["ep_axes"],
-                           redundancy=plan["redundancy"],
-                           ffn_shard_axis=plan["ffn_shard_axis"],
-                           quantize=True)
+    lep = {"quantize": True, **(lep or {})}
+    if mesh is None:
+        return make_lep_moe_fn(quantize=lep["quantize"])
+    return make_lep_moe_fn(mesh=mesh, **{
+        **pick_lep_plan(cfg, mesh, serving=serving), **lep})
 
 
 # ---------------------------------------------------------------------------
@@ -167,64 +208,173 @@ def make_production_mesh(multi_pod: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def sharded_model(cfg: ModelConfig, mesh, train: bool = False):
-    """A ``Model`` of ``cfg`` whose every weight is a meta DTensor placed by
-    ``param_pspecs``."""
-    from repro_torch.convert import param_tree
+def sharded_model(cfg: ModelConfig, mesh, train: bool = False, *,
+                  device=META, seed: int = 0, params=None,
+                  expert_axes: Optional[Tuple[str, ...]] = None):
+    """A ``Model`` of ``cfg`` whose every weight is a DTensor over ``mesh``
+    placed by ``param_pspecs`` (``expert_axes`` as there). On ``META`` the
+    blocks are meta tensors (the dry run); else they hold the weights of
+    ``params`` (a plain ``Model``, placed in place) or, without it, those
+    of ``init_params(cfg, seed=seed, device=device)``, bit for bit: each
+    weight is drawn whole, placed, and its whole copy dropped before the
+    next is drawn, so no rank holds the whole model. Raises where the
+    weights do not live on the mesh's device type."""
+    from repro_torch.launch.sharding import leaf_specs, param_shapes
+    from repro_torch.models.layers import placing
 
-    model = model_mod.Model(cfg, META)
-    specs = param_pspecs(cfg, mesh, param_tree(model), train=train)
-    return shard_model(model, mesh, specs)
+    specs = param_pspecs(cfg, mesh, param_shapes(cfg), train=train,
+                         expert_axes=expert_axes)
+    if params is not None:
+        for name, p in params.named_parameters():
+            _check_device(p.device, mesh, f"weight {name}")
+        return shard_model(params, mesh, specs)
+    device = torch.device(device)
+    if device.type == "meta":
+        return shard_model(model_mod.Model(cfg, META), mesh, specs)
+    _check_device(device, mesh, "the weights")
+    # The order in which the model's constructor makes its weights, read
+    # off a meta build, names each weight as it is made.
+    made = []
+    with placing(lambda p: made.append(p) or p):
+        shapes = model_mod.Model(cfg, META)
+    names = {id(p): n for n, p in shapes.named_parameters()}
+    by_name = leaf_specs(shapes, specs)
+    order = iter([names[id(p)] for p in made])
+
+    def place(p):
+        return torch.nn.Parameter(distribute(p.detach(), mesh,
+                                             by_name[next(order)]),
+                                  requires_grad=False)
+
+    with placing(place):
+        return model_mod.init_params(cfg, seed=seed, device=device)
+
+
+def _check_device(device, mesh, what: str) -> None:
+    if mesh is not None and torch.device(device).type != mesh.device_type:
+        raise ValueError(f"{what} live on {device}, the mesh on "
+                         f"{mesh.device_type}: a sharded step runs on the "
+                         "mesh's device")
 
 
 def build_step(cfg: ModelConfig, shape: InputShape, mesh,
-               cache_dtype: torch.dtype = torch.bfloat16
+               cache_dtype: torch.dtype = torch.bfloat16, *,
+               device=META, seed: int = 0, params=None,
+               cache_len: Optional[Sequence[int]] = None,
+               lep: Optional[dict] = None,
+               expert_axes: Optional[Tuple[str, ...]] = None,
+               opt_cfg=None, n_micro: int = 1
                ) -> Tuple[Callable, Tuple[Any, ...]]:
-    """Returns (step, its arguments as meta DTensors over ``mesh``). The
-    caches are ``cache_dtype``: JAX's bfloat16, or a serving engine's
-    float32 for a record of its own step."""
-    train = shape.kind == "train"
-    params = sharded_model(cfg, mesh, train=train)
-    bsh = input_specs(cfg, shape)
+    """Returns (step, its arguments). The step is a train step (loss,
+    gradients placed as their parameters, AdamW), a prefill or a decode
+    step (``serve_step``: one new token a row against a ``seq_len``
+    cache), as ``shape`` says; MoE layers run LEP planned as the JAX
+    package's plan, with INT8 dispatch, and ``lep`` (keywords of
+    ``make_lep_moe_fn``) over it. The caches are ``cache_dtype``: JAX's bfloat16, or a
+    serving engine's float32 for a record of its own step.
 
+    On ``META`` (the dry run) the arguments are meta DTensors over
+    ``mesh``. On a real ``device`` they hold values: the weights of
+    :func:`sharded_model` (``seed``, ``params``, ``expert_axes`` as
+    there), the inputs of :func:`step_inputs` (``seed``, ``cache_len``),
+    zero AdamW moments and ``opt_cfg`` (default ``OptConfig()``), each
+    placed by the specs as the meta ones are, on the mesh's device; with
+    ``mesh`` None the same step and values as plain tensors on
+    ``device``, the MoE layers through the 1-D LEP at world size 1.
+
+    ``n_micro`` runs the step over that many consecutive groups of the
+    batch's rows: a train step's loss is the mean of the groups'
+    (``microbatched_loss``), a decode step runs one group after another
+    into the same caches. The function is the same; each product runs at
+    a group's row count, as a rank that holds those rows runs it."""
+    train = shape.kind == "train"
+    device = torch.device(device)
+    if mesh is None:
+        from repro_torch.device import check_on
+
+        params = params if params is not None else model_mod.init_params(
+            cfg, seed=seed, device=device)
+        for name, p in params.named_parameters():
+            check_on(device, p, f"weight {name}")
+        place = lambda tree, specs: tree  # noqa: E731
+    else:
+        params = sharded_model(cfg, mesh, train=train, device=device,
+                               seed=seed, params=params,
+                               expert_axes=expert_axes)
+        place = lambda tree, specs: shard_tree(tree, specs, mesh)  # noqa
+    if device.type == "meta":
+        bsh = input_specs(cfg, shape)
+        inputs = dict(bsh)
+        if shape.kind == "decode":
+            inputs["caches"] = model_mod.make_caches(
+                cfg, shape.global_batch, shape.seq_len, cache_dtype, META)
+    else:
+        inputs = step_inputs(cfg, shape, device, seed + 1, cache_dtype,
+                             cache_len)
+    moe_fn = _moe_fn_for(cfg, mesh, serving=not train, lep=lep)
+
+    if shape.kind in ("train", "prefill"):
+        batch = {k: inputs[k] for k in input_specs(cfg, shape)}
+        batch = place(batch, None if mesh is None else
+                      batch_pspecs(cfg, mesh, batch))
     if train:
         from repro_torch.train.loop import make_train_step
         from repro_torch.train.optimizer import OptConfig, OptState
 
-        moe_fn = _moe_fn_for(cfg, mesh, serving=False)
         leaves = list(params.parameters())
         moments = [[torch.zeros_like(p, dtype=torch.float32) for p in leaves]
                    for _ in range(2)]
-        step_count = meta_dtensor((), torch.int32, mesh, ())
+        count = torch.zeros((), dtype=torch.int32, device=device)
+        step_count = count if mesh is None else place(count, ())
         opt = OptState(step_count, *moments)
-        batch = shard_tree(bsh, batch_pspecs(cfg, mesh, bsh), mesh)
-        return make_train_step(cfg, OptConfig(), moe_fn), (params, opt, batch)
+        return (make_train_step(cfg, opt_cfg or OptConfig(), moe_fn,
+                                n_micro=n_micro), (params, opt, batch))
 
     if shape.kind == "prefill":
-        moe_fn = _moe_fn_for(cfg, mesh, serving=True)
-
         def step(params, batch):
             return model_mod.prefill(params, cfg, batch,
                                      capacity=shape.seq_len, moe_fn=moe_fn,
                                      cache_dtype=cache_dtype)
 
-        batch = shard_tree(bsh, batch_pspecs(cfg, mesh, bsh), mesh)
         return step, (params, batch)
 
     # decode: serve_step -- ONE new token against a seq_len cache
-    moe_fn = _moe_fn_for(cfg, mesh, serving=True)
-    caches = model_mod.make_caches(cfg, shape.global_batch, shape.seq_len,
-                                   cache_dtype, META)
-    caches = shard_tree(caches, cache_pspecs(cfg, mesh, caches), mesh)
-    tokens = shard_tree(bsh["tokens"],
-                        batch_pspecs(cfg, mesh, bsh)["tokens"], mesh)
-    cache_len = meta_dtensor(bsh["cache_len"].shape, torch.int32, mesh, ())
+    caches, tokens = inputs["caches"], inputs["tokens"]
+    if mesh is not None:
+        caches = place(caches, cache_pspecs(cfg, mesh, caches))
+        tokens = place(tokens, batch_pspecs(cfg, mesh, {"tokens": tokens})[
+            "tokens"])
+    cache_len = place(inputs["cache_len"], ())
 
     def serve_step(params, tokens, caches, cache_len):
-        return model_mod.decode_step(params, cfg, tokens, caches, cache_len,
-                                     moe_fn)
+        if n_micro == 1:
+            return model_mod.decode_step(params, cfg, tokens, caches,
+                                         cache_len, moe_fn)
+        rows = tokens.shape[0] // n_micro
+        logits = []
+        for i in range(n_micro):
+            group = slice(i * rows, (i + 1) * rows)
+            logits.append(model_mod.decode_step(
+                params, cfg, tokens[group], _rows_of(cfg, caches, group),
+                cache_len[group], moe_fn)[0])
+        return torch.cat(logits), model_mod._with_lengths(cfg, caches,
+                                                          cache_len + 1)
 
     return serve_step, (params, tokens, caches, cache_len)
+
+
+def _rows_of(cfg: ModelConfig, caches: Dict[str, Any], rows: slice):
+    """Views of ``rows`` of every batched leaf of ``make_caches``' tree (a
+    write through them lands in ``caches``)."""
+    def cut(tree, axes):
+        if isinstance(tree, dict):
+            return {k: cut(v, axes[k]) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return type(tree)(*(cut(v, a) for v, a in zip(tree, axes)))
+        return tree if axes is None else tree.narrow(
+            axes, rows.start, rows.stop - rows.start)
+
+    return cut(caches, model_mod.cache_batch_axes(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -414,10 +564,13 @@ class StepCounter(CollectiveCounter):
 
 
 def _measure(cfg: ModelConfig, shape: InputShape, mesh,
-             cache_dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+             cache_dtype: torch.dtype = torch.bfloat16,
+             **step_kw) -> Dict[str, Any]:
+    """Trace the step of :func:`build_step` (``step_kw`` as there) over
+    ``mesh`` on meta tensors and count it (:class:`StepCounter`)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
-    step, args = build_step(cfg, shape, mesh, cache_dtype)
+    step, args = build_step(cfg, shape, mesh, cache_dtype, **step_kw)
     counter = StepCounter(args)
     with counter, implicit_replication():
         out = step(*args)

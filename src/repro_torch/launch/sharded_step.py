@@ -1,0 +1,552 @@
+"""The dry run's sharded steps on real tensors.
+
+``launch/dryrun.py`` traces rank 0's step over DTensors whose blocks are
+meta tensors; :func:`dryrun.build_step` given a device builds the same step
+over blocks that hold values, placed by the same specs. The cases below run
+it at full width on the card -- one rank over NCCL in ``chip_smoke.py``'s
+``sharded-step`` phase, four over a 2 x 2 mesh in
+``scripts/torch_parallel_nccl.py`` -- and at smoke width over gloo in
+``tests/test_torch_sharded_mixers.py``. Each is held to three things:
+
+* the same step unsharded, on plain tensors with the same seeded weights
+  and inputs (the MoE layers through the 1-D LEP at world size 1), run
+  over the row groups the data ranks hold (:func:`reference`):
+  :func:`compare` (a train step's loss, global gradient norm, every
+  parameter and both AdamW moments; a decode step's logits, caches,
+  written rows and greedy tokens), at fixed tolerances;
+* the dry run's record of the same configuration, shape and mesh: the
+  collective bytes by kind that :class:`CollectiveCounter` counts on the
+  executed step (:func:`run_counted`) against those of
+  ``dryrun._measure`` on a fake group (:func:`record_collectives`, in a
+  process of its own: ``python -m repro_torch.launch.sharded_step``);
+* the collectives the backend itself ran, read from a ``torch.profiler``
+  trace of the step (:func:`traced_collectives`), in the counter's
+  convention.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.collectives import CollectiveCounter, zero_counts
+from repro_torch.launch.roofline import COLLECTIVE_OPS
+
+#: cache lengths of a decode case's 8 rows over 2048 slots: 300 and 5 end
+#: inside the first of four sequence blocks, 2048 is a capacity-frozen row
+DECODE_LENS = (971, 846, 300, 479, 2048, 994, 5, 296)
+#: the same at smoke width, over 16 slots
+SMOKE_DECODE_LENS = (3, 16, 9, 12)
+#: a train case's optimizer: no warmup, so the one step moves each weight
+#: by about lr x sign(g), 3e-4, above the tolerance of a leaf's largest;
+#: an epsilon far below any gradient, so that the step is sign-like where
+#: the first moment is clear of 0 (a leaf whose clipped gradients sit near
+#: the default 1e-8, as some of Mamba2's do at full width, moves by
+#: |g| / (|g| + eps) of lr, which rounding then moves too)
+TRAIN_OPT = {"warmup_steps": 1, "eps": 1e-12}
+#: a train step against the unsharded one: the loss and the global
+#: gradient norm (relative), each parameter and both moments (of the
+#: leaf's largest |value|)
+LOSS_RTOL = 1e-5
+STEP_TOL = 2e-4
+#: the relative nudge of a decode reference's float caches that shows how
+#: far rounding alone moves the step (a diagnostic printed beside the
+#: comparison, never a limit)
+NUDGE = 1e-7
+
+
+@dataclasses.dataclass(frozen=True)
+class Case:
+    """A sharded step: ``arch``'s config with ``fields`` replaced at full
+    width (``smoke_fields`` on its smoke variant), a ``kind`` ("train" or
+    "decode") step of ``batch`` rows and ``seq_len`` tokens (a decode
+    step's cache slots), the MoE layers planned as ``lep`` (else the JAX
+    package's plan) with the experts cut over ``expert_axes`` (else the
+    plan's EP axes)."""
+    arch: str
+    fields: Dict[str, Any]
+    kind: str
+    batch: int
+    seq_len: int
+    smoke_batch: int
+    smoke_seq_len: int
+    smoke_fields: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    lep: Optional[Dict[str, Any]] = None
+    expert_axes: Optional[Tuple[str, ...]] = None
+    #: the batch rows whose logits (and greedy tokens) the full-width
+    #: sharded decode step holds (:func:`held_rows`): "all"; "one-block",
+    #: the rows whose cache lies inside one sequence block of the mesh's
+    #: ``model`` axis; "f32", none of the bf16 step's rows, every row of
+    #: the same step run again in float32 (its caches and written rows are
+    #: held in both)
+    logits: str = "all"
+
+
+_F32, _BF16 = {"dtype": "float32"}, {"dtype": "bfloat16"}
+#: capacity factor 8: no token is dropped at any world size, so the
+#: sharded LEP and the 1-D LEP at world size 1 compute the same rows
+_NO_DROP = {"capacity_factor": 8.0}
+_NO_AUX = {"router_aux_loss_coef": 0.0}
+CASES: Dict[str, Case] = {
+    # 4 of 36 layers; plain GQA, the projections through dtensor.linear
+    "train-qwen3": Case("qwen3-8b", {"num_layers": 4, **_F32}, "train",
+                        4, 1024, 4, 16),
+    # 4 of 16 layers; the training LEP plan (INT8 dispatch). The router's
+    # balance loss is weighted 0: under LEP it is the mean over the token
+    # shards of each shard's loss, as JAX's pmean inside shard_map takes
+    # it, which the whole batch's at world size 1 is not
+    "train-olmoe": Case("olmoe-1b-7b", {"num_layers": 4, **_F32, **_NO_DROP,
+                                        **_NO_AUX},
+                        "train", 4, 1024, 4, 16, {**_NO_DROP, **_NO_AUX}),
+    # whole; the SSD scan's forward through mamba2._scan's local_map
+    "train-mamba2": Case("mamba2-780m", _F32, "train", 4, 1024, 4, 64),
+    # chip_smoke's depth cut: 3 dense MLA layers + 1 MoE layer of 256
+    # Its bf16 logits move about as far from the unsharded step's as the
+    # reference's own move with its caches nudged by one part in 1e7 (two
+    # bf16 roundings of 4 layers apart): they are held through the same
+    # step in float32
+    "decode-r1": Case("deepseek-r1", {"num_layers": 4, "first_k_dense": 3,
+                                      **_BF16, **_NO_DROP},
+                      "decode", 8, 2048, 4, 16, _NO_DROP, logits="f32"),
+    # whole; redundancy 2 on full-mesh EP with the experts cut over
+    # "model" alone, as the production mesh cuts OLMoE's 64 experts: each
+    # rank receives the experts its slots lack (a permute). A row whose
+    # cache spans two sequence blocks merges their partial softmaxes, a
+    # rounding that 16 bf16 MoE layers carry past TOL of the logits (as
+    # they carry the reference's caches nudged by one part in 1e7 much
+    # further); the rows inside one block equal the unsharded step's
+    "decode-olmoe": Case("olmoe-1b-7b", {**_BF16, **_NO_DROP}, "decode",
+                         8, 2048, 4, 16, _NO_DROP,
+                         lep={"ep_axes": ("data", "model"), "redundancy": 2,
+                              "ffn_shard_axis": None},
+                         expert_axes=("model",), logits="one-block"),
+}
+
+
+def case_config(name: str, smoke: bool = False,
+                dtype: Optional[str] = None) -> ModelConfig:
+    """Case ``name``'s config (its weights in ``dtype`` where given)."""
+    case = CASES[name]
+    if smoke:
+        cfg = dataclasses.replace(smoke_variant(get_config(case.arch)),
+                                  **case.smoke_fields)
+    else:
+        cfg = dataclasses.replace(get_config(case.arch), **case.fields)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def held_rows(name: str, shape: InputShape, n_model: int
+              ) -> Optional[list]:
+    """The rows of case ``name``'s full-width decode step whose logits
+    :func:`compare` holds (``Case.logits``) over a mesh of ``n_model``
+    ranks on ``model``: None for every row."""
+    case = CASES[name]
+    if case.logits == "all":
+        return None
+    if case.logits == "f32":
+        return []
+    block = shape.seq_len // n_model
+    lens = [min(n, shape.seq_len) for n in DECODE_LENS][:shape.global_batch]
+    return [b for b, n in enumerate(lens)
+            if min(n + 1, shape.seq_len) <= block]
+
+
+def case_shape(name: str, smoke: bool = False,
+               batch: Optional[int] = None,
+               seq_len: Optional[int] = None) -> InputShape:
+    case = CASES[name]
+    return InputShape(name, seq_len or (case.smoke_seq_len if smoke
+                                        else case.seq_len),
+                      batch or (case.smoke_batch if smoke else case.batch),
+                      case.kind)
+
+
+def case_step(name: str, mesh, device, *, smoke: bool = False, seed: int = 0,
+              params=None, cfg: Optional[ModelConfig] = None,
+              shape: Optional[InputShape] = None, n_micro: int = 1):
+    """(cfg, shape, step, its arguments) of case ``name`` over ``mesh``
+    (None: unsharded) on ``device``: ``dryrun.build_step`` with the case's
+    plan, float32 caches as a serving engine keeps them, the decode
+    lengths of DECODE_LENS (SMOKE_DECODE_LENS, or cut to the batch) and
+    ``n_micro`` groups of rows."""
+    from repro_torch.train.optimizer import OptConfig
+
+    case = CASES[name]
+    cfg = cfg or case_config(name, smoke)
+    shape = shape or case_shape(name, smoke)
+    lens = SMOKE_DECODE_LENS if smoke else DECODE_LENS
+    lens = [min(n, shape.seq_len) for n in lens][:shape.global_batch]
+    step, args = dryrun.build_step(
+        cfg, shape, mesh, torch.float32, device=device, seed=seed,
+        params=params, cache_len=lens if case.kind == "decode" else None,
+        lep=case.lep, expert_axes=case.expert_axes,
+        opt_cfg=OptConfig(**TRAIN_OPT), n_micro=n_micro)
+    return cfg, shape, step, args
+
+
+def reference(name: str, device, *, n_micro: int = 1, smoke: bool = False,
+              seed: int = 0, shape: Optional[InputShape] = None,
+              params=None, cfg: Optional[ModelConfig] = None,
+              nudge: float = 0.0) -> Dict[str, torch.Tensor]:
+    """:func:`step_results` (where they are) of case ``name``'s step
+    unsharded on ``device`` over ``n_micro`` groups of rows: as many as
+    the mesh's ``data`` axis has ranks, the same function with each
+    product at a data rank's row count (an INT8 code turns the rounding of
+    a product run at other row counts into more than a tolerance). With
+    ``nudge``, a decode step's float caches are first scaled by 1 + nudge
+    x N(0, 1), element by element (seeded): a rounding of its inputs."""
+    _, shape, step, args = case_step(name, None, device, smoke=smoke,
+                                     seed=seed, params=params, cfg=cfg,
+                                     shape=shape, n_micro=n_micro)
+    if nudge:
+        gen = torch.Generator(device=device).manual_seed(seed + 2)
+        for t in named_leaves(args[2]).values():
+            if t.dtype.is_floating_point:
+                t.mul_(1 + nudge * torch.randn(t.shape, generator=gen,
+                                               device=device))
+    return step_results(shape.kind, step(*args), to=None)
+
+
+def run_counted(step, args) -> Tuple[Any, Dict[str, int]]:
+    """The step's output and the collective bytes by kind (and their
+    count) that this rank issued running it, counted as the dry run
+    counts a traced step."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with CollectiveCounter() as counter, implicit_replication():
+        out = step(*args)
+    return out, dict(counter.counts)
+
+
+def named_leaves(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The tensor leaves of a step's output by path: a ``Model``'s
+    parameters by name, dicts, NamedTuples and sequences."""
+    if isinstance(tree, torch.nn.Module):
+        return {prefix + n: p for n, p in tree.named_parameters()}
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix.rstrip("/"): tree} \
+            if isinstance(tree, torch.Tensor) else {}
+    out = {}
+    for k, v in items:
+        out.update(named_leaves(v, f"{prefix}{k}/"))
+    return out
+
+
+def step_results(kind: str, out: Any, keep: bool = True, to="cpu"
+                 ) -> Dict[str, torch.Tensor]:
+    """What a step is held to, each leaf whole (a DTensor gathered: every
+    rank of its mesh calls this) and moved ``to`` a device (None: where it
+    is), or nothing where not ``keep``: a train step's ``loss`` and
+    ``grad_norm``, every parameter (``param/<name>``) and both moments
+    (``mu/<name>``, ``nu/<name>``) in the parameters' order; a decode
+    step's ``logits``, every float cache buffer (``cache/<path>``) and
+    the rows the step wrote into each latent or K/V buffer
+    (``written/<path>``: at each row's length before the step, where
+    that is inside the buffer)."""
+    def whole(v):
+        v = v.full_tensor() if hasattr(v, "full_tensor") else v
+        return v.detach()
+
+    leaves: Dict[str, Any] = {}
+    if kind == "train":
+        params, opt, metrics = out
+        names = [n for n, _ in params.named_parameters()]
+        leaves = {"loss": metrics["loss"], "grad_norm": metrics["grad_norm"]}
+        leaves.update({f"param/{n}": p for n, p in
+                       params.named_parameters()})
+        for moment, values in (("mu", opt.mu), ("nu", opt.nu)):
+            leaves.update({f"{moment}/{n}": v
+                           for n, v in zip(names, values)})
+    else:
+        logits, caches = out
+        leaves = {"logits": logits}
+        tree = named_leaves(caches)
+        for k, v in tree.items():
+            if not v.dtype.is_floating_point:
+                continue
+            leaves[f"cache/{k}"] = v
+            parent, _, last = k.rpartition("/")
+            length = f"{parent}/length" if parent else "length"
+            if last in ("mla", "k", "v") and length in tree:
+                v = whole(v)
+                rows = [v[:, b, p] for b, p in enumerate(
+                    (whole(tree[length]) - 1).tolist())
+                    if 0 <= p < v.shape[2]]
+                if rows:
+                    leaves[f"written/{k}"] = torch.stack(rows, dim=1)
+    got = {}
+    for k, v in leaves.items():
+        v = whole(v)
+        if keep:
+            got[k] = v if to is None else v.to(to)
+    return got
+
+
+def _err(got: torch.Tensor, want: torch.Tensor,
+         mask: Optional[torch.Tensor] = None) -> float:
+    """max |got - want| (over ``mask``) over max |want|."""
+    return _worst(got, want, mask)[0]
+
+
+def _worst(got: torch.Tensor, want: torch.Tensor,
+           mask: Optional[torch.Tensor] = None) -> Tuple[float, float]:
+    """(max |got - want| over max |want|, |want| there over max |want|),
+    over ``mask``."""
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    got = got.to(want.device)
+    diff = (got.double() - want.double()).abs()
+    ref = want.double().abs()
+    if mask is not None:
+        diff, ref = diff[mask], ref[mask]
+    if not diff.numel():
+        return 0.0, 0.0
+    scale = max(want.double().abs().max().item(), 1e-30)
+    at = diff.flatten().argmax()
+    return diff.flatten()[at].item() / scale, ref.flatten()[at].item() / scale
+
+
+#: the quantities :func:`compare` gates, by kind, with their tolerance
+#: (None: the caller's ``tol``)
+GATED = {"train": {"loss_rel_err": LOSS_RTOL, "grad_norm_rel_err": LOSS_RTOL,
+                   "param_max_err": STEP_TOL, "mu_max_err": STEP_TOL,
+                   "nu_max_err": STEP_TOL},
+         "decode": {"logits_max_err": None, "cache_max_err": None,
+                    "written_max_err": None}}
+
+
+def compare(kind: str, got: Dict[str, torch.Tensor],
+            want: Dict[str, torch.Tensor], tol: float,
+            rows: Optional[Sequence[int]] = None) -> Dict[str, Any]:
+    """``got`` (the sharded step's :func:`step_results`) against ``want``
+    (the unsharded step's, :func:`reference`): the worst divergence of
+    each kind and ``ok``, every quantity at a fixed tolerance. A train
+    step holds its loss and global gradient norm within LOSS_RTOL, both
+    moments within STEP_TOL of each leaf's largest value and each
+    parameter within STEP_TOL where the reference's first moment is clear
+    of 0 (|mu| above STEP_TOL of its largest: with no warmup the step
+    moves a weight by about lr x sign(g), whose sign is either where g is
+    0). A decode step holds its caches and the rows it wrote within
+    ``tol`` of the reference's largest value and, on the batch rows
+    ``rows`` (None: every row; :func:`held_rows`), its logits within
+    ``tol`` of their largest and its greedy tokens equal wherever the
+    reference's top-2 margin exceeds ``tol`` of that largest logit.
+
+    Beside them, for a reader: a train step's leaves past STEP_TOL (at
+    most 8 a part, worst first), each with its error, its largest |value|
+    over the part's largest (``scale``) and the reference's |value| where
+    the error is worst over the leaf's largest (``at``); a decode step's
+    logits error on every row."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"leaves differ: "
+                             f"{sorted(set(got) ^ set(want))[:8]}")
+    row: Dict[str, Any] = {}
+    if kind == "train":
+        rel = lambda k: abs(got[k].item() - want[k].item()) / max(  # noqa
+            abs(want[k].item()), 1e-30)
+        row["loss"], row["loss_ref"] = got["loss"].item(), want["loss"].item()
+        row["loss_rel_err"] = rel("loss")
+        row["grad_norm"] = got["grad_norm"].item()
+        row["grad_norm_rel_err"] = rel("grad_norm")
+        errs = {"param": {}, "mu": {}, "nu": {}}
+        for k in got:
+            part = k.split("/")[0]
+            if part not in errs:
+                continue
+            mask = None
+            if part == "param":
+                mu = want["mu/" + k[len("param/"):]].abs()
+                mask = mu > STEP_TOL * max(mu.max().item(), 1e-30)
+            errs[part][k] = _worst(got[k], want[k], mask)
+        row.update({f"{p}_max_err": max(e[0] for e in errs[p].values())
+                    for p in errs})
+        over = {}
+        for p, e in errs.items():
+            top = max(want[k].abs().max().item() for k in e) or 1e-30
+            worst = sorted(((k, v) for k, v in e.items() if v[0] > STEP_TOL),
+                           key=lambda kv: -kv[1][0])[:8]
+            over[p] = {k: {"err": v[0], "at": v[1],
+                           "scale": want[k].abs().max().item() / top}
+                       for k, v in worst}
+        row["leaves_over"] = over
+    else:
+        n = want["logits"].shape[0]
+        held = list(range(n)) if rows is None else list(rows)
+        row["logits_err_by_row"] = [_err(a, b) for a, b in zip(
+            got["logits"], want["logits"])]
+        row["logits_rows_held"] = held
+        row["logits_max_err"] = _err(got["logits"][held],
+                                     want["logits"][held])
+        ref = want["logits"][held].float()
+        if held:
+            top2 = ref.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > tol * ref.abs().max()
+            same = got["logits"][held].to(ref.device).float().argmax(-1) \
+                == ref.argmax(-1)
+        else:
+            clear = same = torch.zeros(0, dtype=torch.bool)
+        row["cache_max_err"] = max((_err(got[k], want[k]) for k in got
+                                    if k.startswith("cache/")), default=0.0)
+        row["written_max_err"] = max((_err(got[k], want[k]) for k in got
+                                      if k.startswith("written/")),
+                                     default=0.0)
+        row["greedy_checked"] = int(clear.sum())
+        row["greedy_equal"] = bool(same[clear].all())
+    limits = {k: tol if t is None else t for k, t in GATED[kind].items()}
+    row["over"] = [k for k, limit in limits.items() if row[k] > limit]
+    row["ok"] = not row["over"] and row.get("greedy_equal", True)
+    return row
+
+
+def bytes_by_kind(counts: Dict[str, int]) -> Dict[str, int]:
+    return {k: int(counts[k]) for k in COLLECTIVE_OPS}
+
+
+def collective_ms(counts: Dict[str, int]) -> float:
+    """The dry run's computed collective term of these bytes, in ms (the
+    NVLink data-sheet rate, ``launch/roofline.py``)."""
+    from repro_torch.launch.roofline import LINK_BW
+
+    return 1e3 * sum(bytes_by_kind(counts).values()) / LINK_BW
+
+
+def record_collectives(names: Sequence[str], mesh_shape: Dict[str, int],
+                       smoke: bool = False,
+                       shapes: Optional[Dict[str, Tuple[int, int]]] = None
+                       ) -> Dict[str, Dict[str, int]]:
+    """(In a process of its own: it joins a fake process group as rank 0.)
+    The dry run's collective bytes by kind of each case's step over a fake
+    mesh of ``mesh_shape``, traced on meta tensors (``dryrun._measure``
+    with the case's plan); ``shapes`` gives a case's (batch, seq_len)
+    where it is not the case's own."""
+    mesh = dryrun.fake_mesh(mesh_shape)
+    out = {}
+    for name in names:
+        case = CASES[name]
+        b, s = (shapes or {}).get(name, (None, None))
+        rec = dryrun._measure(case_config(name, smoke),
+                              case_shape(name, smoke, b, s), mesh,
+                              torch.float32, lep=case.lep,
+                              expert_axes=case.expert_axes)
+        out[name] = rec["coll"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The collectives a backend ran, from a torch.profiler trace
+# ---------------------------------------------------------------------------
+
+#: element bytes of the dtype names a ``record_param_comms`` event carries
+_DTYPE_BYTES = {"Float": 4, "BFloat16": 2, "Half": 2, "Double": 8,
+                "Char": 1, "Byte": 1, "Bool": 1, "Int": 4, "Long": 8,
+                "Short": 2, "Float8_e4m3fn": 1, "Float8_e5m2": 1}
+#: what a process group records that moves no data of the step: waits,
+#: barriers, the marker that ends a coalesced batch, a communicator's
+#: setup (``init``; ``broadcastUniqueNCCLID``, its id sent through the
+#: store)
+_NO_DATA = ("barrier", "coalesced", "wait", "init", "broadcastuniquencclid",
+            "abort")
+
+
+def _kind_of(name: str) -> Optional[str]:
+    """The kind of ``COLLECTIVE_OPS`` a recorded collective counts under,
+    "" for one that moves no data of the step, None for one unknown."""
+    n = name.lower()
+    if n in _NO_DATA:
+        return ""
+    for kind, words in (("all-reduce", ("allreduce", "all_reduce")),
+                        ("all-gather", ("allgather", "all_gather")),
+                        ("reduce-scatter", ("reduce_scatter",
+                                            "reducescatter")),
+                        ("all-to-all", ("alltoall", "all_to_all")),
+                        ("collective-permute", ("send", "recv"))):
+        if any(w in n for w in words):
+            return kind
+    return None
+
+
+def traced_collectives(trace: Dict[str, Any]) -> Dict[str, Any]:
+    """The collectives of a ``torch.profiler`` Chrome trace (its JSON),
+    from its ``record_param_comms`` events (the process group's own
+    record of each: name, element counts in and out, dtype), in
+    :class:`CollectiveCounter`'s convention: the output bytes on this rank
+    by kind, a run of point-to-point transfers with no other collective
+    between them one permute of the larger of what it sends and what it
+    receives. Also the device time of the backend's kernels (``nccl``
+    in their name) in ms and the names of collectives it cannot place
+    (``unknown``)."""
+    counts = zero_counts()
+    events = sorted((e for e in trace.get("traceEvents", [])
+                     if e.get("name") == "record_param_comms"),
+                    key=lambda e: e.get("ts", 0))
+    sent = received = 0
+    unknown = []
+
+    def flush():
+        nonlocal sent, received
+        counts["collective-permute"] += max(sent, received)
+        sent = received = 0
+
+    for e in events:
+        a = e.get("args", {})
+        name = str(a.get("Collective name", ""))
+        kind = _kind_of(name)
+        size = _DTYPE_BYTES.get(str(a.get("dtype", "")), None)
+        n_in = int(a.get("In msg nelems", 0) or 0)
+        n_out = int(a.get("Out msg nelems", 0) or 0)
+        if kind == "":
+            continue
+        if kind is None or size is None:
+            unknown.append(f"{name} ({a.get('dtype')})")
+            continue
+        if kind == "collective-permute":
+            if "send" in name.lower():
+                sent += n_in * size
+            else:
+                received += n_out * size
+            continue
+        flush()
+        counts[kind] += n_out * size
+        counts["count"] += 1
+    flush()
+    kernel_us = sum(e.get("dur", 0) for e in trace.get("traceEvents", [])
+                    if e.get("cat") == "kernel"
+                    and "nccl" in e.get("name", "").lower())
+    return {"counts": counts, "kernel_ms": kernel_us / 1e3,
+            "unknown": unknown}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="The dry run's collective "
+                                 "bytes of the sharded-step cases, one "
+                                 "JSON line")
+    ap.add_argument("--cases", default=",".join(CASES))
+    ap.add_argument("--mesh", default="2x2", help="data x model")
+    ap.add_argument("--shape", action="append", default=[],
+                    help="case=BxS: a case's batch and length")
+    args = ap.parse_args(argv)
+    n_data, n_model = (int(n) for n in args.mesh.split("x"))
+    shapes = {}
+    for item in args.shape:
+        name, bs = item.split("=")
+        shapes[name] = tuple(int(n) for n in bs.split("x"))
+    print(json.dumps(record_collectives(
+        args.cases.split(","), {"data": n_data, "model": n_model},
+        shapes=shapes)))
+
+
+if __name__ == "__main__":
+    main()

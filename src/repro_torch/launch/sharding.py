@@ -10,9 +10,9 @@ ranks; :func:`to_placements` turns a spec into DTensor placements over a
 real mesh, and :func:`meta_dtensor`, :func:`shard_tree` and
 :func:`shard_model` make meta DTensors (shapes only, no memory) of a
 model's weights, a cache tree and a batch, for the dry run
-(``launch/dryrun.py``); :func:`distribute` (and ``shard_model``, given a
-model whose weights hold values) places real values the same way, for a
-step run over a real mesh.
+(``launch/dryrun.py``); :func:`distribute` (and ``shard_tree`` and
+``shard_model``, given tensors that hold values) places real values the
+same way, for a step run over a real mesh.
 
 Policy:
 * the batch over ``("pod", "data")``; tensor parallelism (heads, FFN
@@ -33,7 +33,7 @@ leading None (the layer axis, never sharded).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,11 +82,18 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def param_pspecs(cfg: ModelConfig, mesh, params_shape: Any,
-                 train: bool = False) -> Any:
+                 train: bool = False,
+                 expert_axes: Optional[Tuple[str, ...]] = None) -> Any:
     """A spec for every leaf of ``params_shape`` (a tree in the JAX layout,
-    leaves with ``.shape``: ``param_shapes(cfg)``), in the same nesting."""
+    leaves with ``.shape``: ``param_shapes(cfg)``), in the same nesting.
+    The routed experts are cut over ``pick_lep_plan``'s EP axes, or over
+    ``expert_axes`` where given (a serving plan with redundancy whose
+    slots span more ranks than the experts are cut over, as on the
+    production mesh)."""
     fsdp = "data" if train else None
     lep = pick_lep_plan(cfg, mesh) if cfg.is_moe else None
+    if lep is not None and expert_axes is not None:
+        lep = dict(lep, ep_axes=tuple(expert_axes))
 
     def attn_spec(name: str, shape) -> Spec:
         d = cfg.d_model
@@ -286,41 +293,55 @@ def distribute(t: torch.Tensor, mesh, entries: Spec):
 
 def shard_tree(tree: Any, specs: Any, mesh) -> Any:
     """Every tensor leaf of ``tree`` (nested dicts and NamedTuples, such as
-    ``make_caches``' tree or a batch) as a meta DTensor placed by the leaf
-    of ``specs`` at the same place."""
+    ``make_caches``' tree or a batch) as a DTensor placed by the leaf of
+    ``specs`` at the same place: a meta DTensor for a meta leaf, else the
+    leaf's values (:func:`distribute`)."""
     if isinstance(tree, dict):
         return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return type(tree)(*(shard_tree(v, s, mesh)
                             for v, s in zip(tree, specs)))
-    return meta_dtensor(tree.shape, tree.dtype, mesh, specs)
+    if tree.is_meta:
+        return meta_dtensor(tree.shape, tree.dtype, mesh, specs)
+    return distribute(tree, mesh, specs)
+
+
+def leaf_specs(model, specs: Any) -> Dict[str, Spec]:
+    """The spec of every weight of ``model`` (a ``Model``) by its name in
+    ``named_parameters``, from :func:`param_pspecs` of the model's tree: a
+    per-layer weight takes its segment's spec without the leading layer
+    None, a hybrid's shared block likewise."""
+    out = {name: specs[name]
+           for name, _ in model.named_parameters(recurse=False)}
+
+    def add(prefix, module, seg):
+        for name, _ in module.named_parameters(recurse=False):
+            out[f"{prefix}.{name}"] = seg[name][1:]
+
+    for seg_name, blocks in model.segments.items():
+        for i, blk in enumerate(blocks):
+            for part, module in blk.named_children():
+                add(f"segments.{seg_name}.{i}.{part}", module,
+                    specs["segments"][seg_name][part])
+    if hasattr(model, "shared_attn"):
+        for part, module in model.shared_attn.named_children():
+            add(f"shared_attn.{part}", module, specs["shared_attn"][part])
+    return out
 
 
 def shard_model(model, mesh, specs: Any):
-    """Replace every weight of ``model`` (a ``Model``), in place, by a
-    DTensor placed by ``specs`` (:func:`param_pspecs` of the model's tree):
-    a meta DTensor for a meta weight, else the weight's values, each rank
-    keeping its block (:func:`distribute`). A per-layer weight takes its
-    segment's spec without the leading layer None, a hybrid's shared block
-    likewise. Returns the model."""
-    def make(p, entries):
-        if p.is_meta:
-            return meta_dtensor(p.shape, p.dtype, mesh, entries)
-        return distribute(p.detach(), mesh, entries)
-
-    def place(module, spec_of):
-        for name, p in list(module.named_parameters(recurse=False)):
-            setattr(module, name, torch.nn.Parameter(
-                make(p, spec_of(name)), requires_grad=p.requires_grad))
-
-    place(model, lambda name: specs[name])
-    for seg_name, blocks in model.segments.items():
-        for blk in blocks:
-            for part, module in blk.named_children():
-                seg = specs["segments"][seg_name][part]
-                place(module, lambda name, seg=seg: seg[name][1:])
-    if hasattr(model, "shared_attn"):
-        for part, module in model.shared_attn.named_children():
-            seg = specs["shared_attn"][part]
-            place(module, lambda name, seg=seg: seg[name][1:])
+    """Replace every weight of ``model`` (a ``Model``), in place and one at
+    a time, by a DTensor placed by ``specs`` (:func:`param_pspecs` of the
+    model's tree; :func:`leaf_specs`): a meta DTensor for a meta weight,
+    else the weight's values, each rank keeping its block
+    (:func:`distribute`), the whole weight dropped before the next is
+    placed. Returns the model."""
+    for name, entries in leaf_specs(model, specs).items():
+        prefix, _, leaf = name.rpartition(".")
+        module = model.get_submodule(prefix)
+        p = getattr(module, leaf)
+        placed = meta_dtensor(p.shape, p.dtype, mesh, entries) if p.is_meta \
+            else distribute(p.detach(), mesh, entries)
+        setattr(module, leaf, torch.nn.Parameter(
+            placed, requires_grad=p.requires_grad))
     return model

@@ -1,7 +1,8 @@
 """Shared building blocks: RMSNorm, RoPE, SwiGLU, initializers."""
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from contextlib import contextmanager
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -61,13 +62,32 @@ def dense_init(shape: Sequence[int], dtype: torch.dtype,
     return w.mul_(scale)
 
 
+#: what :func:`weight` hands each new parameter to, inside :func:`placing`
+_PLACE: Optional[Callable[[torch.nn.Parameter], torch.nn.Parameter]] = None
+
+
+@contextmanager
+def placing(place: Callable[[torch.nn.Parameter], torch.nn.Parameter]):
+    """Inside the block every parameter :func:`weight` makes is handed to
+    ``place`` as soon as it is made, and what ``place`` returns is the
+    module's parameter: a sharded step places each weight and frees its
+    whole copy before the next one is drawn (``launch/dryrun.py``)."""
+    global _PLACE
+    prev, _PLACE = _PLACE, place
+    try:
+        yield
+    finally:
+        _PLACE = prev
+
+
 def weight(shape: Sequence[int], dtype: torch.dtype, device: torch.device,
            generator: Optional[torch.Generator], kind: str = "dense",
            scale: Optional[float] = None) -> torch.nn.Parameter:
     """A frozen parameter: ones for ``kind="ones"`` (norm gains), zeros for
     ``kind="zeros"`` (biases), else :func:`dense_init`. Without a generator
     it is left uninitialized, for a caller that loads weights into it
-    (``repro_torch.convert``)."""
+    (``repro_torch.convert``). Inside :func:`placing` it is what the
+    placing function makes of it."""
     if generator is None:
         t = torch.empty(tuple(shape), dtype=dtype, device=device)
     elif kind == "ones":
@@ -76,4 +96,5 @@ def weight(shape: Sequence[int], dtype: torch.dtype, device: torch.device,
         t = torch.zeros(tuple(shape), dtype=dtype, device=device)
     else:
         t = dense_init(shape, dtype, generator, device, scale)
-    return torch.nn.Parameter(t, requires_grad=False)
+    p = torch.nn.Parameter(t, requires_grad=False)
+    return p if _PLACE is None else _PLACE(p)

@@ -67,6 +67,8 @@ from repro.models import mla as j_mla
 from repro.models import moe as j_moe
 from repro_torch.kernels.mla_attention.ref import (mla_decode_attention_pieces,
                                                    mla_decode_attention_ref)
+from repro_torch.launch import dryrun
+from repro_torch.launch import sharded_step as ss
 from test_torch_lep import _kill_all, _start
 
 TOL = 1e-5
@@ -109,6 +111,21 @@ LINEAR_D = 16
 LINEAR = {"heads": (["data", None, None], [None, "model"], 2),
           "x_cut": ([None, None, "model"], [None, ["data", "model"]], 1),
           "w_rows": ([None, None, None], ["data", "model"], 1)}
+#: the sharded steps of ``launch/sharded_step.py`` at smoke width, each
+#: held against the same step unsharded (float32: decode at 1e-5) and its
+#: collective bytes against the dry run's record
+STEP_CASES = list(ss.CASES)
+REAL_STEP_TOL = 1e-5
+#: the OLMoE + LEP train step held against JAX's on its forced 2 x 2 mesh:
+#: no token dropped, the balance loss at its configured weight
+OLMOE_JAX_FIELDS = {"capacity_factor": 8.0}
+#: its dispatch payloads: INT8 (the training plan's, as
+#: ``test_multidevice.py`` runs it) and unquantized (float32 at smoke width)
+OLMOE_PAYLOADS = {"int8": True, "f32": False}
+#: the INT8 step against JAX's: XLA's fused division rounds some codes the
+#: other way (``test_torch_lep2d.py``), so the loss, the gradient norm and
+#: the moments hold at the INT8 tolerance of that file's gradients
+INT8_TOL = 0.05
 
 PORT_SIDE = textwrap.dedent('''
     import dataclasses, json, sys
@@ -164,9 +181,90 @@ PORT_SIDE = textwrap.dedent('''
                                 world_size=world)
         torch.set_num_threads(1)
         mesh = make_debug_mesh(*shape)
+        plan = json.loads(plan)
         with implicit_replication():     # as the dry run traces a step
-            cases(rank, mesh, inp, outp, json.loads(plan))
+            cases(rank, mesh, inp, outp, plan)
+        steps = {}
+        if plan["real_steps"]:
+            steps = real_steps(rank, mesh, inp, plan)
         dist.destroy_process_group()
+        if plan["real_steps"] and rank == 0:
+            one_rank_and_records(steps, init)
+            arrays = steps.pop("arrays")
+            np.savez(outp.replace(".npz", "_steps.npz"),
+                     rows=np.array(json.dumps(steps)), **arrays)
+
+    def real_steps(rank, mesh, inp, plan):
+        """Every case of ``launch/sharded_step.py`` at smoke width through
+        ``dryrun.build_step`` on real tensors (the seeded weights placed
+        one at a time), counted, against the same step unsharded on rank
+        0; then the OLMoE + LEP train step on JAX's weights and the
+        case's batch, with the balance loss weighted as configured, for
+        JAX's ``make_train_step``."""
+        from repro_torch.launch import sharded_step as ss
+
+        rows = {}
+        for name in ss.CASES:
+            _, shape, step, args = ss.case_step(name, mesh, "cpu",
+                                                smoke=True)
+            out, counts = ss.run_counted(step, args)
+            got = ss.step_results(shape.kind, out, keep=rank == 0)
+            if rank == 0:
+                rows[name] = dict(ss.compare(shape.kind, got, ss.reference(
+                    name, "cpu", n_micro=mesh.size(0), smoke=True),
+                    plan["step_tol"]), counts=counts)
+        from repro_torch.launch import dryrun
+        from repro_torch.train.optimizer import OptConfig
+
+        d = np.load(inp)
+        cfg = dataclasses.replace(smoke_variant(get_config("olmoe-1b-7b")),
+                                  **plan["olmoe_fields"])
+        tree = nest({k[len("olmoe:p:"):]: d[k] for k in d.files
+                     if k.startswith("olmoe:p:")})
+        arrays = {}
+        for payload, quantize in plan["olmoe_payloads"].items():
+            model = params_from_jax_numpy(tree, cfg, "cpu")
+            step, args = dryrun.build_step(
+                cfg, ss.case_shape("train-olmoe", smoke=True), mesh,
+                device="cpu", params=model, lep={"quantize": quantize},
+                opt_cfg=OptConfig(**plan["opt"]))
+            got = ss.step_results("train", ss.run_counted(step, args)[0],
+                                  keep=rank == 0)
+            if rank == 0:
+                names = [n for n, _ in model.named_parameters()]
+                key = f"olmoe:{payload}"
+                for part in ("param", "mu", "nu"):
+                    arrays.update({k: v.numpy() for k, v in as_tree(
+                        [got[f"{part}/{n}"] for n in names], cfg, tree,
+                        f"{key}:{part}").items()})
+                arrays[f"{key}:gnorm"] = got["grad_norm"].numpy()
+                arrays[f"{key}:loss"] = got["loss"].numpy()
+        return {"rows": rows, "arrays": arrays}
+
+    def one_rank_and_records(steps, init):
+        """(Rank 0, its world of 4 gone.) ``decode-r1`` over a 1 x 1 mesh
+        of one gloo rank, counted and against the unsharded step; then the
+        dry run's records of every case on a fake 2 x 2 group and of
+        ``decode-r1`` on a fake 1 x 1 one."""
+        from repro_torch.core import parallel as par
+        from repro_torch.launch import sharded_step as ss
+
+        par._GROUPS.clear()
+        dist.init_process_group("gloo", init_method=init + "_1x1", rank=0,
+                                world_size=1)
+        mesh = make_debug_mesh(1, 1)
+        _, shape, step, args = ss.case_step("decode-r1", mesh, "cpu",
+                                            smoke=True)
+        out, counts = ss.run_counted(step, args)
+        got = ss.step_results(shape.kind, out)
+        steps["one_rank"] = dict(ss.compare(shape.kind, got, ss.reference(
+            "decode-r1", "cpu", smoke=True), 1e-5), counts=counts)
+        dist.destroy_process_group()
+        par._GROUPS.clear()
+        steps["records"] = ss.record_collectives(
+            list(ss.CASES), {"data": 2, "model": 2}, smoke=True)
+        steps["one_rank_record"] = ss.record_collectives(
+            ["decode-r1"], {"data": 1, "model": 1}, smoke=True)["decode-r1"]
 
     def sharded(d, key, arch, fields, mesh):
         """(cfg, JAX's weights under ``key`` as a tree, as a Model placed
@@ -370,7 +468,8 @@ JAX_EXTRA = textwrap.dedent('''
     from repro.train.loop import make_train_step
     from repro.train.optimizer import OptConfig, init_opt_state
     d = np.load(sys.argv[1])
-    kw, steps, opt, shared_ff = (json.loads(a) for a in sys.argv[2:6])
+    kw, steps, opt, shared_ff, olmoe_fields, payloads = (
+        json.loads(a) for a in sys.argv[2:8])
     out = {}
 
     def smoke(arch, **fields):
@@ -415,6 +514,23 @@ JAX_EXTRA = textwrap.dedent('''
             nest("lep_shared:"), jnp.asarray(d["lep_shared_x"]))
     out["lep_shared"], out["lep_shared:grad:x"] = np.asarray(o), np.asarray(gx)
     out.update({f"lep_shared:grad:{k}": v for k, v in flat(gp).items()})
+    cfg = smoke("olmoe-1b-7b", **olmoe_fields)
+    params = nest("olmoe:p:")
+    batch = {k: jnp.asarray(d[f"olmoe:{k}"]) for k in ("tokens", "labels")}
+    for payload, quantize in payloads.items():
+        fn = make_lep_moe_fn(mesh, **pick_lep_plan(cfg, mesh),
+                             quantize=quantize)
+        with mesh:
+            new, state, metrics = jax.jit(make_train_step(
+                cfg, OptConfig(**opt), fn))(params, init_opt_state(params),
+                                            batch)
+        key = f"olmoe:{payload}"
+        out[f"{key}:gnorm"], out[f"{key}:loss"] = (
+            np.asarray(metrics[k]) for k in ("grad_norm", "loss"))
+        for name, tree in (("param", new), ("mu", state.mu),
+                           ("nu", state.nu)):
+            out.update({f"{key}:{name}:{k}": v
+                        for k, v in flat(tree).items()})
     for case, (arch, fields) in steps.items():
         cfg = smoke(arch, **fields)
         params = nest(f"step:{case}:p:")
@@ -427,7 +543,7 @@ JAX_EXTRA = textwrap.dedent('''
                            ("nu", state.nu)):
             out.update({f"step:{case}:{name}:{k}": v
                         for k, v in flat(tree).items()})
-    np.savez(sys.argv[6], **out)
+    np.savez(sys.argv[8], **out)
 ''')
 
 
@@ -504,6 +620,15 @@ def inputs():
     d["lep_shared_cot"] = f(LEP_SHARED_TOKENS, r1moe.d_model)
     d.update(lin_x=f(B, S_PREFILL, LINEAR_D), lin_wq=f(LINEAR_D, 16),
              lin_wk=f(LINEAR_D, 8), lin_wv=f(LINEAR_D, 8))
+    olmoe = _smoke("olmoe-1b-7b", **OLMOE_JAX_FIELDS)
+    params = jax.jit(j_init_params, static_argnums=(1,))(
+        jax.random.PRNGKey(2), olmoe)
+    d.update({f"olmoe:p:{k}": v for k, v in _flat(params).items()})
+    # the batch build_step draws for the case (seed 0: its inputs from 1)
+    batch = dryrun.step_inputs(ss.case_config("train-olmoe", smoke=True),
+                               ss.case_shape("train-olmoe", smoke=True),
+                               "cpu", seed=1)
+    d.update({f"olmoe:{k}": v.numpy() for k, v in batch.items()})
     return d
 
 
@@ -528,13 +653,18 @@ def sides(inputs, tmp_path_factory):
                         if name in meshes},
                     "opt": STEP_OPT, "shared_ff": LEP_SHARED_FF,
                     "lep": LEP_KW if name == "2x2" else None,
-                    "linear": LINEAR if name == "2x2" else {}})])
+                    "linear": LINEAR if name == "2x2" else {},
+                    "real_steps": name == "2x2", "step_tol": REAL_STEP_TOL,
+                    "olmoe_fields": OLMOE_JAX_FIELDS,
+                    "olmoe_payloads": OLMOE_PAYLOADS})])
         for name, shape in MESHES.items()}
     procs["jax_extra"] = _start(tmp / "jax_extra.py", [
         str(tmp / "in.npz"), json.dumps(LEP_KW),
         json.dumps({case: step[:2] for case, step in STEP.items()}),
         json.dumps(STEP_OPT), json.dumps(LEP_SHARED_FF),
-        str(tmp / "jax_extra.npz")], xla_devices=4)
+        json.dumps(OLMOE_JAX_FIELDS), json.dumps(OLMOE_PAYLOADS),
+        str(tmp / "jax_extra.npz")],
+        xla_devices=4)
     try:
         want = _jax_side(inputs)
         for proc in procs.values():
@@ -544,7 +674,11 @@ def sides(inputs, tmp_path_factory):
     finally:
         _kill_all(list(procs.values()))
     want.update(np.load(tmp / "jax_extra.npz"))
-    return {name: dict(np.load(tmp / f"{name}.npz")) for name in MESHES}, want
+    ports = {name: dict(np.load(tmp / f"{name}.npz")) for name in MESHES}
+    steps = dict(np.load(tmp / "2x2_steps.npz"))
+    ports["steps"] = json.loads(str(steps.pop("rows")))
+    ports["2x2"].update(steps)
+    return ports, want
 
 
 def _jax_side(inputs):
@@ -703,6 +837,186 @@ def test_sharded_linear_heads_matches_numpy(sides, inputs, layout):
         if n != "q":
             want = np.concatenate([want] * rep, axis=-1)
         _close(got[f"linear:{layout}:{n}"], want)
+
+
+@pytest.mark.parametrize("case", STEP_CASES)
+def test_sharded_step_matches_unsharded(sides, case):
+    """``dryrun.build_step`` on real tensors at 2 x 2 (every weight drawn
+    from the seed and placed one at a time, caches and batch placed by
+    the specs) against the same step on plain tensors, the MoE layers
+    through the 1-D LEP at world size 1: a train step's loss and global
+    gradient norm within 1e-5, each parameter and both moments within 2e-4
+    of the leaf's largest; a decode step's logits and caches within 1e-5
+    of the largest, greedy tokens equal where the top-2 margin is clear
+    (``sharded_step.compare``)."""
+    ports, _ = sides
+    row = ports["steps"]["rows"][case]
+    assert row["ok"], row
+    if ss.CASES[case].kind == "decode":
+        assert row["greedy_checked"] > 0, row
+
+
+@pytest.mark.parametrize("case", STEP_CASES)
+def test_sharded_step_collectives_equal_record(sides, case):
+    """The collective bytes by kind (and their count) that
+    ``CollectiveCounter`` sees on rank 0 of the executed 2 x 2 step equal
+    the dry run's record of the same case on a fake 2 x 2 group
+    (``dryrun._measure``), byte for byte."""
+    ports, _ = sides
+    counts = ports["steps"]["rows"][case]["counts"]
+    assert counts == ports["steps"]["records"][case]
+    assert counts["count"] > 0
+
+
+def test_sharded_step_one_rank_counts_nothing(sides):
+    """``decode-r1`` over a 1 x 1 mesh of one gloo rank: equal to the
+    unsharded step, no collective counted, as the 1 x 1 record reads."""
+    ports, _ = sides
+    row = ports["steps"]["one_rank"]
+    assert row["ok"], row
+    assert not any(row["counts"].values())
+    assert row["counts"] == ports["steps"]["one_rank_record"]
+
+
+@pytest.mark.parametrize("payload", list(OLMOE_PAYLOADS))
+def test_sharded_olmoe_lep_train_step_matches_jax(sides, payload):
+    """The OLMoE + LEP train step at 2 x 2 through ``build_step`` (JAX's
+    weights, the training LEP plan, the balance loss at its configured
+    weight) against JAX's ``make_train_step`` with JAX's LEP on a forced
+    4-device 2 x 2 mesh, as ``test_multidevice.py`` runs it. Unquantized:
+    the loss and the global gradient norm within 1e-5, every parameter
+    within 2e-4 of the leaf's largest where the first moment is clear of
+    0, both moments within 2e-4. INT8: the loss and gradient norm within
+    INT8_TOL relative, the moments within INT8_TOL of each leaf's largest,
+    the parameters (moved by about lr x sign(g)) within 2e-4 where the
+    first moment is clear of INT8_TOL of its largest."""
+    ports, want = sides
+    got = ports["2x2"]
+    key = f"olmoe:{payload}"
+    tol, rtol = (STEP_TOL, LOSS_RTOL) if payload == "f32" else \
+        (INT8_TOL, INT8_TOL)
+    for k in ("loss", "gnorm"):
+        np.testing.assert_allclose(got[f"{key}:{k}"], want[f"{key}:{k}"],
+                                   rtol=rtol)
+    parts = tuple(f"{key}:{p}:" for p in ("param", "mu", "nu"))
+    keys = sorted(k for k in want if k.startswith(parts))
+    assert keys and keys == sorted(k for k in got if k.startswith(parts))
+    for k in keys:
+        if ":param:" not in k:
+            _close(got[k], want[k], tol)
+            continue
+        mu = want[k.replace(":param:", ":mu:")]
+        clear = np.abs(mu) > tol * max(float(np.abs(mu).max()), 1e-30)
+        scale = max(float(np.abs(want[k]).max()), 1e-30)
+        err = float(np.abs(got[k] - want[k])[clear].max(initial=0.0))
+        assert err <= STEP_TOL * scale, (k, err, scale)
+
+
+@pytest.mark.parametrize("route", ["grad_sum", "all_reduce",
+                                   "sum_replicated", "max_replicated"])
+def test_reductions_hand_contiguous_buffers(monkeypatch, route):
+    """NCCL reduces contiguous buffers only, where gloo takes any: the 2 x 2
+    ``train-qwen3`` step over NCCL raised "Tensors must be contiguous" on
+    a weight's gradient that reached a backward's all-reduce as a
+    transposed view. Every all-reduce of ``core/parallel`` hands the
+    collective a contiguous buffer, forward and backward."""
+    from repro_torch.core import parallel as par
+
+    seen = []
+    monkeypatch.setattr(par.dist, "all_reduce", lambda t, op=None, group=None:
+                        seen.append(t.is_contiguous()))
+    group = object()                     # the collective is stubbed
+    x = torch.randn(6, 4).t()            # a transposed view
+    if route == "grad_sum":
+        w = torch.zeros(4, 6, requires_grad=True)
+        torch.autograd.grad(par.grad_sum(w, group), w, grad_outputs=x)
+    else:
+        getattr(par, route)(x, group)
+    assert seen == [True]
+
+
+@pytest.mark.parametrize("what", ["train_leaf", "decode_held_row",
+                                  "decode_unheld_row"])
+def test_compare_gates_at_fixed_tolerances(what):
+    """``sharded_step.compare`` holds every quantity at its fixed
+    tolerance, whatever the reference's disagreement with itself: a moment
+    3e-4 of its leaf's largest off fails the train step (STEP_TOL 2e-4),
+    and names the leaf; a decode step's logits row off by half the
+    largest logit fails where the row is held and is only reported where
+    it is not, its caches and written rows held on every row."""
+    gen = torch.Generator().manual_seed(0)
+    if what == "train_leaf":
+        want = {"loss": torch.tensor(2.0), "grad_norm": torch.tensor(1.0)}
+        for part in ("param", "mu", "nu"):
+            want.update({f"{part}/a": torch.randn(8, 4, generator=gen),
+                         f"{part}/b": torch.randn(16, generator=gen)})
+        got = {k: v.clone() for k, v in want.items()}
+        got["mu/b"][3] += 3e-4 * want["mu/b"].abs().max()
+        row = ss.compare("train", got, want, 0.02)
+        assert row["over"] == ["mu_max_err"], row
+        assert list(row["leaves_over"]["mu"]) == ["mu/b"], row
+        assert not row["ok"]
+        return
+    logits = torch.randn(4, 32, generator=gen)
+    want = {"logits": logits, "cache/x": torch.randn(2, 4, generator=gen),
+            "written/x": torch.randn(2, 4, generator=gen)}
+    got = {k: v.clone() for k, v in want.items()}
+    got["logits"][2] += 0.5 * logits.abs().max()
+    rows = [0, 1, 2, 3] if what == "decode_held_row" else [0, 1, 3]
+    row = ss.compare("decode", got, want, 0.02, rows)
+    assert row["logits_err_by_row"][2] > 0.02
+    assert row["ok"] == (what == "decode_unheld_row"), row
+    got["cache/x"][1, 1] += 1.0
+    assert ss.compare("decode", got, want, 0.02, [0])["over"] == \
+        ["cache_max_err"]
+
+
+def test_held_rows_of_the_decode_cases():
+    """The rows whose logits the full-width decode cases hold at 2 x 2:
+    ``decode-olmoe`` those whose cache (the new token's slot included)
+    lies inside the first of two sequence blocks of 1024, so all but the
+    capacity-frozen row; ``decode-r1`` none of the bf16 step's (its float32
+    step holds every row); the train cases every row (None)."""
+    held = {name: ss.held_rows(name, ss.case_shape(name), 2)
+            for name in ss.CASES}
+    assert held["decode-olmoe"] == [0, 1, 2, 3, 5, 6, 7]
+    assert held["decode-r1"] == []
+    assert all(held[n] is None for n in ss.CASES if n.startswith("train"))
+
+
+class _Mesh:
+    """A mesh's device type and shape, as far as the specs read them."""
+
+    def __init__(self, device_type):
+        self.device_type = device_type
+        self.mesh_dim_names = ("data", "model")
+        self.mesh = torch.zeros(1, 1)
+
+
+@pytest.mark.parametrize("what", ["unsharded", "cpu_mesh", "cpu_weights"])
+def test_build_step_on_cuda_raises_without_card(what):
+    """A real step asked for ``cuda`` on a machine without a card raises
+    (no fallback to the CPU), as does a mesh on another device than its
+    weights'."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.configs.base import InputShape
+    from repro_torch.models import init_params
+
+    cfg = smoke_variant(get_config("qwen3-8b"))
+    shape = InputShape("t", 16, 4, "train")
+    if what == "unsharded":
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            dryrun.build_step(cfg, shape, None, device="cuda")
+    elif what == "cpu_mesh":
+        with pytest.raises(ValueError, match="the weights live on cuda, "
+                           "the mesh on cpu"):
+            dryrun.build_step(cfg, shape, _Mesh("cpu"), device="cuda")
+    else:
+        params = init_params(cfg, device="cpu")
+        with pytest.raises(ValueError, match="live on cpu, the mesh on "
+                           "cuda"):
+            dryrun.build_step(cfg, shape, _Mesh("cuda"), device="cpu",
+                              params=params)
 
 
 def _lse_inputs(lens, s=24, seed=0):
