@@ -114,13 +114,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 8c'''. sharded-step: over the same mesh, before R1's weights are freed,
    the dry run's sharded steps on real tensors (``launch/sharded_step.py``:
    ``decode-r1``, the served cut's decode step over f32 caches of 8 x
-   2048, and ``train-mamba2``, Mamba2-780m whole in f32 at B = 2, S =
-   512) through ``dryrun.build_step`` on the card, every weight drawn from
-   the seed and placed one at a time (R1's bit-equal to the serve's): the
-   kernels launched on the DTensor path (4 MLA and 1 dispatch-quantize,
-   48 SSD scans), each step against the same step unsharded on the card,
-   and the collective bytes the counter sees (0, equal to the dry run's
-   1 x 1 record of the same case, traced in a process of its own).
+   2048; ``prefill-r1-a2a``, the served cut's prefill of B = 2, S = 512
+   with every MLA layer through the §4.3.1 hybrid; ``train-mamba2``,
+   Mamba2-780m whole in f32, and ``prefill-mamba2``, the same in bf16,
+   at B = 2, S = 512) through ``dryrun.build_step`` on the card, every
+   weight drawn from the seed and placed one at a time (R1's bit-equal
+   to the serve's): the kernels launched on the DTensor path (4 MLA and
+   1 dispatch-quantize; 1 dispatch-quantize; 48 SSD scans; 48), each
+   step against the same step unsharded on the card (the hybrid against
+   the plain prefill), and the collective bytes the counter sees (0,
+   equal to the dry run's 1 x 1 record of the same case, traced in a
+   process of its own).
 8c''. kimi-lep-agree, serve-kimi, serve-kimi-tokens: with R1's weights
    freed, Kimi K2 at its widths (d_model 7168, 64 heads over 8 KV heads,
    384 experts top-8 of d_ff 2048, 1 shared expert, vocab 163840) cut to
@@ -708,17 +712,28 @@ EXAMPLES = (("torch_quickstart", "examples/torch_quickstart.py", []),
              ["--steps", str(EXAMPLE_TRAIN_STEPS)]),
             ("torch_dev_smoke", "scripts/torch_dev_smoke.py", []))
 DRYRUN_TIMEOUT_S = 300
-#: sharded-step: train-mamba2's (B, S) on one card; the decode case's
-#: tolerance of the reference's largest value (bf16 weights, as TOL of
-#: ``scripts/torch_parallel_nccl.py``); the launches each case's step must
-#: make on the DTensor path (R1's cut: 4 MLA layers, 1 MoE layer; Mamba2:
-#: one SSD scan a layer, the backward plain)
+#: sharded-step: the (B, S) of the train and prefill cases on one card;
+#: the decode and prefill cases' tolerance of the reference's largest
+#: value (bf16 weights, as TOL of ``scripts/torch_parallel_nccl.py``); the
+#: launches each case's step must make on the DTensor path (R1's cut: 4
+#: MLA layers, 1 MoE layer, its prefill's MLA plain PyTorch; Mamba2: one
+#: SSD scan a layer, the backward plain), the cases in their order
 SHARDED_TRAIN_SHAPE = (2, 512)
 SHARDED_DECODE_TOL = 0.02
 SHARDED_LAUNCHES = {"decode-r1": {"mla_attention": 4, "dispatch_quant": 1,
                                   "int8_gemm": 0, "ssd_scan": 0},
+                    "prefill-r1-a2a": {"mla_attention": 0,
+                                       "dispatch_quant": 1, "int8_gemm": 0,
+                                       "ssd_scan": 0},
                     "train-mamba2": {"mla_attention": 0, "dispatch_quant": 0,
-                                     "int8_gemm": 0, "ssd_scan": 48}}
+                                     "int8_gemm": 0, "ssd_scan": 48},
+                    "prefill-mamba2": {"mla_attention": 0,
+                                       "dispatch_quant": 0, "int8_gemm": 0,
+                                       "ssd_scan": 48}}
+#: the cases run at SHARDED_TRAIN_SHAPE (decode-r1 at its own)
+SHARDED_REDUCED = ("prefill-r1-a2a", "train-mamba2", "prefill-mamba2")
+#: the cases whose weights are the R1 serve's
+SHARDED_SERVE_WEIGHTS = ("decode-r1", "prefill-r1-a2a")
 SPILL_GATED = ("int8_gemm", "mla_decode_attention", "dispatch_quant")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 
@@ -3377,18 +3392,22 @@ def one_rank_mesh(torch, dev="cuda"):
 
 def sharded_step_phase(torch, params, mesh, dev="cuda") -> list:
     """The dry run's sharded steps on real tensors over the 1 x 1 NCCL
-    mesh (``launch/sharded_step.py``'s ``decode-r1`` and ``train-mamba2``
-    at SHARDED_TRAIN_SHAPE), each through ``dryrun.build_step`` on the
-    card with its weights drawn from SEED and placed one at a time: the
+    mesh (``launch/sharded_step.py``'s ``decode-r1``, then
+    ``prefill-r1-a2a`` -- R1's prefill with every MLA layer through the
+    §4.3.1 hybrid --, ``train-mamba2`` and ``prefill-mamba2`` at
+    SHARDED_TRAIN_SHAPE), each through ``dryrun.build_step`` on the card
+    with its weights drawn from SEED and placed one at a time: the
     kernels' launches on the DTensor path (counts set to 0 just before the
     step and read just after: MLA once and dispatch-quantize once a layer
     of theirs, 48 SSD scans), the collective bytes the counter sees (0,
     equal to the dry run's 1 x 1 record of the same case, traced in a
     process of its own while the steps run), and the step against the same
-    step unsharded on the card (``sharded_step.compare``: decode within
-    SHARDED_DECODE_TOL, the train step at its tolerances). R1's sharded
-    weights must equal the serve's ``params`` bit for bit, which are its
-    reference's. Returns one row per case."""
+    step unsharded on the card (``sharded_step.compare``: decode and
+    prefill within SHARDED_DECODE_TOL, the hybrid against the plain
+    prefill; the train step at its tolerances). R1's sharded weights must
+    equal the serve's ``params`` bit for bit, which are its reference's;
+    the hybrid case's step raises unless each of its 4 MLA layers entered
+    the hybrid (``dryrun.hybrid_prefill``). Returns one row per case."""
     from repro_torch.launch import sharded_step as ss
 
     def sync():
@@ -3398,15 +3417,15 @@ def sharded_step_phase(torch, params, mesh, dev="cuda") -> list:
     b, s = SHARDED_TRAIN_SHAPE
     records = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.sharded_step", "--cases",
-         "decode-r1,train-mamba2", "--mesh", "1x1", "--shape",
-         f"train-mamba2={b}x{s}"], cwd=HERE,
+         ",".join(SHARDED_LAUNCHES), "--mesh", "1x1",
+         *(f"--shape={name}={b}x{s}" for name in SHARDED_REDUCED)], cwd=HERE,
         env={**os.environ, "PYTHONPATH": str(SRC)}, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     rows = []
     try:
-        for name, shape in (("decode-r1", None),
-                            ("train-mamba2", ss.case_shape(
-                                "train-mamba2", batch=b, seq_len=s))):
+        for name in SHARDED_LAUNCHES:
+            shape = ss.case_shape(name, batch=b, seq_len=s) \
+                if name in SHARDED_REDUCED else None
             t0 = time.perf_counter()
             _, shape, step, args = ss.case_step(name, mesh, dev, seed=SEED,
                                                 shape=shape)
@@ -3414,7 +3433,7 @@ def sharded_step_phase(torch, params, mesh, dev="cuda") -> list:
             build_s = time.perf_counter() - t0
             row = {"case": name, "mesh": "1x1", "B": shape.global_batch,
                    "S": shape.seq_len}
-            if name == "decode-r1":
+            if name in SHARDED_SERVE_WEIGHTS:
                 row["weights_equal_serve"] = all(
                     torch.equal(w.to_local(), p) for w, p in
                     zip(args[0].parameters(), params.parameters()))
@@ -3429,8 +3448,8 @@ def sharded_step_phase(torch, params, mesh, dev="cuda") -> list:
             free_model(torch)
             t0 = time.perf_counter()
             want = ss.reference(name, dev, seed=SEED, shape=shape,
-                                params=params if name == "decode-r1"
-                                else None)
+                                params=params if name in
+                                SHARDED_SERVE_WEIGHTS else None)
             sync()
             row.update(ss.compare(shape.kind, got, want, SHARDED_DECODE_TOL))
             row.update(counter_bytes=ss.bytes_by_kind(counts),
@@ -3464,26 +3483,22 @@ def sharded_step_phase(torch, params, mesh, dev="cuda") -> list:
 @contextlib.contextmanager
 def hybrid_mode(mesh, mode):
     """Within the block ``REPRO_MLA_HYBRID`` is ``mode`` ("" for the plain
-    prefill) and ``mesh`` is current; yields the list that each call of
-    ``mla_prefill_hybrid`` (one MLA layer) appends to."""
+    prefill) and ``mesh`` is current; yields a list that holds, after the
+    block, the o-proj mode of each MLA layer run through
+    ``mla_prefill_hybrid`` (``hybrid_parallel.CALLS``)."""
     import os
     from repro_torch.core import hybrid_parallel
     from repro_torch.core.parallel import mesh_context
 
-    calls, real = [], hybrid_parallel.mla_prefill_hybrid
-
-    def counted(*a, **kw):
-        calls.append(kw.get("oproj_mode"))
-        return real(*a, **kw)
-
-    hybrid_parallel.mla_prefill_hybrid = counted
+    calls, before = [], dict(hybrid_parallel.CALLS)
     os.environ["REPRO_MLA_HYBRID"] = mode
     try:
         with mesh_context(mesh):
             yield calls
     finally:
         os.environ.pop("REPRO_MLA_HYBRID", None)
-        hybrid_parallel.mla_prefill_hybrid = real
+        for m, n in hybrid_parallel.CALLS.items():
+            calls += [m] * (n - before[m])
 
 
 def hybrid_prefill_phase(torch, cfg, params, mesh, dev="cuda"):

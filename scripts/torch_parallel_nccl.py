@@ -9,7 +9,7 @@ Four ranks, one card each, over a 2 x 2 ``("data", "model")`` mesh
 (``launch.mesh.make_debug_mesh``; a file rendezvous in a temporary
 directory). ``--cases`` takes any of ``lep``, ``hybrid``, ``decode-seq``
 and the sharded steps of ``launch/sharded_step.py``'s ``CASES``
-(default: all eight, in this order):
+(default: all of them, in this order):
 
 1. lep: Kimi K2's MoE layer at its widths (384 experts top-8 of d_ff 2048,
    d_model 7168, one shared expert; bf16; the same seeded weights on every
@@ -38,22 +38,29 @@ and the sharded steps of ``launch/sharded_step.py``'s ``CASES``
    the kernel once; ms of both.
 
 4. The dry run's sharded steps (``train-qwen3``, ``train-olmoe``,
-   ``train-mamba2``, ``decode-r1``, ``decode-olmoe``; their configs, depth
-   cuts and shapes in ``launch/sharded_step.py``'s ``CASES``) on real CUDA
-   tensors: ``dryrun.build_step`` on the card, every weight drawn from the
-   seed and placed by the specs one at a time, caches and batch placed as
-   the dry run places its meta tensors, TF32 off. Each is held against
-   the same step unsharded on rank 0's card, run over the row groups the
-   data ranks hold, at fixed tolerances (``sharded_step.compare``: a train
+   ``train-mamba2``, ``decode-r1``, ``decode-olmoe``, ``prefill-r1``,
+   ``prefill-r1-a2a``, ``prefill-r1-rs``, ``prefill-qwen3``,
+   ``prefill-mamba2``; their configs, depth cuts, shapes and hybrid modes
+   in ``launch/sharded_step.py``'s ``CASES``) on real CUDA tensors:
+   ``dryrun.build_step`` on the card, every weight drawn from the seed and
+   placed by the specs one at a time, caches and batch placed as the dry
+   run places its meta tensors, TF32 off. Each is held against the same
+   step unsharded on rank 0's card, run over the row groups the data
+   ranks hold, at fixed tolerances (``sharded_step.compare``: a train
    step's loss and global gradient norm within 1e-5, each parameter and
-   both moments within 2e-4 of the leaf's largest; a decode step's caches
-   and written rows within TOL, and on the rows ``Case.logits`` names its
+   both moments within 2e-4 of the leaf's largest -- for ``train-qwen3``
+   and ``train-mamba2``, which carry no INT8 payload, no further from the
+   same step in float64 on rank 0's host (``sharded_step.truth``) than
+   the unsharded step plus 2e-4, its time and the process's peak RSS
+   beside it --; a prefill or decode step's caches (and a decode step's
+   written rows) within TOL, and on the rows ``Case.logits`` names its
    logits within TOL and its greedy tokens equal where the top-2 margin
-   exceeds it; ``decode-r1``'s logits through the same step run again
-   with float32 weights, every row within TOL). Printed beside it, never
-   a limit: that reference against itself evaluated otherwise (``floor``:
-   a train step over the whole batch, a decode step with its caches
-   nudged by one part in 1e7), how far rounding alone moves it. And
+   exceeds it; ``decode-r1``'s and the prefills' logits through the same
+   step run again with float32 weights, every row within TOL). Printed
+   beside it, never a limit: that reference against itself evaluated
+   otherwise (``floor``: a train or prefill step over the whole batch, a
+   decode step with its caches nudged by one part in 1e7), how far
+   rounding alone moves it. And
    its collective bytes by kind on rank 0
    (``CollectiveCounter``) against the dry run's record of the same case
    on a fake 2 x 2 group (``python -m repro_torch.launch.sharded_step``,
@@ -79,6 +86,7 @@ import dataclasses
 import gc
 import json
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -156,20 +164,27 @@ def run(rank, init, out_path, cases, trace_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # The other ranks wait at a barrier while rank 0 runs a train case's
+    # float64 step on its host.
     dist.init_process_group("nccl", init_method=init, rank=rank,
-                            world_size=WORLD, timeout=timedelta(seconds=300))
+                            world_size=WORLD, timeout=timedelta(seconds=900))
     mesh = make_debug_mesh(N_DATA, N_MODEL, "cuda")
-    lines = []
+
+    def keep(rows):
+        # Rank 0's rows go out as they come, so a later case's failure
+        # leaves the earlier ones.
+        if rank == 0:
+            with open(out_path, "a") as f:
+                f.writelines(json.dumps(r) + "\n" for r in rows)
+
     if "lep" in cases:
-        lines += lep_rows(torch, dist, rank, mesh)
+        keep(lep_rows(torch, dist, rank, mesh))
     if "hybrid" in cases or "decode-seq" in cases:
-        lines += mla_rows(torch, dist, rank, mesh, cases)
+        keep(mla_rows(torch, dist, rank, mesh, cases))
     for name in cases:
         if name not in LAYER_CASES:
-            lines.append(sharded_step_row(torch, dist, rank, mesh, name,
-                                          trace_dir))
-    if rank == 0:
-        Path(out_path).write_text("\n".join(json.dumps(r) for r in lines))
+            keep([sharded_step_row(torch, dist, rank, mesh, name,
+                                   trace_dir)])
     dist.destroy_process_group()
 
 
@@ -407,26 +422,50 @@ def sharded_step_row(torch, dist, rank, mesh, name, trace_dir):
 def reference_row(torch, ss, name, shape, got):
     """(Rank 0.) ``got`` against the step unsharded on this card over the
     data ranks' row groups (``sharded_step.compare`` on the case's held
-    rows); beside it, as ``floor``, that reference against itself
-    evaluated otherwise -- a train step over the whole batch in one group,
-    a decode step with its caches nudged by ``sharded_step.NUDGE``."""
+    rows; a train case marked ``f64`` also against that step in float64
+    on the host, ``sharded_step.truth``, with its seconds and the
+    process's peak RSS before and after it); beside it, as ``floor``,
+    that reference against itself evaluated otherwise -- a train step or a
+    prefill over the whole batch in one group, a decode step with its
+    caches nudged by ``sharded_step.NUDGE`` -- and, given the truth, by
+    the same float64 gate."""
     kind = shape.kind
     # The floor's results wait on the host, so that one reference at a
     # time holds the card (a train step's state and activations).
     other = {k: v.cpu() for k, v in ss.reference(
         name, "cuda", seed=SEED,
-        **({"n_micro": 1} if kind == "train" else
-           {"n_micro": N_DATA, "nudge": ss.NUDGE})).items()}
+        **({"n_micro": N_DATA, "nudge": ss.NUDGE} if kind == "decode"
+           else {"n_micro": 1})).items()}
     free(torch)
     want = ss.reference(name, "cuda", n_micro=N_DATA, seed=SEED)
-    rows = ss.held_rows(name, shape, N_MODEL) if kind == "decode" else None
-    row = ss.compare(kind, got, want, TOL, rows)
-    floor = ss.compare(kind, other, want, TOL, rows)
-    row["floor"] = {k: floor[k] for k in (*ss.GATED[kind], "leaves_over",
-                                          "logits_err_by_row") if k in floor}
-    del want, other
+    truth, f64 = None, {}
+    if ss.CASES[name].f64:
+        f64["rss_peak_gib_before"] = peak_rss_gib()
+        t0 = time.perf_counter()
+        truth = ss.truth(name, "cuda", n_micro=N_DATA, seed=SEED)
+        f64.update(truth_s=time.perf_counter() - t0,
+                   rss_peak_gib_after=peak_rss_gib(),
+                   threads=torch.get_num_threads())
+        free(torch)
+    rows = ss.held_rows(name, shape, N_MODEL) if kind != "train" else None
+    row = ss.compare(kind, got, want, TOL, rows, truth=truth)
+    if truth is not None:
+        row["f64"].update(f64)
+    # Given the truth, the floor is held by the same float64 gate: how far
+    # another float32 rounding of the same function, with no partition,
+    # moves from it.
+    floor = ss.compare(kind, other, want, TOL, rows, truth=truth)
+    row["floor"] = {k: floor[k] for k in (
+        *ss.GATED[kind], *ss.GATED["train-f64"], "leaves_over", "f64",
+        "logits_err_by_row") if k in floor}
+    del want, other, truth
     free(torch)
     return row
+
+
+def peak_rss_gib():
+    """This process's peak resident set so far, in GiB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
 
 
 def f32_row(torch, rank, mesh, name):
@@ -495,9 +534,14 @@ def main(argv=None) -> int:
          ",".join(steps), "--mesh", f"{N_DATA}x{N_MODEL}"],
         env={**os.environ, "PYTHONPATH": str(HERE / "src")}, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE) if steps else None
+    failed = []
     try:
-        mp.spawn(run, args=(f"file://{tmp / 'rendezvous'}", str(tmp / "out"),
-                            cases, str(tmp)), nprocs=WORLD)
+        try:
+            mp.spawn(run, args=(f"file://{tmp / 'rendezvous'}",
+                                str(tmp / "out"), cases, str(tmp)),
+                     nprocs=WORLD)
+        except Exception as e:  # noqa: BLE001 -- print the rows before it
+            failed.append(f"ranks: {str(e)[-3000:]}")
         recs = {}
         if records is not None:
             stdout, err = records.communicate(timeout=600)
@@ -508,8 +552,8 @@ def main(argv=None) -> int:
         if records is not None and records.poll() is None:
             records.kill()
             records.wait()
-    failed = []
-    for line in (tmp / "out").read_text().splitlines():
+    out = tmp / "out"
+    for line in (out.read_text().splitlines() if out.exists() else []):
         row = json.loads(line)
         if row["case"] in recs:
             from repro_torch.launch.sharded_step import bytes_by_kind

@@ -36,6 +36,10 @@ from repro_torch.core import parallel as par
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.mla import mla_causal_attention
 
+#: layers run through the hybrid on this rank's tensors, by o-proj mode
+#: (one a layer a step, whether entered with plain tensors or DTensors)
+CALLS = {"a2a": 0, "rs": 0}
+
 
 def mla_prefill_hybrid(p, x: torch.Tensor, cfg: ModelConfig, mesh,
                        axis: str = "model", oproj_mode: str = "a2a"
@@ -61,6 +65,7 @@ def mla_prefill_hybrid(p, x: torch.Tensor, cfg: ModelConfig, mesh,
                          f"{oproj_mode!r}")
     if dt.is_dtensor(x):
         return _on_blocks(p, x, cfg, mesh, axis, oproj_mode)
+    CALLS[oproj_mode] += 1
     b, s, d = x.shape
     h = cfg.num_heads
     m = par.axis_size(mesh, (axis,))

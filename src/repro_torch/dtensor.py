@@ -43,9 +43,48 @@ def local(x: torch.Tensor, mesh, placements: Sequence) -> torch.Tensor:
     the same on every rank, as it is."""
     if not is_dtensor(x):
         return x
-    if tuple(x.placements) != tuple(placements):
-        x = x.redistribute(mesh, tuple(placements))
+    placements = tuple(placements)
+    if tuple(x.placements) != placements:
+        moved = _moved_shards(x, mesh, placements)
+        if moved is not None:
+            return moved
+        x = x.redistribute(mesh, placements)
     return x.to_local()
+
+
+def _moved_shards(x: DTensor, mesh, placements: Tuple):
+    """This rank's block of ``x`` where ``placements`` differ from its own
+    only by ``Shard(i)`` -> ``Shard(j)`` over some mesh dimensions (no
+    other dimension cutting i or j, each cut even): one all-to-all over
+    each such dimension's ranks, as DTensor moves them on the card (on a
+    CPU mesh DTensor gathers instead). None for any other difference."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.core import parallel as par
+
+    moves = []
+    for m, (a, b) in enumerate(zip(x.placements, placements)):
+        if a == b:
+            continue
+        if not (isinstance(a, Shard) and isinstance(b, Shard)):
+            return None
+        moves.append((m, a.dim, b.dim))
+    block = x.to_local()
+    for m, src, dst in moves:
+        n = mesh.size(m)
+        others = [p for k, p in enumerate(x.placements + placements)
+                  if k % len(placements) != m and isinstance(p, Shard)]
+        if any(p.dim in (src, dst) for p in others) \
+                or x.shape[src] % n or x.shape[dst] % n:
+            return None
+    for m, src, dst in moves:
+        group = par.axes_group(mesh, (mesh.mesh_dim_names[m],))
+        # chunk r of dst goes to rank r; chunk i back is rank i's block of
+        # src
+        parts = par.all_to_all(torch.stack(block.chunk(mesh.size(m), dst))
+                               .contiguous(), group)
+        block = torch.cat(parts.unbind(0), dim=src)
+    return block
 
 
 def shard_offsets(x: DTensor) -> Tuple[int, ...]:

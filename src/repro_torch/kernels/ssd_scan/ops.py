@@ -70,10 +70,15 @@ def _check(x, dt, a_log, bmat, cmat, chunk) -> None:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, a_log {tuple(a_log.shape)}, B "
                          f"{tuple(bmat.shape)}, C {tuple(cmat.shape)}")
+    # The kernel takes float32; the plain version also float64 on the CPU
+    # (a float64 step's reference), all five alike.
+    want = torch.float64 if x.dtype == torch.float64 \
+        and x.device.type == "cpu" else torch.float32
     for name, t in (("x", x), ("dt", dt), ("a_log", a_log), ("B", bmat),
                     ("C", cmat)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != want:
+            raise ValueError(f"{name} must be float32 (on the CPU all five "
+                             f"may be float64), got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     devices = {t.device for t in (x, dt, a_log, bmat, cmat)}
@@ -124,7 +129,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              bmat: torch.Tensor, cmat: torch.Tensor, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,H,P), dt (B,S,H), a_log (H,), B and C (B,S,N), all float32
-    and contiguous -> (y (B,S,H,P), h_final (B,H,P,N)) float32, from a zero
+    (or, on the CPU, all float64) and contiguous -> (y (B,S,H,P), h_final
+    (B,H,P,N)) in their dtype, from a zero
     state, in chunks of ``min(chunk, S)`` rows with a ragged last chunk.
     See :func:`repro_torch.kernels.ssd_scan.ref.ssd_chunked`. Raises on an
     input that requires grad while grad mode is on (on every device): use

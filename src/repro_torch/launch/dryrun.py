@@ -45,13 +45,14 @@ Usage (``PYTHONPATH=src python -m repro_torch.launch.dryrun``, then):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
 import time
 import traceback
 import weakref
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -260,10 +261,11 @@ def _check_device(device, mesh, what: str) -> None:
 def build_step(cfg: ModelConfig, shape: InputShape, mesh,
                cache_dtype: torch.dtype = torch.bfloat16, *,
                device=META, seed: int = 0, params=None,
+               inputs: Optional[Dict[str, Any]] = None,
                cache_len: Optional[Sequence[int]] = None,
                lep: Optional[dict] = None,
                expert_axes: Optional[Tuple[str, ...]] = None,
-               opt_cfg=None, n_micro: int = 1
+               opt_cfg=None, n_micro: int = 1, hybrid: str = ""
                ) -> Tuple[Callable, Tuple[Any, ...]]:
     """Returns (step, its arguments). The step is a train step (loss,
     gradients placed as their parameters, AdamW), a prefill or a decode
@@ -271,24 +273,34 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh,
     cache), as ``shape`` says; MoE layers run LEP planned as the JAX
     package's plan, with INT8 dispatch, and ``lep`` (keywords of
     ``make_lep_moe_fn``) over it. The caches are ``cache_dtype``: JAX's bfloat16, or a
-    serving engine's float32 for a record of its own step.
+    serving engine's float32 for a record of its own step. A prefill
+    with ``hybrid`` ("a2a" or "rs") over ``mesh`` runs every MLA layer
+    through the §4.3.1 hybrid with that o-proj (:func:`hybrid_prefill`).
 
     On ``META`` (the dry run) the arguments are meta DTensors over
     ``mesh``. On a real ``device`` they hold values: the weights of
     :func:`sharded_model` (``seed``, ``params``, ``expert_axes`` as
-    there), the inputs of :func:`step_inputs` (``seed``, ``cache_len``),
-    zero AdamW moments and ``opt_cfg`` (default ``OptConfig()``), each
-    placed by the specs as the meta ones are, on the mesh's device; with
-    ``mesh`` None the same step and values as plain tensors on
-    ``device``, the MoE layers through the 1-D LEP at world size 1.
+    there), the inputs of :func:`step_inputs` (``seed``, ``cache_len``)
+    or ``inputs`` (its tree, given), AdamW moments of 0 in float32 (in
+    float64 for float64 weights) and ``opt_cfg`` (default
+    ``OptConfig()``), each placed by the specs as the meta ones are, on
+    the mesh's device; with ``mesh`` None the same step and values as
+    plain tensors on ``device``, the MoE layers through the 1-D LEP at
+    world size 1.
 
     ``n_micro`` runs the step over that many consecutive groups of the
     batch's rows: a train step's loss is the mean of the groups'
-    (``microbatched_loss``), a decode step runs one group after another
-    into the same caches. The function is the same; each product runs at
-    a group's row count, as a rank that holds those rows runs it."""
+    (``microbatched_loss``), a prefill runs each group and joins their
+    logits and caches, a decode step runs one group after another into
+    the same caches. The function is the same; each product runs at a
+    group's row count, as a rank that holds those rows runs it."""
     train = shape.kind == "train"
     device = torch.device(device)
+    if hybrid and (mesh is None or shape.kind != "prefill"
+                   or cfg.attention_kind != "mla"):
+        raise ValueError(f"the hybrid MLA prefill ({hybrid!r}) is an MLA "
+                         f"prefill over a mesh, not a {shape.kind} step of "
+                         f"{cfg.attention_kind} attention over {mesh}")
     if mesh is None:
         from repro_torch.device import check_on
 
@@ -308,7 +320,7 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh,
         if shape.kind == "decode":
             inputs["caches"] = model_mod.make_caches(
                 cfg, shape.global_batch, shape.seq_len, cache_dtype, META)
-    else:
+    elif inputs is None:
         inputs = step_inputs(cfg, shape, device, seed + 1, cache_dtype,
                              cache_len)
     moe_fn = _moe_fn_for(cfg, mesh, serving=not train, lep=lep)
@@ -322,8 +334,8 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh,
         from repro_torch.train.optimizer import OptConfig, OptState
 
         leaves = list(params.parameters())
-        moments = [[torch.zeros_like(p, dtype=torch.float32) for p in leaves]
-                   for _ in range(2)]
+        moments = [[torch.zeros_like(p, dtype=torch.promote_types(
+            p.dtype, torch.float32)) for p in leaves] for _ in range(2)]
         count = torch.zeros((), dtype=torch.int32, device=device)
         step_count = count if mesh is None else place(count, ())
         opt = OptState(step_count, *moments)
@@ -331,10 +343,21 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh,
                                 n_micro=n_micro), (params, opt, batch))
 
     if shape.kind == "prefill":
-        def step(params, batch):
+        def prefill(params, batch):
             return model_mod.prefill(params, cfg, batch,
                                      capacity=shape.seq_len, moe_fn=moe_fn,
                                      cache_dtype=cache_dtype)
+
+        def step(params, batch):
+            with hybrid_prefill(hybrid, mesh, cfg.num_layers * n_micro):
+                if n_micro == 1:
+                    return prefill(params, batch)
+                rows = shape.global_batch // n_micro
+                outs = [prefill(params, {k: v[i * rows:(i + 1) * rows]
+                                         for k, v in batch.items()})
+                        for i in range(n_micro)]
+            return (torch.cat([logits for logits, _ in outs]),
+                    _cat_rows(cfg, [caches for _, caches in outs]))
 
         return step, (params, batch)
 
@@ -361,6 +384,52 @@ def build_step(cfg: ModelConfig, shape: InputShape, mesh,
                                                           cache_len + 1)
 
     return serve_step, (params, tokens, caches, cache_len)
+
+
+@contextlib.contextmanager
+def hybrid_prefill(mode: str, mesh, layers: int) -> Iterator[None]:
+    """Inside the block ``REPRO_MLA_HYBRID`` is ``mode`` ("a2a" or "rs";
+    "" leaves everything as it is) and ``mesh`` the current mesh, both
+    restored after, so that each MLA prefill runs the §4.3.1 SP -> TP ->
+    SP form (``core/hybrid_parallel.py``). The block must run the hybrid
+    on exactly ``layers`` layers with that mode, else it raises: a prefill
+    that took the plain ``mla_prefill`` is not the hybrid's."""
+    if not mode:
+        yield
+        return
+    from repro_torch.core import hybrid_parallel
+
+    old = os.environ.get("REPRO_MLA_HYBRID")
+    before = hybrid_parallel.CALLS[mode]
+    os.environ["REPRO_MLA_HYBRID"] = mode
+    try:
+        with par.mesh_context(mesh):
+            yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_MLA_HYBRID"]
+        else:
+            os.environ["REPRO_MLA_HYBRID"] = old
+    ran = hybrid_parallel.CALLS[mode] - before
+    if ran != layers:
+        raise AssertionError(f"the {mode} hybrid prefill ran on {ran} MLA "
+                             f"layers, not {layers}")
+
+
+def _cat_rows(cfg: ModelConfig, trees: Sequence[Dict[str, Any]]
+              ) -> Dict[str, Any]:
+    """``make_caches``' trees of consecutive groups of rows joined along
+    each batched leaf's batch axis (an unbatched leaf: the first's)."""
+    def join(parts, axes):
+        if isinstance(parts[0], dict):
+            return {k: join([p[k] for p in parts], axes[k])
+                    for k in parts[0]}
+        if isinstance(parts[0], tuple):
+            return type(parts[0])(*(join(list(leaf), a) for leaf, a in
+                                    zip(zip(*parts), axes)))
+        return parts[0] if axes is None else torch.cat(parts, dim=axes)
+
+    return join(list(trees), model_mod.cache_batch_axes(cfg))
 
 
 def _rows_of(cfg: ModelConfig, caches: Dict[str, Any], rows: slice):

@@ -9,11 +9,13 @@ it at full width on the card -- one rank over NCCL in ``chip_smoke.py``'s
 ``tests/test_torch_sharded_mixers.py``. Each is held to three things:
 
 * the same step unsharded, on plain tensors with the same seeded weights
-  and inputs (the MoE layers through the 1-D LEP at world size 1), run
-  over the row groups the data ranks hold (:func:`reference`):
-  :func:`compare` (a train step's loss, global gradient norm, every
-  parameter and both AdamW moments; a decode step's logits, caches,
-  written rows and greedy tokens), at fixed tolerances;
+  and inputs (the MoE layers through the 1-D LEP at world size 1, the MLA
+  prefill plain where the sharded one runs the hybrid), run over the row
+  groups the data ranks hold (:func:`reference`): :func:`compare` (a train
+  step's loss, global gradient norm, every parameter and both AdamW
+  moments, these against the same step in float64 where no INT8 payload
+  is on the path, :func:`truth`; a prefill's logits, caches and greedy
+  tokens; a decode step's also the rows it wrote), at fixed tolerances;
 * the dry run's record of the same configuration, shape and mesh: the
   collective bytes by kind that :class:`CollectiveCounter` counts on the
   executed step (:func:`run_counted`) against those of
@@ -64,11 +66,13 @@ NUDGE = 1e-7
 @dataclasses.dataclass(frozen=True)
 class Case:
     """A sharded step: ``arch``'s config with ``fields`` replaced at full
-    width (``smoke_fields`` on its smoke variant), a ``kind`` ("train" or
-    "decode") step of ``batch`` rows and ``seq_len`` tokens (a decode
-    step's cache slots), the MoE layers planned as ``lep`` (else the JAX
-    package's plan) with the experts cut over ``expert_axes`` (else the
-    plan's EP axes)."""
+    width (``smoke_fields`` on its smoke variant), a ``kind`` ("train",
+    "prefill" or "decode") step of ``batch`` rows and ``seq_len`` tokens
+    (a decode step's cache slots), the MoE layers planned as ``lep`` (else
+    the JAX package's plan) with the experts cut over ``expert_axes``
+    (else the plan's EP axes), a prefill's MLA layers through the §4.3.1
+    hybrid with the o-proj ``hybrid`` ("a2a" or "rs"; "" the plain
+    prefill)."""
     arch: str
     fields: Dict[str, Any]
     kind: str
@@ -80,23 +84,40 @@ class Case:
     lep: Optional[Dict[str, Any]] = None
     expert_axes: Optional[Tuple[str, ...]] = None
     #: the batch rows whose logits (and greedy tokens) the full-width
-    #: sharded decode step holds (:func:`held_rows`): "all"; "one-block",
-    #: the rows whose cache lies inside one sequence block of the mesh's
-    #: ``model`` axis; "f32", none of the bf16 step's rows, every row of
-    #: the same step run again in float32 (its caches and written rows are
-    #: held in both)
+    #: sharded decode or prefill step holds (:func:`held_rows`): "all";
+    #: "one-block", the rows whose cache lies inside one sequence block of
+    #: the mesh's ``model`` axis; "f32", none of the bf16 step's rows,
+    #: every row of the same step run again in float32 (its caches and
+    #: written rows are held in both)
     logits: str = "all"
+    hybrid: str = ""
+    #: a train step whose parameters and moments are held against the
+    #: same step in float64 (:func:`truth`): no INT8 payload on its path,
+    #: whose codes f32 and f64 may round one apart
+    f64: bool = False
 
 
 _F32, _BF16 = {"dtype": "float32"}, {"dtype": "bfloat16"}
-#: capacity factor 8: no token is dropped at any world size, so the
-#: sharded LEP and the 1-D LEP at world size 1 compute the same rows
+#: capacity factor 8: with the train and decode cases' routing no token is
+#: dropped at either world size, so the sharded LEP and the 1-D LEP at
+#: world size 1 compute the same rows
 _NO_DROP = {"capacity_factor": 8.0}
 _NO_AUX = {"router_aux_loss_coef": 0.0}
+#: chip_smoke's depth cut of R1: 3 dense MLA layers + 1 MoE layer of 256
+_R1_CUT = {"num_layers": 4, "first_k_dense": 3}
+#: the R1 prefills' capacity factor. The seed's random-weight router is
+#: skewed at a prefill's token counts: over a 4 x 1024 draw one expert
+#: takes up to 230 of a 512-token shard's picks (factor 14.3 needed where
+#: 8 drops them) and 411 of a 1024-token one's (12.8). So the R1 prefills
+#: run 2 rows (a 2 x 2 rank's shard: 512 tokens; the unsharded step's
+#: groups: 1024) at factor 16; 4 rows at 16 would put the float32
+#: reference's dispatch buffers (about 31 GB) beside its 56 GB of weights
+#: on one 80 GB card
+_PREFILL_NO_DROP = {"capacity_factor": 16.0}
 CASES: Dict[str, Case] = {
     # 4 of 36 layers; plain GQA, the projections through dtensor.linear
     "train-qwen3": Case("qwen3-8b", {"num_layers": 4, **_F32}, "train",
-                        4, 1024, 4, 16),
+                        4, 1024, 4, 16, f64=True),
     # 4 of 16 layers; the training LEP plan (INT8 dispatch). The router's
     # balance loss is weighted 0: under LEP it is the mean over the token
     # shards of each shard's loss, as JAX's pmean inside shard_map takes
@@ -105,14 +126,14 @@ CASES: Dict[str, Case] = {
                                         **_NO_AUX},
                         "train", 4, 1024, 4, 16, {**_NO_DROP, **_NO_AUX}),
     # whole; the SSD scan's forward through mamba2._scan's local_map
-    "train-mamba2": Case("mamba2-780m", _F32, "train", 4, 1024, 4, 64),
+    "train-mamba2": Case("mamba2-780m", _F32, "train", 4, 1024, 4, 64,
+                         f64=True),
     # chip_smoke's depth cut: 3 dense MLA layers + 1 MoE layer of 256
     # Its bf16 logits move about as far from the unsharded step's as the
     # reference's own move with its caches nudged by one part in 1e7 (two
     # bf16 roundings of 4 layers apart): they are held through the same
     # step in float32
-    "decode-r1": Case("deepseek-r1", {"num_layers": 4, "first_k_dense": 3,
-                                      **_BF16, **_NO_DROP},
+    "decode-r1": Case("deepseek-r1", {**_R1_CUT, **_BF16, **_NO_DROP},
                       "decode", 8, 2048, 4, 16, _NO_DROP, logits="f32"),
     # whole; redundancy 2 on full-mesh EP with the experts cut over
     # "model" alone, as the production mesh cuts OLMoE's 64 experts: each
@@ -126,6 +147,30 @@ CASES: Dict[str, Case] = {
                          lep={"ep_axes": ("data", "model"), "redundancy": 2,
                               "ffn_shard_axis": None},
                          expert_axes=("model",), logits="one-block"),
+    # The prefills, bf16 with float32 caches, their logits held through
+    # the same step in float32 (as decode-r1's). R1: the depth cut of
+    # decode-r1 (the same cut at smoke width: 4 MLA layers), LEP's serving
+    # plan with INT8 dispatch; plain, then through the hybrid
+    "prefill-r1": Case("deepseek-r1", {**_R1_CUT, **_BF16,
+                                       **_PREFILL_NO_DROP},
+                       "prefill", 2, 1024, 4, 16, {**_R1_CUT, **_NO_DROP},
+                       logits="f32"),
+    "prefill-r1-a2a": Case("deepseek-r1", {**_R1_CUT, **_BF16,
+                                           **_PREFILL_NO_DROP},
+                           "prefill", 2, 1024, 4, 16,
+                           {**_R1_CUT, **_NO_DROP}, logits="f32",
+                           hybrid="a2a"),
+    "prefill-r1-rs": Case("deepseek-r1", {**_R1_CUT, **_BF16,
+                                          **_PREFILL_NO_DROP},
+                          "prefill", 2, 1024, 4, 16,
+                          {**_R1_CUT, **_NO_DROP}, logits="f32",
+                          hybrid="rs"),
+    # 4 of 36 layers; GQA writing its K/V cache (8 K/V heads over model)
+    "prefill-qwen3": Case("qwen3-8b", {"num_layers": 4, **_BF16}, "prefill",
+                          4, 1024, 4, 16, logits="f32"),
+    # whole; the SSD scan per head slice, the final state and conv window
+    "prefill-mamba2": Case("mamba2-780m", _BF16, "prefill", 4, 1024, 4, 64,
+                           logits="f32"),
 }
 
 
@@ -169,12 +214,14 @@ def case_shape(name: str, smoke: bool = False,
 
 def case_step(name: str, mesh, device, *, smoke: bool = False, seed: int = 0,
               params=None, cfg: Optional[ModelConfig] = None,
-              shape: Optional[InputShape] = None, n_micro: int = 1):
+              shape: Optional[InputShape] = None, n_micro: int = 1,
+              inputs: Optional[Dict[str, Any]] = None):
     """(cfg, shape, step, its arguments) of case ``name`` over ``mesh``
-    (None: unsharded) on ``device``: ``dryrun.build_step`` with the case's
-    plan, float32 caches as a serving engine keeps them, the decode
-    lengths of DECODE_LENS (SMOKE_DECODE_LENS, or cut to the batch) and
-    ``n_micro`` groups of rows."""
+    (None: unsharded, a hybrid case's prefill plain) on ``device``:
+    ``dryrun.build_step`` with the case's plan, float32 caches as a
+    serving engine keeps them, the decode lengths of DECODE_LENS
+    (SMOKE_DECODE_LENS, or cut to the batch), ``n_micro`` groups of rows
+    and ``inputs`` where given."""
     from repro_torch.train.optimizer import OptConfig
 
     case = CASES[name]
@@ -184,16 +231,19 @@ def case_step(name: str, mesh, device, *, smoke: bool = False, seed: int = 0,
     lens = [min(n, shape.seq_len) for n in lens][:shape.global_batch]
     step, args = dryrun.build_step(
         cfg, shape, mesh, torch.float32, device=device, seed=seed,
-        params=params, cache_len=lens if case.kind == "decode" else None,
+        params=params, inputs=inputs,
+        cache_len=lens if case.kind == "decode" else None,
         lep=case.lep, expert_axes=case.expert_axes,
-        opt_cfg=OptConfig(**TRAIN_OPT), n_micro=n_micro)
+        opt_cfg=OptConfig(**TRAIN_OPT), n_micro=n_micro,
+        hybrid=case.hybrid if mesh is not None else "")
     return cfg, shape, step, args
 
 
 def reference(name: str, device, *, n_micro: int = 1, smoke: bool = False,
               seed: int = 0, shape: Optional[InputShape] = None,
               params=None, cfg: Optional[ModelConfig] = None,
-              nudge: float = 0.0) -> Dict[str, torch.Tensor]:
+              nudge: float = 0.0, inputs: Optional[Dict[str, Any]] = None
+              ) -> Dict[str, torch.Tensor]:
     """:func:`step_results` (where they are) of case ``name``'s step
     unsharded on ``device`` over ``n_micro`` groups of rows: as many as
     the mesh's ``data`` axis has ranks, the same function with each
@@ -203,7 +253,8 @@ def reference(name: str, device, *, n_micro: int = 1, smoke: bool = False,
     x N(0, 1), element by element (seeded): a rounding of its inputs."""
     _, shape, step, args = case_step(name, None, device, smoke=smoke,
                                      seed=seed, params=params, cfg=cfg,
-                                     shape=shape, n_micro=n_micro)
+                                     shape=shape, n_micro=n_micro,
+                                     inputs=inputs)
     if nudge:
         gen = torch.Generator(device=device).manual_seed(seed + 2)
         for t in named_leaves(args[2]).values():
@@ -211,6 +262,30 @@ def reference(name: str, device, *, n_micro: int = 1, smoke: bool = False,
                 t.mul_(1 + nudge * torch.randn(t.shape, generator=gen,
                                                device=device))
     return step_results(shape.kind, step(*args), to=None)
+
+
+def truth(name: str, draw_on, *, n_micro: int = 1, smoke: bool = False,
+          seed: int = 0, shape: Optional[InputShape] = None
+          ) -> Dict[str, torch.Tensor]:
+    """:func:`reference` in float64 on the host's CPU: the same unsharded
+    step over the same row groups, its weights and inputs those the
+    float32 step draws from ``seed`` (drawn on ``draw_on``, as the card
+    draws them, then widened to float64 on the CPU), its activations,
+    gradients and moments float64. Against it :func:`compare` tells what a
+    partition adds from what float32 rounding of the same function
+    gives."""
+    from repro_torch.models.model import init_params
+
+    cfg = case_config(name, smoke)
+    shape = shape or case_shape(name, smoke)
+    params = init_params(cfg, seed=seed, device=draw_on).to(
+        "cpu", torch.float64)
+    # build_step draws a step's inputs from seed + 1
+    inputs = {k: v.cpu() for k, v in dryrun.step_inputs(
+        cfg, shape, draw_on, seed + 1).items()}
+    return reference(name, "cpu", n_micro=n_micro, smoke=smoke, seed=seed,
+                     shape=shape, params=params, inputs=inputs,
+                     cfg=dataclasses.replace(cfg, dtype="float64"))
 
 
 def run_counted(step, args) -> Tuple[Any, Dict[str, int]]:
@@ -250,9 +325,10 @@ def step_results(kind: str, out: Any, keep: bool = True, to="cpu"
     rank of its mesh calls this) and moved ``to`` a device (None: where it
     is), or nothing where not ``keep``: a train step's ``loss`` and
     ``grad_norm``, every parameter (``param/<name>``) and both moments
-    (``mu/<name>``, ``nu/<name>``) in the parameters' order; a decode
-    step's ``logits``, every float cache buffer (``cache/<path>``) and
-    the rows the step wrote into each latent or K/V buffer
+    (``mu/<name>``, ``nu/<name>``) in the parameters' order; a prefill or
+    decode step's ``logits`` and every float cache buffer
+    (``cache/<path>``: a prefill writes them from slot 0), and a decode
+    step's rows it wrote into each latent or K/V buffer
     (``written/<path>``: at each row's length before the step, where
     that is inside the buffer)."""
     def whole(v):
@@ -277,6 +353,8 @@ def step_results(kind: str, out: Any, keep: bool = True, to="cpu"
             if not v.dtype.is_floating_point:
                 continue
             leaves[f"cache/{k}"] = v
+            if kind != "decode":
+                continue
             parent, _, last = k.rpartition("/")
             length = f"{parent}/length" if parent else "length"
             if last in ("mla", "k", "v") and length in tree:
@@ -320,17 +398,26 @@ def _worst(got: torch.Tensor, want: torch.Tensor,
 
 
 #: the quantities :func:`compare` gates, by kind, with their tolerance
-#: (None: the caller's ``tol``)
+#: (None: the caller's ``tol``); "train-f64", a train step given its
+#: float64 truth
 GATED = {"train": {"loss_rel_err": LOSS_RTOL, "grad_norm_rel_err": LOSS_RTOL,
                    "param_max_err": STEP_TOL, "mu_max_err": STEP_TOL,
                    "nu_max_err": STEP_TOL},
+         "train-f64": {"loss_rel_err": LOSS_RTOL,
+                       "grad_norm_rel_err": LOSS_RTOL,
+                       "param_f64_excess": STEP_TOL,
+                       "mu_f64_excess": STEP_TOL,
+                       "nu_f64_excess": STEP_TOL},
+         "prefill": {"logits_max_err": None, "cache_max_err": None},
          "decode": {"logits_max_err": None, "cache_max_err": None,
                     "written_max_err": None}}
 
 
 def compare(kind: str, got: Dict[str, torch.Tensor],
             want: Dict[str, torch.Tensor], tol: float,
-            rows: Optional[Sequence[int]] = None) -> Dict[str, Any]:
+            rows: Optional[Sequence[int]] = None,
+            truth: Optional[Dict[str, torch.Tensor]] = None
+            ) -> Dict[str, Any]:
     """``got`` (the sharded step's :func:`step_results`) against ``want``
     (the unsharded step's, :func:`reference`): the worst divergence of
     each kind and ``ok``, every quantity at a fixed tolerance. A train
@@ -339,8 +426,15 @@ def compare(kind: str, got: Dict[str, torch.Tensor],
     parameter within STEP_TOL where the reference's first moment is clear
     of 0 (|mu| above STEP_TOL of its largest: with no warmup the step
     moves a weight by about lr x sign(g), whose sign is either where g is
-    0). A decode step holds its caches and the rows it wrote within
-    ``tol`` of the reference's largest value and, on the batch rows
+    0). Given ``truth`` (the same step in float64, :func:`truth`) it holds
+    each parameter and moment to it instead: err(got, truth) at most
+    err(want, truth) + STEP_TOL, each err the max |difference| over the
+    leaf's largest |truth| (parameters where truth's |mu| is clear of
+    STEP_TOL of its largest), so that what the partition adds beyond
+    float32 rounding of the same function is held at a fixed tolerance;
+    the fixed comparison with ``want`` is still reported. A prefill or
+    decode step holds its caches (and a decode step the rows it wrote)
+    within ``tol`` of the reference's largest value and, on the batch rows
     ``rows`` (None: every row; :func:`held_rows`), its logits within
     ``tol`` of their largest and its greedy tokens equal wherever the
     reference's top-2 margin exceeds ``tol`` of that largest logit.
@@ -348,8 +442,12 @@ def compare(kind: str, got: Dict[str, torch.Tensor],
     Beside them, for a reader: a train step's leaves past STEP_TOL (at
     most 8 a part, worst first), each with its error, its largest |value|
     over the part's largest (``scale``) and the reference's |value| where
-    the error is worst over the leaf's largest (``at``); a decode step's
-    logits error on every row."""
+    the error is worst over the leaf's largest (``at``), and, given
+    ``truth``, ``f64``: each part's worst error against it of the sharded
+    and the unsharded step and the leaves whose excess passes STEP_TOL; a
+    prefill or decode step's logits error on every batch row and the cache
+    leaf whose error is the largest (``cache_worst``), with its error on
+    each of its layers."""
     if sorted(got) != sorted(want):
         raise AssertionError(f"leaves differ: "
                              f"{sorted(set(got) ^ set(want))[:8]}")
@@ -382,6 +480,8 @@ def compare(kind: str, got: Dict[str, torch.Tensor],
                            "scale": want[k].abs().max().item() / top}
                        for k, v in worst}
         row["leaves_over"] = over
+        if truth is not None:
+            row.update(_against_truth(got, want, truth))
     else:
         n = want["logits"].shape[0]
         held = list(range(n)) if rows is None else list(rows)
@@ -393,22 +493,65 @@ def compare(kind: str, got: Dict[str, torch.Tensor],
         ref = want["logits"][held].float()
         if held:
             top2 = ref.topk(2, dim=-1).values
-            clear = (top2[:, 0] - top2[:, 1]) > tol * ref.abs().max()
+            clear = (top2[..., 0] - top2[..., 1]) > tol * ref.abs().max()
             same = got["logits"][held].to(ref.device).float().argmax(-1) \
                 == ref.argmax(-1)
         else:
             clear = same = torch.zeros(0, dtype=torch.bool)
-        row["cache_max_err"] = max((_err(got[k], want[k]) for k in got
-                                    if k.startswith("cache/")), default=0.0)
-        row["written_max_err"] = max((_err(got[k], want[k]) for k in got
-                                      if k.startswith("written/")),
-                                     default=0.0)
+        caches = {k: _err(got[k], want[k]) for k in got
+                  if k.startswith("cache/")}
+        row["cache_max_err"] = max(caches.values(), default=0.0)
+        worst = row["cache_worst"] = max(caches, key=caches.get, default=None)
+        if worst is not None:
+            # its error layer by layer (a stacked leaf's first dimension),
+            # of the whole leaf's largest |value|
+            scale = max(want[worst].double().abs().max().item(), 1e-30)
+            row["cache_worst_by_layer"] = [
+                (a.to(b.device).double() - b.double()).abs().max().item()
+                / scale for a, b in zip(got[worst], want[worst])]
+        if kind == "decode":
+            row["written_max_err"] = max((_err(got[k], want[k]) for k in got
+                                          if k.startswith("written/")),
+                                         default=0.0)
         row["greedy_checked"] = int(clear.sum())
         row["greedy_equal"] = bool(same[clear].all())
-    limits = {k: tol if t is None else t for k, t in GATED[kind].items()}
+    gated = GATED["train-f64" if truth is not None else kind]
+    limits = {k: tol if t is None else t for k, t in gated.items()}
     row["over"] = [k for k, limit in limits.items() if row[k] > limit]
     row["ok"] = not row["over"] and row.get("greedy_equal", True)
     return row
+
+
+def _against_truth(got: Dict[str, torch.Tensor],
+                   want: Dict[str, torch.Tensor],
+                   truth: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """:func:`compare`'s float64 gate of a train step: each part's worst
+    excess err(got, truth) - err(want, truth) (``<part>_f64_excess``) and,
+    under ``f64``, each part's worst error of either step against the
+    truth and the leaves whose excess passes STEP_TOL (at most 8 a part,
+    worst first)."""
+    out: Dict[str, Any] = {}
+    f64: Dict[str, Any] = {"sharded_max_err": {}, "unsharded_max_err": {},
+                           "leaves_over": {}}
+    for part in ("param", "mu", "nu"):
+        errs = {}
+        for k in (k for k in truth if k.startswith(part + "/")):
+            mask = None
+            if part == "param":
+                mu = truth["mu/" + k[len("param/"):]].abs()
+                mask = mu > STEP_TOL * max(mu.max().item(), 1e-30)
+            errs[k] = (_err(got[k], truth[k], mask),
+                       _err(want[k], truth[k], mask))
+        out[f"{part}_f64_excess"] = max(s - u for s, u in errs.values())
+        f64["sharded_max_err"][part] = max(s for s, _ in errs.values())
+        f64["unsharded_max_err"][part] = max(u for _, u in errs.values())
+        worst = sorted(((k, e) for k, e in errs.items()
+                        if e[0] - e[1] > STEP_TOL),
+                       key=lambda kv: kv[1][1] - kv[1][0])[:8]
+        f64["leaves_over"][part] = {k: {"sharded": s, "unsharded": u}
+                                    for k, (s, u) in worst}
+    out["f64"] = f64
+    return out
 
 
 def bytes_by_kind(counts: Dict[str, int]) -> Dict[str, int]:
@@ -430,7 +573,8 @@ def record_collectives(names: Sequence[str], mesh_shape: Dict[str, int],
     """(In a process of its own: it joins a fake process group as rank 0.)
     The dry run's collective bytes by kind of each case's step over a fake
     mesh of ``mesh_shape``, traced on meta tensors (``dryrun._measure``
-    with the case's plan); ``shapes`` gives a case's (batch, seq_len)
+    with the case's plan, a hybrid case's prefill through its hybrid);
+    ``shapes`` gives a case's (batch, seq_len)
     where it is not the case's own."""
     mesh = dryrun.fake_mesh(mesh_shape)
     out = {}
@@ -440,7 +584,8 @@ def record_collectives(names: Sequence[str], mesh_shape: Dict[str, int],
         rec = dryrun._measure(case_config(name, smoke),
                               case_shape(name, smoke, b, s), mesh,
                               torch.float32, lep=case.lep,
-                              expert_axes=case.expert_axes)
+                              expert_axes=case.expert_axes,
+                              hybrid=case.hybrid)
         out[name] = rec["coll"]
     return out
 

@@ -280,30 +280,35 @@ def meta_dtensor(shape, dtype: torch.dtype, mesh, entries: Spec):
                               stride=stride)
 
 
-def distribute(t: torch.Tensor, mesh, entries: Spec):
+def distribute(t: torch.Tensor, mesh, entries: Spec, local: bool = False):
     """``t`` (the same on every rank) as a DTensor over ``mesh`` placed by
     the spec ``entries``, each rank keeping its block; an axis of one rank
-    replicates, as :func:`meta_dtensor` places it."""
+    replicates, as :func:`meta_dtensor` places it. Rank 0's ``t`` is
+    scattered, or, with ``local``, each rank cuts its block from its own
+    ``t`` and no collective runs (a step's own zeros, made alike on every
+    rank)."""
     from torch.distributed.tensor import Replicate, distribute_tensor
 
     placements = tuple(Replicate() if mesh.size(m) == 1 else p for m, p in
                        enumerate(to_placements(mesh, entries)))
-    return distribute_tensor(t, mesh, placements)
+    return distribute_tensor(t, mesh, placements,
+                             src_data_rank=None if local else 0)
 
 
-def shard_tree(tree: Any, specs: Any, mesh) -> Any:
+def shard_tree(tree: Any, specs: Any, mesh, local: bool = False) -> Any:
     """Every tensor leaf of ``tree`` (nested dicts and NamedTuples, such as
     ``make_caches``' tree or a batch) as a DTensor placed by the leaf of
     ``specs`` at the same place: a meta DTensor for a meta leaf, else the
-    leaf's values (:func:`distribute`)."""
+    leaf's values (:func:`distribute`, ``local`` as there)."""
     if isinstance(tree, dict):
-        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+        return {k: shard_tree(v, specs[k], mesh, local)
+                for k, v in tree.items()}
     if isinstance(tree, tuple):
-        return type(tree)(*(shard_tree(v, s, mesh)
+        return type(tree)(*(shard_tree(v, s, mesh, local)
                             for v, s in zip(tree, specs)))
     if tree.is_meta:
         return meta_dtensor(tree.shape, tree.dtype, mesh, specs)
-    return distribute(tree, mesh, specs)
+    return distribute(tree, mesh, specs, local)
 
 
 def leaf_specs(model, specs: Any) -> Dict[str, Spec]:

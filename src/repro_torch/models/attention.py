@@ -30,7 +30,7 @@ from torch import nn
 
 from repro_torch import dtensor as dt
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import apply_rope, rms_norm, weight
+from repro_torch.models.layers import apply_rope, rms_norm, weight, widened
 
 NEG_INF = -1e30
 
@@ -122,11 +122,11 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     q = dt.batch_like(dt.fit_heads(q, kvh, 2), k)
-    qg = q.reshape(b, sq, kvh, h // kvh, hd).float()
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) / (hd ** 0.5)
+    qg = widened(q.reshape(b, sq, kvh, h // kvh, hd))
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, widened(k)) / (hd ** 0.5)
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     probs = dt.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    out = torch.einsum("bkgst,btkh->bskgh", probs, widened(v))
     return out.reshape(b, sq, h * hd).to(q.dtype)
 
 
@@ -318,7 +318,7 @@ def _attend_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if cfg.attention_kind != "bidirectional" and block_skip_enabled():
         return _flash_causal(q, k, v, cfg, chunk)
 
-    kf, vf = k.float(), v.float()
+    kf, vf = widened(k), widened(v)
     kv_pos = torch.arange(s, device=q.device)
     win = cfg.sliding_window
     outs = []

@@ -10,6 +10,13 @@ import torch.nn.functional as F
 from repro_torch import dtensor as dt
 
 
+def widened(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is where its dtype is wider: what a
+    narrower model computes in float32, a float64 step (a reference of
+    ``launch/sharded_step.py``) computes in float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
     """Over a DTensor whose last dimension is cut, on each rank's block
@@ -17,14 +24,15 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5
     if dt.cut_last(x):
         return dt.rms_norm(x, gain, eps)
     dtype = x.dtype
-    x = x.float()
+    x = widened(x)
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * gain.float()).to(dtype)
+    return (x * widened(gain)).to(dtype)
 
 
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+def rope_freqs(head_dim: int, theta: float, device=None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=dtype,
                         device=device) / head_dim
     return 1.0 / (theta ** exps)
 
@@ -34,11 +42,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     """x: (..., seq, heads, head_dim); positions: (..., seq)."""
     dt = x.dtype
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                    # (hd/2,)
-    angles = positions.float()[..., None] * freqs              # (..., seq, hd/2)
+    wide = torch.promote_types(dt, torch.float32)
+    freqs = rope_freqs(hd, theta, x.device, wide)              # (hd/2,)
+    angles = positions.to(wide)[..., None] * freqs             # (..., seq, hd/2)
     cos = torch.cos(angles)[..., None, :]                      # (..., seq, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = widened(x).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dt)
 

@@ -28,7 +28,7 @@ from repro_torch import dtensor as dtn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_autograd
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: F401
-from repro_torch.models.layers import rms_norm, weight
+from repro_torch.models.layers import rms_norm, weight, widened
 
 
 class SSMState(NamedTuple):
@@ -72,7 +72,7 @@ def _split_proj(p: Mamba, x: torch.Tensor, cfg: ModelConfig):
     n = cfg.ssm_state
     z, xbc, dt_raw = dtn.linear(x, p.in_proj, (din, din + 2 * n,
                                                cfg.ssm_heads))
-    dt = F.softplus(dt_raw.float() + p.dt_bias)
+    dt = F.softplus(widened(dt_raw) + p.dt_bias)
     return z, xbc, dt  # dt: (b,s,h) f32
 
 
@@ -86,10 +86,10 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                              dtn.shard_axes(xbc, 0), dtn.shard_axes(xbc, 2))
     k, s = w.shape[0], xbc.shape[1]
     pad = F.pad(xbc, (0, 0, k - 1, 0))
-    out = torch.zeros(xbc.shape, dtype=torch.float32, device=xbc.device)
+    out = torch.zeros(xbc.shape, dtype=widened(xbc).dtype, device=xbc.device)
     for i in range(k):  # K is tiny (4); unrolled taps
-        out = out + pad[:, i: i + s].float() * w[i].float()
-    return F.silu(out + b.float()).to(xbc.dtype)
+        out = out + widened(pad[:, i: i + s]) * widened(w[i])
+    return F.silu(out + widened(b)).to(xbc.dtype)
 
 
 def ssd_reference(x, dt, a_log, bmat, cmat):
@@ -132,12 +132,14 @@ def mamba_prefill(p: Mamba, x: torch.Tensor, cfg: ModelConfig
         # conv state: the last (K-1) raw xbc inputs
         conv_state = _conv_tail(xbc_raw, k)
     xin = xin.reshape(bsz, s, h, cfg.ssm_head_dim)
-    y, h_final = _scan(xin.float().contiguous(), dt.contiguous(),
-                       p.A_log.float().contiguous(), bmat.float().contiguous(),
-                       cmat.float().contiguous(), cfg.ssm_chunk)
-    y = y + p.D[None, None, :, None] * xin.float()
+    y, h_final = _scan(widened(xin).contiguous(), dt.contiguous(),
+                       widened(p.A_log).contiguous(),
+                       widened(bmat).contiguous(), widened(cmat).contiguous(),
+                       cfg.ssm_chunk)
+    y = y + p.D[None, None, :, None] * widened(xin)
     y = y.reshape(bsz, s, din).to(x.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(z.dtype), p.norm_gain, cfg.norm_eps)
+    y = rms_norm(y * F.silu(widened(z)).to(z.dtype), p.norm_gain,
+                 cfg.norm_eps)
     out = dtn.linear(y, p.out_proj)
     return out, h_final, conv_state
 

@@ -52,7 +52,7 @@ from repro_torch.models import mamba2 as mamba_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import KVCache
-from repro_torch.models.layers import rms_norm, swiglu, weight
+from repro_torch.models.layers import rms_norm, swiglu, weight, widened
 from repro_torch.models.mamba2 import SSMState
 
 MoeFn = Callable[[nn.Module, torch.Tensor, ModelConfig],
@@ -914,10 +914,11 @@ def prefill(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     b, s, _ = x.shape
     caches = make_caches(cfg, b, capacity, cache_dtype, x.device)
     if dt.is_dtensor(x):
-        # Traced over DTensors: the caches placed as decode takes them.
+        # Over DTensors: the caches placed as decode takes them, each rank
+        # cutting its block of its own zeros (no collective).
         from repro_torch.launch.sharding import cache_pspecs, shard_tree
         caches = shard_tree(caches, cache_pspecs(cfg, x.device_mesh, caches),
-                            x.device_mesh)
+                            x.device_mesh, local=True)
     cap = _cache_capacity(cfg, caches)
     if cap is not None and s > cap:
         raise ValueError(f"prompt of {s} tokens exceeds the cache capacity "
@@ -951,7 +952,7 @@ def lm_loss(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         logits = logits[:, batch["prefix_emb"].shape[1]:, :]
     # Over DTensors a pending sum over the model axis is taken first; the
     # logsumexp and the pick reduce each rank's block of the vocabulary.
-    logits = dt.reduce_partial(logits).float()
+    logits = widened(dt.reduce_partial(logits))
     lse = dt.logsumexp(logits)
     gold = dt.take_last(logits, batch["labels"].long())
     nll = (lse - gold).mean()

@@ -31,6 +31,7 @@ from torch import nn
 
 from repro_torch import dtensor as dt
 from repro_torch.device import DeviceLike, check_on, resolve_device
+from repro_torch.models.layers import widened
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -97,7 +98,7 @@ def _global_norm(tree: Any) -> torch.Tensor:
     leaves = tree_leaves(tree)
     if dt.is_dtensor(leaves[0]):
         return dt.global_norm(leaves)
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+    return torch.sqrt(sum(torch.sum(torch.square(widened(x)))
                           for x in leaves))
 
 
@@ -122,12 +123,12 @@ def adamw_update(cfg: OptConfig, params: Any, grads: Any, state: OptState
                                       tree_leaves(state.nu)):
             if dt.is_dtensor(p):        # this rank's blocks, placed alike
                 p, g, m, v = (t.to_local() for t in (p, g, m, v))
-            g = g.float() * scale
+            g = widened(g) * scale
             m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
             v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
             u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
             if rank >= 2:                 # decoupled decay, matrices only
-                u = u + cfg.weight_decay * p.float()
-            p.copy_((p.float() - lr_ * u).to(p.dtype))
+                u = u + cfg.weight_decay * widened(p)
+            p.copy_((widened(p) - lr_ * u).to(p.dtype))
     return params, OptState(step, state.mu, state.nu), {"grad_norm": gnorm,
                                                          "lr": lr}

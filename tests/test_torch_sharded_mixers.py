@@ -43,6 +43,13 @@ process (its LEP and train step in a third subprocess, JAX_EXTRA).
   the training specs: the output (1e-5) and the gradients of x and every
   weight (2e-4 of each one's largest) of a seeded cotangent, against
   ``jax.value_and_grad`` through JAX's LEP function on four devices.
+* The dry run's sharded steps (``launch/sharded_step.py``'s cases: train,
+  prefill and decode) at 2 x 2 against the same steps unsharded and
+  against the dry run's records, the train cases without an INT8 payload
+  also against the same step in float64; and R1's prefill step through
+  the §4.3.1 hybrid in both o-proj modes (``REPRO_MLA_HYBRID``, LEP with
+  an unquantized payload) against JAX's ``model.prefill`` under the same
+  setting on its forced 4-device mesh (1e-5).
 
 In this process: the MLA plain version's ``return_lse`` against a direct
 log-sum-exp, an empty row (o = 0, lse = -inf) included, and the kernel's
@@ -122,6 +129,10 @@ OLMOE_JAX_FIELDS = {"capacity_factor": 8.0}
 #: its dispatch payloads: INT8 (the training plan's, as
 #: ``test_multidevice.py`` runs it) and unquantized (float32 at smoke width)
 OLMOE_PAYLOADS = {"int8": True, "f32": False}
+#: R1's prefill through the hybrid against JAX's: the prefill cases' smoke
+#: fields (4 MLA layers, the last a MoE layer; no token dropped)
+HYBRID_FIELDS = ss.CASES["prefill-r1-a2a"].smoke_fields
+HYBRID_MODES = ("a2a", "rs")
 #: the INT8 step against JAX's: XLA's fused division rounds some codes the
 #: other way (``test_torch_lep2d.py``), so the loss, the gradient norm and
 #: the moments hold at the INT8 tolerance of that file's gradients
@@ -197,22 +208,36 @@ PORT_SIDE = textwrap.dedent('''
     def real_steps(rank, mesh, inp, plan):
         """Every case of ``launch/sharded_step.py`` at smoke width through
         ``dryrun.build_step`` on real tensors (the seeded weights placed
-        one at a time), counted, against the same step unsharded on rank
-        0; then the OLMoE + LEP train step on JAX's weights and the
+        one at a time), counted (collectives, hybrid layers), against the
+        same step unsharded on rank 0 (and in float64 where the case
+        says); then the OLMoE + LEP train step on JAX's weights and the
         case's batch, with the balance loss weighted as configured, for
-        JAX's ``make_train_step``."""
+        JAX's ``make_train_step``; then R1's prefill through the hybrid
+        on JAX's weights and tokens."""
+        from repro_torch.core import hybrid_parallel
         from repro_torch.launch import sharded_step as ss
 
         rows = {}
         for name in ss.CASES:
             _, shape, step, args = ss.case_step(name, mesh, "cpu",
                                                 smoke=True)
+            calls = dict(hybrid_parallel.CALLS)
             out, counts = ss.run_counted(step, args)
+            calls = {k: n - calls[k] for k, n in hybrid_parallel.CALLS.items()}
             got = ss.step_results(shape.kind, out, keep=rank == 0)
             if rank == 0:
-                rows[name] = dict(ss.compare(shape.kind, got, ss.reference(
-                    name, "cpu", n_micro=mesh.size(0), smoke=True),
-                    plan["step_tol"]), counts=counts)
+                n_micro = mesh.size(0)
+                want = ss.reference(name, "cpu", n_micro=n_micro, smoke=True)
+                rows[name] = dict(ss.compare(shape.kind, got, want,
+                                             plan["step_tol"]),
+                                  counts=counts, hybrid_calls=calls)
+                if ss.CASES[name].f64:
+                    row = ss.compare(shape.kind, got, want, plan["step_tol"],
+                                     truth=ss.truth(name, "cpu", smoke=True,
+                                                    n_micro=n_micro))
+                    rows[name]["f64_gate"] = {k: row[k] for k in (
+                        "ok", "over", "param_f64_excess", "mu_f64_excess",
+                        "nu_f64_excess", "f64")}
         from repro_torch.launch import dryrun
         from repro_torch.train.optimizer import OptConfig
 
@@ -239,6 +264,21 @@ PORT_SIDE = textwrap.dedent('''
                         f"{key}:{part}").items()})
                 arrays[f"{key}:gnorm"] = got["grad_norm"].numpy()
                 arrays[f"{key}:loss"] = got["loss"].numpy()
+        cfg = dataclasses.replace(smoke_variant(get_config("deepseek-r1")),
+                                  **plan["hybrid_fields"])
+        tree = nest({k[len("hyb:p:"):]: d[k] for k in d.files
+                     if k.startswith("hyb:p:")})
+        for mode in plan["hybrid_modes"]:
+            step, args = dryrun.build_step(
+                cfg, ss.case_shape("prefill-r1", smoke=True), mesh,
+                torch.float32, device="cpu",
+                params=params_from_jax_numpy(tree, cfg, "cpu"),
+                inputs={"tokens": torch.from_numpy(d["hyb:tokens"])},
+                lep={"quantize": False}, hybrid=mode)
+            got = ss.step_results("prefill", ss.run_counted(step, args)[0],
+                                  keep=rank == 0)
+            arrays.update({f"hybrid:{mode}:{k}": v.numpy()
+                           for k, v in got.items()})
         return {"rows": rows, "arrays": arrays}
 
     def one_rank_and_records(steps, init):
@@ -468,8 +508,8 @@ JAX_EXTRA = textwrap.dedent('''
     from repro.train.loop import make_train_step
     from repro.train.optimizer import OptConfig, init_opt_state
     d = np.load(sys.argv[1])
-    kw, steps, opt, shared_ff, olmoe_fields, payloads = (
-        json.loads(a) for a in sys.argv[2:8])
+    kw, steps, opt, shared_ff, olmoe_fields, payloads, hybrid = (
+        json.loads(a) for a in sys.argv[2:9])
     out = {}
 
     def smoke(arch, **fields):
@@ -543,7 +583,26 @@ JAX_EXTRA = textwrap.dedent('''
                            ("nu", state.nu)):
             out.update({f"step:{case}:{name}:{k}": v
                         for k, v in flat(tree).items()})
-    np.savez(sys.argv[8], **out)
+    # R1's prefill through the hybrid, LEP's serving plan unquantized,
+    # inside the mesh (where model.prefill's hook enters the hybrid)
+    import os
+    from repro.core.parallel import mesh_context
+    from repro.models import model as jmodel
+    cfg = smoke("deepseek-r1", **hybrid["fields"])
+    fn = make_lep_moe_fn(mesh, **pick_lep_plan(cfg, mesh, serving=True),
+                         quantize=False)
+    tokens = jnp.asarray(d["hyb:tokens"])
+    for mode in hybrid["modes"]:
+        os.environ["REPRO_MLA_HYBRID"] = mode
+        with mesh_context(mesh):
+            logits, caches = jax.jit(lambda p, t: jmodel.prefill(
+                p, cfg, {"tokens": t}, capacity=t.shape[1], moe_fn=fn,
+                cache_dtype=jnp.float32))(nest("hyb:p:"), tokens)
+        out[f"hybrid:{mode}:logits"] = np.asarray(logits)
+        out.update({f"hybrid:{mode}:cache/{k}": v
+                    for k, v in flat(caches).items()})
+    del os.environ["REPRO_MLA_HYBRID"]
+    np.savez(sys.argv[9], **out)
 ''')
 
 
@@ -629,6 +688,13 @@ def inputs():
                                ss.case_shape("train-olmoe", smoke=True),
                                "cpu", seed=1)
     d.update({f"olmoe:{k}": v.numpy() for k, v in batch.items()})
+    hyb = _smoke("deepseek-r1", **HYBRID_FIELDS)
+    params = jax.jit(j_init_params, static_argnums=(1,))(
+        jax.random.PRNGKey(3), hyb)
+    d.update({f"hyb:p:{k}": v for k, v in _flat(params).items()})
+    shape = ss.case_shape("prefill-r1", smoke=True)
+    d["hyb:tokens"] = rng.randint(0, hyb.vocab_size, (
+        shape.global_batch, shape.seq_len)).astype(np.int32)
     return d
 
 
@@ -656,13 +722,16 @@ def sides(inputs, tmp_path_factory):
                     "linear": LINEAR if name == "2x2" else {},
                     "real_steps": name == "2x2", "step_tol": REAL_STEP_TOL,
                     "olmoe_fields": OLMOE_JAX_FIELDS,
-                    "olmoe_payloads": OLMOE_PAYLOADS})])
+                    "olmoe_payloads": OLMOE_PAYLOADS,
+                    "hybrid_fields": HYBRID_FIELDS,
+                    "hybrid_modes": HYBRID_MODES})])
         for name, shape in MESHES.items()}
     procs["jax_extra"] = _start(tmp / "jax_extra.py", [
         str(tmp / "in.npz"), json.dumps(LEP_KW),
         json.dumps({case: step[:2] for case, step in STEP.items()}),
         json.dumps(STEP_OPT), json.dumps(LEP_SHARED_FF),
         json.dumps(OLMOE_JAX_FIELDS), json.dumps(OLMOE_PAYLOADS),
+        json.dumps({"fields": HYBRID_FIELDS, "modes": HYBRID_MODES}),
         str(tmp / "jax_extra.npz")],
         xla_devices=4)
     try:
@@ -847,13 +916,61 @@ def test_sharded_step_matches_unsharded(sides, case):
     through the 1-D LEP at world size 1: a train step's loss and global
     gradient norm within 1e-5, each parameter and both moments within 2e-4
     of the leaf's largest; a decode step's logits and caches within 1e-5
-    of the largest, greedy tokens equal where the top-2 margin is clear
-    (``sharded_step.compare``)."""
+    of the largest, greedy tokens equal where the top-2 margin is clear;
+    a prefill's logits and caches likewise (``sharded_step.compare``)."""
     ports, _ = sides
     row = ports["steps"]["rows"][case]
     assert row["ok"], row
-    if ss.CASES[case].kind == "decode":
+    if ss.CASES[case].kind != "train":
         assert row["greedy_checked"] > 0, row
+
+
+@pytest.mark.parametrize("case", [c for c in STEP_CASES if ss.CASES[c].f64])
+def test_train_steps_hold_against_float64(sides, case):
+    """The train cases without an INT8 payload at 2 x 2 against the same
+    step in float64 (``sharded_step.truth``: the float32 step's weights
+    and batch widened, on the CPU): each parameter and both moments no
+    further from it than the unsharded float32 step plus STEP_TOL of the
+    leaf's largest value, the loss and gradient norm within 1e-5 of the
+    unsharded step's."""
+    ports, _ = sides
+    row = ports["steps"]["rows"][case]["f64_gate"]
+    assert row["ok"], row
+    assert set(row["f64"]["sharded_max_err"]) == {"param", "mu", "nu"}
+
+
+@pytest.mark.parametrize("mode", HYBRID_MODES)
+def test_sharded_hybrid_prefill_matches_jax(sides, mode):
+    """R1's prefill step at smoke width (4 MLA layers, the last through
+    LEP's serving plan with an unquantized payload) at 2 x 2 with every
+    MLA layer through the §4.3.1 hybrid (``build_step(hybrid=mode)``),
+    on JAX's weights and tokens, against JAX's ``model.prefill`` under
+    ``REPRO_MLA_HYBRID`` = ``mode`` inside its forced 4-device mesh: the
+    logits and every latent cache within 1e-5 of their largest."""
+    ports, want = sides
+    got = ports["2x2"]
+    key = f"hybrid:{mode}:"
+    _close(got[key + "logits"], want[key + "logits"])
+    caches = sorted(k for k in got if k.startswith(key + "cache/"))
+    assert caches and all(k.endswith("/mla") for k in caches), caches
+    for k in caches:
+        _close(got[k], want[k])
+
+
+def test_hybrid_prefill_step_enters_the_hybrid(sides):
+    """The hybrid prefill cases run ``mla_prefill_hybrid`` on each of the
+    4 MLA layers of R1's cut with their o-proj mode, the plain one on
+    none; a block that sets the mode but never enters the hybrid raises
+    (``dryrun.hybrid_prefill``): a prefill that took the plain path is not
+    taken for the hybrid's."""
+    ports, _ = sides
+    rows = ports["steps"]["rows"]
+    assert rows["prefill-r1-a2a"]["hybrid_calls"] == {"a2a": 4, "rs": 0}
+    assert rows["prefill-r1-rs"]["hybrid_calls"] == {"a2a": 0, "rs": 4}
+    assert rows["prefill-r1"]["hybrid_calls"] == {"a2a": 0, "rs": 0}
+    with pytest.raises(AssertionError, match="ran on 0 MLA layers, not 4"):
+        with dryrun.hybrid_prefill("a2a", None, 4):
+            pass
 
 
 @pytest.mark.parametrize("case", STEP_CASES)
@@ -936,15 +1053,39 @@ def test_reductions_hand_contiguous_buffers(monkeypatch, route):
 
 
 @pytest.mark.parametrize("what", ["train_leaf", "decode_held_row",
-                                  "decode_unheld_row"])
+                                  "decode_unheld_row", "f64_within",
+                                  "f64_past"])
 def test_compare_gates_at_fixed_tolerances(what):
     """``sharded_step.compare`` holds every quantity at its fixed
     tolerance, whatever the reference's disagreement with itself: a moment
     3e-4 of its leaf's largest off fails the train step (STEP_TOL 2e-4),
     and names the leaf; a decode step's logits row off by half the
     largest logit fails where the row is held and is only reported where
-    it is not, its caches and written rows held on every row."""
+    it is not, its caches and written rows held on every row. Against a
+    float64 truth, a moment that the unsharded step has 1e-3 of its
+    largest off passes where the sharded one is off by 0.5 STEP_TOL more
+    and fails at 1.5 STEP_TOL more."""
     gen = torch.Generator().manual_seed(0)
+    if what.startswith("f64"):
+        truth = {"loss": torch.tensor(2.0), "grad_norm": torch.tensor(1.0)}
+        for part in ("param", "mu", "nu"):
+            truth.update({f"{part}/a": torch.randn(8, 4, generator=gen),
+                          f"{part}/b": torch.randn(16, generator=gen)})
+        want = {k: v.clone() for k, v in truth.items()}
+        scale = truth["mu/b"].abs().max()
+        want["mu/b"][3] += 1e-3 * scale
+        got = {k: v.clone() for k, v in want.items()}
+        got["mu/b"][3] += (0.5 if what == "f64_within" else 1.5) \
+            * ss.STEP_TOL * scale
+        row = ss.compare("train", got, want, 0.02, truth=truth)
+        assert row["f64"]["unsharded_max_err"]["mu"] > ss.STEP_TOL
+        if what == "f64_within":
+            assert row["ok"] and not row["over"], row
+        else:
+            assert row["over"] == ["mu_f64_excess"], row
+            assert list(row["f64"]["leaves_over"]["mu"]) == ["mu/b"], row
+            assert not row["ok"]
+        return
     if what == "train_leaf":
         want = {"loss": torch.tensor(2.0), "grad_norm": torch.tensor(1.0)}
         for part in ("param", "mu", "nu"):
@@ -975,12 +1116,14 @@ def test_held_rows_of_the_decode_cases():
     """The rows whose logits the full-width decode cases hold at 2 x 2:
     ``decode-olmoe`` those whose cache (the new token's slot included)
     lies inside the first of two sequence blocks of 1024, so all but the
-    capacity-frozen row; ``decode-r1`` none of the bf16 step's (its float32
-    step holds every row); the train cases every row (None)."""
+    capacity-frozen row; ``decode-r1`` and the prefill cases none of the
+    bf16 step's (their float32 step holds every row); the train cases
+    every row (None)."""
     held = {name: ss.held_rows(name, ss.case_shape(name), 2)
             for name in ss.CASES}
     assert held["decode-olmoe"] == [0, 1, 2, 3, 5, 6, 7]
     assert held["decode-r1"] == []
+    assert all(held[n] == [] for n in ss.CASES if n.startswith("prefill"))
     assert all(held[n] is None for n in ss.CASES if n.startswith("train"))
 
 
