@@ -57,7 +57,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import parallel as par
 from repro_torch.kernels.dispatch_quant import dispatch_quantize
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import swiglu
+from repro_torch.models.layers import swiglu, widened
 
 #: expert bytes a device may hold replicated before ``pick_lep_plan``
 #: shards the FFN over ``data`` (the JAX package's threshold)
@@ -93,7 +93,15 @@ def _unpack(payload: torch.Tensor, d: int, dtype: torch.dtype) -> torch.Tensor:
     """Dequantize packed int8 rows (..., D + 4) to ``dtype``."""
     q = payload[..., :d]
     s = payload[..., d:].contiguous().view(torch.float32)
-    return (q.float() * s).to(dtype)
+    return _dequantize(q, s, dtype)
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype
+                ) -> torch.Tensor:
+    """int8 codes times their rows' float32 scales, in ``dtype``: the
+    product in float32 (in float64 for a float64 step)."""
+    wide = torch.promote_types(dtype, torch.float32)
+    return (q.to(wide) * scale.to(wide)).to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,7 +320,7 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
                     q.reshape(lay.n_ep, slots_loc * cap, d), lay.ep_group)
                 s_recv = par.all_to_all(
                     scale.reshape(lay.n_ep, slots_loc * cap, 1), lay.ep_group)
-                recv = (q_recv.float() * s_recv).to(x.dtype)
+                recv = _dequantize(q_recv, s_recv, x.dtype)
         else:
             recv = par.all_to_all(buf.reshape(lay.n_ep, slots_loc * cap, d),
                                   lay.ep_group)
@@ -374,15 +382,15 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
         # The K picks of a token are adjacent in the flat order, so the
         # combine is a sum over K (as in ``moe_capacity``).
         gathered = torch.where(flat_v[:, None], y_flat[flat_slot, flat_pos], 0)
-        weighted = gathered.float() * top_p.reshape(-1)[:, None]
+        weighted = widened(gathered) * top_p.reshape(-1)[:, None]
         out = (weighted.reshape(t_loc, k, d).sum(dim=1) + meta_term).to(x.dtype)
 
         dropped = (~flat_v).sum()
         if lay.all_group is not None:
             # pmean(aux) and psum(dropped) over every axis in one reduction.
-            red = par.sum_replicated(torch.stack([aux.float(),
-                                                  dropped.float()]),
-                                     lay.all_group)
+            wide = widened(aux)
+            red = par.sum_replicated(
+                torch.stack([wide, dropped.to(wide.dtype)]), lay.all_group)
             aux = red[0] / lay.n_all
             dropped = red[1].round().to(torch.int64)
         # Shared experts on the token split, their weights whole

@@ -24,6 +24,13 @@ if TYPE_CHECKING:
     from torch.distributed.tensor import DTensor
 
 
+def widened(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is where its dtype is wider: what a
+    narrower model computes in float32, a float64 step (a reference of
+    ``launch/sharded_step.py``) computes in float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def is_dtensor(x) -> bool:
     """Whether ``x`` is a DTensor (none can exist before DTensor's module
     is imported, so this does not import it)."""
@@ -151,11 +158,12 @@ def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     mesh = leaves[0].device_mesh
     coord = mesh.get_coordinate()
     local = [x.to_local() for x in leaves]
-    total = torch.zeros((), dtype=torch.float32, device=local[0].device)
+    total = torch.zeros((), dtype=torch.promote_types(
+        leaves[0].dtype, torch.float32), device=local[0].device)
     for x, block in zip(leaves, local):
         if all(c == 0 for c, p in zip(coord, x.placements)
                if not p.is_shard()):
-            total = total + torch.sum(torch.square(block.float()))
+            total = total + torch.sum(torch.square(widened(block)))
     group = par.axes_group(mesh, tuple(mesh.mesh_dim_names))
     return torch.sqrt(par.sum_replicated(total, group))
 
@@ -214,6 +222,7 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
     """``layers.rms_norm`` of a DTensor whose last dimension (the width the
     norm reduces) is cut over some mesh axes, as XLA partitions it: each
     rank sums the squares of its block's rows, one (..., 1) float32 tensor
+    (float64 in a float64 step)
     is all-reduced over those axes (both ways: its backward reduces the
     same small tensor once), and each rank normalizes its own block with
     its slice of ``gain`` (replicated); the rows never move. ``gain``'s
@@ -237,10 +246,10 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
 
     def body(xb, gb):
         gb = prepared(gb, cutting).narrow(0, lo, xb.shape[-1])
-        xf = prepared(xb, None).float()
+        xf = widened(prepared(xb, None))
         ss = par.all_reduce(xf.square().sum(dim=-1, keepdim=True), cut)
         xf = xf * torch.rsqrt(ss / width + eps)
-        return ((xf * gb.float()).to(xb.dtype),)
+        return ((xf * widened(gb)).to(xb.dtype),)
 
     return local_map(body, out_placements=(tuple(x.placements),),
                      in_placements=(tuple(x.placements), replicated(mesh)),

@@ -49,15 +49,20 @@ def plan_for(x: torch.Tensor, q: torch.Tensor) -> dq_plan.Plan:
 
 
 def dispatch_quantize(x: torch.Tensor, pack: bool = False):
-    """x (T, D) float32 or bfloat16, contiguous -> (q int8 (T, D), scale
+    """x (T, D) float32 or bfloat16 (on the CPU also float64), contiguous
+    -> (q int8 (T, D), scale
     f32 (T, 1)), or with ``pack`` one int8 (T, D + 4) tensor whose last 4
     bytes per row are the row's f32 scale. See :func:`dispatch_quantize_ref`
     for the arithmetic."""
     global LAUNCHES
     if x.ndim != 2:
         raise ValueError(f"want x (T, D), got {tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    # The kernel takes float32 or bfloat16; the plain version also float64
+    # on the CPU (a float64 step's).
+    if x.dtype not in (torch.float32, torch.bfloat16) and not (
+            x.dtype == torch.float64 and x.device.type == "cpu"):
+        raise ValueError(f"x must be float32 or bfloat16 (on the CPU also "
+                         f"float64), got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     if x.device.type in ("cpu", "meta"):

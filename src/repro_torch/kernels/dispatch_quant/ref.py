@@ -21,13 +21,17 @@ def dispatch_quantize_ref(x: torch.Tensor, pack: bool = False):
     ``scale = max(max|x|, 1e-8) / 127`` and ``q = clip(round(x / scale),
     -127, 127)`` (round half to even, as ``jnp.round``). With ``pack`` the
     result is one int8 (T, D + 4) tensor: the codes, then the 4 bytes of
-    each row's f32 scale (``lep.py``'s bitcast payload tail)."""
-    xf = x.float()
+    each row's f32 scale (``lep.py``'s bitcast payload tail). A float64 x
+    (a float64 step's) is taken in float64, its scale rounded once to the
+    float32 the payload carries and the codes rounded against that
+    scale."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     absmax = xf.abs().amax(dim=-1, keepdim=True)
     # A tensor divisor: on CUDA, dividing by a Python number multiplies by
     # its reciprocal, which is not the true quotient the kernel computes.
-    scale = absmax.clamp_min(1e-8) / torch.tensor(127.0, device=x.device)
-    q = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
+    scale = (absmax.clamp_min(1e-8) / torch.tensor(
+        127.0, dtype=xf.dtype, device=x.device)).to(torch.float32)
+    q = torch.round(xf / scale.to(xf.dtype)).clamp_(-127, 127).to(torch.int8)
     if not pack:
         return q, scale
     return torch.cat([q, scale.reshape(-1).view(torch.int8).view(-1, 4)],

@@ -50,9 +50,14 @@ def _check(q_lat, q_rope, cache, cache_len) -> None:
     if tuple(cache_len.shape) != (b,) or cache_len.dtype != torch.int32:
         raise ValueError(f"cache_len must be ({b},) int32, got "
                          f"{tuple(cache_len.shape)} {cache_len.dtype}")
+    # The kernel takes float32; the plain version also float64 on the CPU
+    # (a float64 step's), all three alike.
+    want = torch.float64 if q_lat.dtype == torch.float64 \
+        and q_lat.device.type == "cpu" else torch.float32
     for name, t in (("q_lat", q_lat), ("q_rope", q_rope), ("cache", cache)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != want:
+            raise ValueError(f"{name} must be float32 (on the CPU all three "
+                             f"may be float64), got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     devices = {t.device for t in (q_lat, q_rope, cache, cache_len)}

@@ -211,18 +211,24 @@ def make_production_mesh(multi_pod: bool = False):
 
 def sharded_model(cfg: ModelConfig, mesh, train: bool = False, *,
                   device=META, seed: int = 0, params=None,
-                  expert_axes: Optional[Tuple[str, ...]] = None):
+                  expert_axes: Optional[Tuple[str, ...]] = None,
+                  dtype: Optional[torch.dtype] = None):
     """A ``Model`` of ``cfg`` whose every weight is a DTensor over ``mesh``
     placed by ``param_pspecs`` (``expert_axes`` as there). On ``META`` the
     blocks are meta tensors (the dry run); else they hold the weights of
-    ``params`` (a plain ``Model``, placed in place) or, without it, those
+    ``params`` (a plain ``Model``, placed in place; one whose weights are
+    DTensors already is returned as it is) or, without it, those
     of ``init_params(cfg, seed=seed, device=device)``, bit for bit: each
-    weight is drawn whole, placed, and its whole copy dropped before the
-    next is drawn, so no rank holds the whole model. Raises where the
-    weights do not live on the mesh's device type."""
+    weight is drawn whole, placed (widened to ``dtype`` where given), and
+    its whole copy dropped before the next is drawn, so no rank holds the
+    whole model. Raises where the weights do not live on the mesh's device
+    type."""
+    from repro_torch.dtensor import is_dtensor
     from repro_torch.launch.sharding import leaf_specs, param_shapes
     from repro_torch.models.layers import placing
 
+    if params is not None and all(is_dtensor(p) for p in params.parameters()):
+        return params
     specs = param_pspecs(cfg, mesh, param_shapes(cfg), train=train,
                          expert_axes=expert_axes)
     if params is not None:
@@ -243,8 +249,8 @@ def sharded_model(cfg: ModelConfig, mesh, train: bool = False, *,
     order = iter([names[id(p)] for p in made])
 
     def place(p):
-        return torch.nn.Parameter(distribute(p.detach(), mesh,
-                                             by_name[next(order)]),
+        return torch.nn.Parameter(distribute(p.detach().to(dtype or p.dtype),
+                                             mesh, by_name[next(order)]),
                                   requires_grad=False)
 
     with placing(place):

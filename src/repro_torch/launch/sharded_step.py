@@ -33,6 +33,8 @@ import json
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.configs.base import InputShape, ModelConfig
@@ -61,6 +63,13 @@ STEP_TOL = 2e-4
 #: far rounding alone moves the step (a diagnostic printed beside the
 #: comparison, never a limit)
 NUDGE = 1e-7
+#: the float64 partition check (:func:`compare_f64`): the sharded step in
+#: float64 against the same step unsharded in float64, every gated
+#: quantity within F64_TOL of its largest |value| (a train step's loss and
+#: gradient norm relative). Reordered float64 sums part by 1e-16-1e-12
+#: where float32 steps part by 1e-4; a wrong partition, or a site that
+#: computes in float32 on one side, parts by 1e-7 or more
+F64_TOL = 1e-9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,13 +224,17 @@ def case_shape(name: str, smoke: bool = False,
 def case_step(name: str, mesh, device, *, smoke: bool = False, seed: int = 0,
               params=None, cfg: Optional[ModelConfig] = None,
               shape: Optional[InputShape] = None, n_micro: int = 1,
-              inputs: Optional[Dict[str, Any]] = None):
+              inputs: Optional[Dict[str, Any]] = None,
+              dtype: Optional[torch.dtype] = None):
     """(cfg, shape, step, its arguments) of case ``name`` over ``mesh``
     (None: unsharded, a hybrid case's prefill plain) on ``device``:
     ``dryrun.build_step`` with the case's plan, float32 caches as a
     serving engine keeps them, the decode lengths of DECODE_LENS
     (SMOKE_DECODE_LENS, or cut to the batch), ``n_micro`` groups of rows
-    and ``inputs`` where given."""
+    and ``inputs`` where given. With ``dtype`` (float64, on the CPU) the
+    step computes in it: its weights drawn as the case's own step draws
+    them, then widened (each one as it is placed), its caches and moments
+    ``dtype``."""
     from repro_torch.train.optimizer import OptConfig
 
     case = CASES[name]
@@ -229,8 +242,20 @@ def case_step(name: str, mesh, device, *, smoke: bool = False, seed: int = 0,
     shape = shape or case_shape(name, smoke)
     lens = SMOKE_DECODE_LENS if smoke else DECODE_LENS
     lens = [min(n, shape.seq_len) for n in lens][:shape.global_batch]
+    cache_dtype = torch.float32
+    if dtype is not None:
+        from repro_torch.models.model import init_params
+
+        if params is None and mesh is None:
+            params = init_params(cfg, seed=seed, device=device).to(dtype)
+        elif params is None:
+            params = dryrun.sharded_model(
+                cfg, mesh, train=case.kind == "train", device=device,
+                seed=seed, expert_axes=case.expert_axes, dtype=dtype)
+        cfg = dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1])
+        cache_dtype = dtype
     step, args = dryrun.build_step(
-        cfg, shape, mesh, torch.float32, device=device, seed=seed,
+        cfg, shape, mesh, cache_dtype, device=device, seed=seed,
         params=params, inputs=inputs,
         cache_len=lens if case.kind == "decode" else None,
         lep=case.lep, expert_axes=case.expert_axes,
@@ -242,7 +267,8 @@ def case_step(name: str, mesh, device, *, smoke: bool = False, seed: int = 0,
 def reference(name: str, device, *, n_micro: int = 1, smoke: bool = False,
               seed: int = 0, shape: Optional[InputShape] = None,
               params=None, cfg: Optional[ModelConfig] = None,
-              nudge: float = 0.0, inputs: Optional[Dict[str, Any]] = None
+              nudge: float = 0.0, inputs: Optional[Dict[str, Any]] = None,
+              dtype: Optional[torch.dtype] = None
               ) -> Dict[str, torch.Tensor]:
     """:func:`step_results` (where they are) of case ``name``'s step
     unsharded on ``device`` over ``n_micro`` groups of rows: as many as
@@ -250,11 +276,12 @@ def reference(name: str, device, *, n_micro: int = 1, smoke: bool = False,
     product at a data rank's row count (an INT8 code turns the rounding of
     a product run at other row counts into more than a tolerance). With
     ``nudge``, a decode step's float caches are first scaled by 1 + nudge
-    x N(0, 1), element by element (seeded): a rounding of its inputs."""
+    x N(0, 1), element by element (seeded): a rounding of its inputs.
+    ``dtype`` as :func:`case_step` takes it."""
     _, shape, step, args = case_step(name, None, device, smoke=smoke,
                                      seed=seed, params=params, cfg=cfg,
                                      shape=shape, n_micro=n_micro,
-                                     inputs=inputs)
+                                     inputs=inputs, dtype=dtype)
     if nudge:
         gen = torch.Generator(device=device).manual_seed(seed + 2)
         for t in named_leaves(args[2]).values():
@@ -285,7 +312,7 @@ def truth(name: str, draw_on, *, n_micro: int = 1, smoke: bool = False,
         cfg, shape, draw_on, seed + 1).items()}
     return reference(name, "cpu", n_micro=n_micro, smoke=smoke, seed=seed,
                      shape=shape, params=params, inputs=inputs,
-                     cfg=dataclasses.replace(cfg, dtype="float64"))
+                     dtype=torch.float64)
 
 
 def run_counted(step, args) -> Tuple[Any, Dict[str, int]]:
@@ -552,6 +579,128 @@ def _against_truth(got: Dict[str, torch.Tensor],
                                     for k, (s, u) in worst}
     out["f64"] = f64
     return out
+
+
+def compare_f64(kind: str, got: Dict[str, torch.Tensor],
+                want: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The float64 partition check: ``got`` (the sharded step's
+    :func:`step_results`, in float64) against ``want`` (the same step
+    unsharded in float64, :func:`reference` with ``dtype``), every
+    quantity at F64_TOL: a train step's loss and global gradient norm
+    (relative) and every parameter and both moments (of each leaf's
+    largest |value|); a prefill or decode step's logits on every row,
+    every float cache leaf (and a decode step's written rows) of its
+    largest, and its greedy tokens equal on every row. Returns each
+    part's worst error (``errs``), the worst leaf (``worst``,
+    ``worst_err``), the logits error and greedy equality by row, ``over``
+    (the leaves past F64_TOL) and ``ok``; for a train step, printed
+    beside (never a limit), the parameters' worst error over the elements
+    whose reference first moment is above 1e-8, 1e-6 and 1e-4 of its
+    leaf's largest, and the first moment where the worst parameter parts
+    (``worst_mu_at``, of its largest)."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"leaves differ: "
+                             f"{sorted(set(got) ^ set(want))[:8]}")
+    errs: Dict[str, float] = {}
+    row: Dict[str, Any] = {"tol": F64_TOL}
+    for k in got:
+        if k in ("loss", "grad_norm"):
+            errs[k] = abs(got[k].item() - want[k].item()) / max(
+                abs(want[k].item()), 1e-300)
+        else:
+            errs[k] = _err(got[k], want[k])
+    if kind != "train":
+        logits, ref = got["logits"].to(want["logits"].device), want["logits"]
+        row["logits_err_by_row"] = [_err(a, b) for a, b in zip(logits, ref)]
+        same = logits.argmax(-1) == ref.argmax(-1)
+        row["greedy_equal_by_row"] = same.reshape(len(same), -1).all(
+            -1).tolist()
+    parts: Dict[str, float] = {}
+    for k, e in errs.items():
+        part = k.split("/")[0]
+        parts[part] = max(parts.get(part, 0.0), e)
+    row["errs"] = parts
+    row["worst"] = max(errs, key=errs.get)
+    row["worst_err"] = errs[row["worst"]]
+    if kind == "train":
+        # the parameters' worst error over the elements whose reference
+        # first moment is above each fraction of its leaf's largest
+        # (printed, never a limit): an error confined to the small moments
+        # is AdamW's step normalizing a gradient that carries the rounding
+        # of the sums that made it
+        row["param_err_where_mu_above"] = {}
+        for floor in (1e-8, 1e-6, 1e-4):
+            worst = 0.0
+            for k in (k for k in got if k.startswith("param/")):
+                mu = want["mu/" + k[len("param/"):]].abs()
+                worst = max(worst, _err(got[k], want[k], mu > floor * max(
+                    mu.max().item(), 1e-300)))
+            row["param_err_where_mu_above"][f"{floor:g}"] = worst
+    if row["worst"].startswith("param/"):
+        # the reference's first moment (0.1 of the clipped gradient) where
+        # the parameter parts most, of that moment's largest: near 0, the
+        # step lr x m / (sqrt(v) + eps) turns on the gradient's rounding
+        k = row["worst"][len("param/"):]
+        at = (got["param/" + k].to(want["param/" + k].device).double()
+              - want["param/" + k].double()).abs().flatten().argmax()
+        mu = want["mu/" + k].double().abs().flatten()
+        row["worst_mu_at"] = mu[at].item() / max(mu.max().item(), 1e-300)
+    row["over"] = sorted(k for k, e in errs.items() if e > F64_TOL)
+    row["ok"] = not row["over"] and all(row.get("greedy_equal_by_row", []))
+    return row
+
+
+class NarrowOps(TorchDispatchMode):
+    """Inside the block, every op whose floating output is narrower than
+    float64, counted under ``ops`` by where the port called it (the
+    innermost frame under ``repro_torch/`` outside the dispatch modes,
+    ``file:line function``, the file from the package's parent), the op
+    and the dtype: the sites that demote a float64 step. Ops on DTensors
+    are left to DTensor, whose local ops come back here; ops on fake
+    tensors (DTensor's shape propagation) are not counted."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: Dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        narrow = sorted({str(t.dtype).split(".")[-1]
+                         for t in tree_leaves(out)
+                         if isinstance(t, torch.Tensor)
+                         and not isinstance(t, FakeTensor)
+                         and t.dtype.is_floating_point
+                         and t.dtype.itemsize < 8})
+        if narrow:
+            key = f"{_caller()} {func._schema.name} {','.join(narrow)}"
+            self.ops[key] = self.ops.get(key, 0) + 1
+        return out
+
+
+def _caller() -> str:
+    """``file:line function`` of the innermost frame in the port's package outside
+    this module and the collective counter's (the dispatch modes; paths
+    from the package's parent)."""
+    import os
+    import traceback
+
+    from repro_torch.launch import collectives
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.dirname(os.path.dirname(here))
+    modes = {os.path.abspath(__file__), os.path.abspath(collectives.__file__)}
+    for frame in reversed(traceback.extract_stack()):
+        path = os.path.abspath(frame.filename)
+        if path.startswith(os.path.join(root, "repro_torch")) \
+                and path not in modes:
+            return f"{os.path.relpath(path, root)}:{frame.lineno} " \
+                   f"{frame.name}"
+    return "? ?"
 
 
 def bytes_by_kind(counts: Dict[str, int]) -> Dict[str, int]:

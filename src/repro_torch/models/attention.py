@@ -133,16 +133,17 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`_sdpa` over one block of the key positions, as a partial
-    softmax: (o (B,Sq,H,hd) float32, normalized within the block, lse
-    (B,Sq,H) float32, the log of its denominator); a query row with no
-    valid position in the block has o = 0 and lse = -inf."""
+    softmax: (o (B,Sq,H,hd) float32 (float64 in a float64 step),
+    normalized within the block, lse (B,Sq,H) alike, the log of its
+    denominator); a query row with no valid position in the block has o =
+    0 and lse = -inf."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
-    qg = q.reshape(b, sq, kvh, h // kvh, hd).float()
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) / (hd ** 0.5)
+    qg = widened(q.reshape(b, sq, kvh, h // kvh, hd))
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, widened(k)) / (hd ** 0.5)
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
+    out = torch.einsum("bkgst,btkh->bskgh", probs, widened(v))
     full = mask.any(-1)                                       # (B|1, Sq)
     lse = torch.logsumexp(scores, dim=-1).permute(0, 3, 1, 2)  # (B,Sq,KV,G)
     lse = torch.where(full[:, :, None, None], lse, float("-inf"))
@@ -218,17 +219,18 @@ def _flash_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kvh = k.shape[2]
     g = h // kvh
     dev = q.device
-    kf, vf = k.float(), v.float()
+    kf, vf = widened(k), widened(v)
     win = cfg.sliding_window
     outs = []
     for lo_q in range(0, s, chunk):
         hi_q = min(lo_q + chunk, s)
         n = hi_q - lo_q
-        qg = q[:, lo_q:hi_q].reshape(b, n, kvh, g, hd).float()
+        qg = widened(q[:, lo_q:hi_q].reshape(b, n, kvh, g, hd))
         q_pos = torch.arange(lo_q, hi_q, device=dev)
-        m = torch.full((b, kvh, g, n, 1), NEG_INF, device=dev)
-        l = torch.zeros((b, kvh, g, n, 1), device=dev)
-        acc = torch.zeros((b, kvh, g, n, hd), device=dev)
+        m = torch.full((b, kvh, g, n, 1), NEG_INF, dtype=kf.dtype,
+                       device=dev)
+        l = torch.zeros((b, kvh, g, n, 1), dtype=kf.dtype, device=dev)
+        acc = torch.zeros((b, kvh, g, n, hd), dtype=kf.dtype, device=dev)
         first = max(0, (lo_q - (win - 1)) // chunk) if win else 0
         for lo in range(first * chunk, lo_q + 1, chunk):
             hi = min(lo + chunk, s)

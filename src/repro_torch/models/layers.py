@@ -8,13 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import dtensor as dt
-
-
-def widened(x: torch.Tensor) -> torch.Tensor:
-    """``x`` in float32, or as it is where its dtype is wider: what a
-    narrower model computes in float32, a float64 step (a reference of
-    ``launch/sharded_step.py``) computes in float64."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
+from repro_torch.dtensor import widened
 
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5

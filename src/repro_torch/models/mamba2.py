@@ -164,7 +164,7 @@ def _conv_blocks(p: Mamba, x: torch.Tensor, cfg: ModelConfig):
     n = cfg.ssm_state
     z, x_raw, bc_raw, dt_raw = dtn.linear(
         x, p.in_proj, (din, din, 2 * n, cfg.ssm_heads))
-    dt = F.softplus(dt_raw.float() + p.dt_bias)
+    dt = F.softplus(widened(dt_raw) + p.dt_bias)
     xs = _causal_conv(x_raw, p.conv_w[:, :din], p.conv_b[:din])
     bc = dtn.whole_last(_causal_conv(bc_raw, p.conv_w[:, din:],
                                      p.conv_b[din:]))
@@ -203,8 +203,8 @@ def mamba_decode(p: Mamba, x: torch.Tensor, h_state: torch.Tensor,
     z, xbc_raw, dt = _split_proj(p, x, cfg)                  # seq dim = 1
     window = torch.cat([conv_state, xbc_raw], dim=1)         # (B,K,C)
     new_conv_state = window[:, 1:, :]
-    conv_out = torch.einsum("bkc,kc->bc", window.float(), p.conv_w.float()) \
-        + p.conv_b.float()
+    conv_out = torch.einsum("bkc,kc->bc", widened(window),
+                            widened(p.conv_w)) + widened(p.conv_b)
     # Over DTensors the row's channels are gathered once, to be cut by
     # heads and to give every rank B and C.
     xbc = F.silu(dtn.whole_last(conv_out))
@@ -218,21 +218,28 @@ def mamba_decode(p: Mamba, x: torch.Tensor, h_state: torch.Tensor,
     y = torch.einsum("bhpn,bn->bhp", h_state, cmat)
     y = y + p.D[None, :, None] * xin
     y = y.reshape(bsz, 1, din).to(x.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(z.dtype), p.norm_gain, cfg.norm_eps)
+    y = rms_norm(y * F.silu(widened(z)).to(z.dtype), p.norm_gain,
+                 cfg.norm_eps)
     out = dtn.linear(y, p.out_proj)
     return out, h_state, new_conv_state
 
 
 def make_ssm_state(cfg: ModelConfig, n_layers: int, batch: int,
-                   device: torch.device) -> SSMState:
+                   device: torch.device,
+                   dtype: torch.dtype = torch.bfloat16) -> SSMState:
     """A zero state: ``h`` float32 and ``conv`` bfloat16 whatever the cache
-    dtype, as the JAX package makes them."""
+    ``dtype``, as the JAX package makes them; both float64 for a float64
+    cache (a float64 step's, ``launch/sharded_step.py``)."""
     din = cfg.d_model * cfg.ssm_expand
     conv_ch = din + 2 * cfg.ssm_state
+    wide = dtype == torch.float64
     return SSMState(
         h=torch.zeros((n_layers, batch, cfg.ssm_heads, cfg.ssm_head_dim,
-                       cfg.ssm_state), dtype=torch.float32, device=device),
+                       cfg.ssm_state),
+                      dtype=torch.float64 if wide else torch.float32,
+                      device=device),
         conv=torch.zeros((n_layers, batch, cfg.ssm_conv - 1, conv_ch),
-                         dtype=torch.bfloat16, device=device),
+                         dtype=torch.float64 if wide else torch.bfloat16,
+                         device=device),
         length=torch.zeros((), dtype=torch.int32, device=device),
     )

@@ -39,7 +39,7 @@ from repro_torch.models.attention import (NEG_INF, _pick_chunk, _positions_of,
                                           block_skip_enabled, extend_positions,
                                           merge_blocks, update_cache,
                                           write_tokens)
-from repro_torch.models.layers import apply_rope, rms_norm, weight
+from repro_torch.models.layers import apply_rope, rms_norm, weight, widened
 
 
 class MLA(nn.Module):
@@ -99,17 +99,17 @@ def _mla_flash_causal(q_nope, q_rope, k_nope, k_rope, vfull, scale: float,
     b, s, h, _ = q_nope.shape
     vd = vfull.shape[-1]
     dev = q_nope.device
-    knf, krf, vf = k_nope.float(), k_rope.float(), vfull.float()
+    knf, krf, vf = widened(k_nope), widened(k_rope), widened(vfull)
     outs = []
     for lo_q in range(0, s, chunk):
         hi_q = min(lo_q + chunk, s)
         n = hi_q - lo_q
-        qn = q_nope[:, lo_q:hi_q].float()
-        qr = q_rope[:, lo_q:hi_q].float()
+        qn = widened(q_nope[:, lo_q:hi_q])
+        qr = widened(q_rope[:, lo_q:hi_q])
         q_pos = torch.arange(lo_q, hi_q, device=dev)
-        m = torch.full((b, h, n, 1), NEG_INF, device=dev)
-        l = torch.zeros((b, h, n, 1), device=dev)
-        acc = torch.zeros((b, h, n, vd), device=dev)
+        m = torch.full((b, h, n, 1), NEG_INF, dtype=knf.dtype, device=dev)
+        l = torch.zeros((b, h, n, 1), dtype=knf.dtype, device=dev)
+        acc = torch.zeros((b, h, n, vd), dtype=knf.dtype, device=dev)
         for lo in range(0, lo_q + 1, chunk):
             hi = min(lo + chunk, s)
             scores = (torch.einsum("bshe,bthe->bhst", qn, knf[:, lo:hi])
@@ -166,16 +166,16 @@ def mla_causal_attention(q_nope, q_rope, k_nope, k_rope, vfull,
         return _mla_flash_causal(q_nope, q_rope, k_nope, k_rope, vfull,
                                  scale, chunk)
     dev = q_nope.device
-    knf, krf, vf = k_nope.float(), k_rope.float(), vfull.float()
+    knf, krf, vf = widened(k_nope), widened(k_rope), widened(vfull)
     kv_pos = torch.arange(s, device=dev)
     outs = []
     for lo in range(0, s, chunk):
         hi = min(lo + chunk, s)
         q_pos = torch.arange(lo, hi, device=dev)
         scores = (torch.einsum("bshe,bthe->bhst",
-                               q_nope[:, lo:hi].float(), knf)
+                               widened(q_nope[:, lo:hi]), knf)
                   + torch.einsum("bshe,bte->bhst",
-                                 q_rope[:, lo:hi].float(), krf)
+                                 widened(q_rope[:, lo:hi]), krf)
                   ) * scale
         mask = kv_pos[None, :] <= q_pos[:, None]
         scores = torch.where(mask[None, None], scores, NEG_INF)
@@ -223,7 +223,7 @@ def _decode_seq_blocks(q_lat, q_rope, cache, rows_len: torch.Tensor,
     def body(q_lat, q_rope, block, lens):
         o, lse = mla_ops.mla_decode_attention(
             q_lat.contiguous(), q_rope.contiguous(),
-            block.float().contiguous(), (lens - v0).contiguous(), scale,
+            widened(block).contiguous(), (lens - v0).contiguous(), scale,
             return_lse=True)
         return merge_blocks(o, lse, group)
 
@@ -254,19 +254,19 @@ def mla_decode(p: MLA, x: torch.Tensor, cache: torch.Tensor,
 
     # Absorb W_UK into the query: q_lat (B,1,H,kvr)
     wk = dt.fit_heads(p.wk_b, h).reshape(kvr, h, nope)
-    q_lat = torch.einsum("bshe,rhe->bshr", q_nope.float(), wk.float())
+    q_lat = torch.einsum("bshe,rhe->bshr", widened(q_nope), widened(wk))
     scale = 1.0 / ((nope + rope) ** 0.5)
     rows_len = cache_len.to(torch.int32).expand(b).contiguous()
     if dt.is_dtensor(cache):
-        o_lat = _decode_seq_blocks(q_lat[:, 0], q_rope[:, 0].float(), cache,
+        o_lat = _decode_seq_blocks(q_lat[:, 0], widened(q_rope[:, 0]), cache,
                                    rows_len, scale)[:, None]
     else:
         o_lat = mla_ops.mla_decode_attention(
-            q_lat[:, 0].contiguous(), q_rope[:, 0].float().contiguous(),
-            cache.float().contiguous(), rows_len, scale)[:, None]
+            q_lat[:, 0].contiguous(), widened(q_rope[:, 0]).contiguous(),
+            widened(cache).contiguous(), rows_len, scale)[:, None]
 
     wv = dt.fit_heads(p.wv_b, h).reshape(kvr, h, vd)
-    out = torch.einsum("bshr,rhe->bshe", o_lat, wv.float())
+    out = torch.einsum("bshr,rhe->bshe", o_lat, widened(wv))
     out = dt.linear(out.reshape(b, 1, h * vd).to(x.dtype), p.wo)
     return out, cache
 
@@ -289,19 +289,19 @@ def mla_extend(p: MLA, x: torch.Tensor, cache: torch.Tensor, offset,
     write_tokens(cache, torch.cat([c_kv, k_rope], dim=-1), offset, positions)
 
     wk = p.wk_b.reshape(kvr, h, nope)
-    q_lat = torch.einsum("bshe,rhe->bshr", q_nope.float(), wk.float())
+    q_lat = torch.einsum("bshe,rhe->bshr", widened(q_nope), widened(wk))
     scale = 1.0 / ((nope + rope) ** 0.5)
-    ck = cache[..., :kvr].float()
-    kr = cache[..., kvr:].float()
+    ck = widened(cache[..., :kvr])
+    kr = widened(cache[..., kvr:])
     scores = (torch.einsum("bshr,btr->bhst", q_lat, ck)
-              + torch.einsum("bshe,bte->bhst", q_rope.float(), kr)) * scale
+              + torch.einsum("bshe,bte->bhst", widened(q_rope), kr)) * scale
     kv_idx = torch.arange(cap, dtype=torch.int32, device=x.device)
     mask = kv_idx[None, None, :] <= positions[:, :, None]      # (B,S,cap)
     scores = torch.where(mask[:, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     o_lat = torch.einsum("bhst,btr->bshr", probs, ck)          # (B,S,H,kvr)
     wv = p.wv_b.reshape(kvr, h, vd)
-    out = torch.einsum("bshr,rhe->bshe", o_lat, wv.float())
+    out = torch.einsum("bshr,rhe->bshe", o_lat, widened(wv))
     out = dt.linear(out.reshape(b, s, h * vd).to(x.dtype), p.wo)
     return out, cache
 

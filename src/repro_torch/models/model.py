@@ -281,7 +281,8 @@ def make_caches(cfg: ModelConfig, batch: int, capacity: int,
                 dtype: torch.dtype = torch.bfloat16,
                 device: DeviceLike = None) -> Dict[str, Any]:
     """Zero caches. An SSM state ignores ``capacity`` and ``dtype``: its
-    ``h`` is float32 and its conv window bfloat16, as in the JAX package.
+    ``h`` is float32 and its conv window bfloat16, as in the JAX package
+    (both float64 in float64 caches, a float64 step's).
     A hybrid's shared K/V is a ring of ``sliding_window`` slots when
     capacity exceeds the window, as a GQA cache is."""
     dev = resolve_device(device)
@@ -289,10 +290,11 @@ def make_caches(cfg: ModelConfig, batch: int, capacity: int,
     for seg in build_plan(cfg):
         if seg.kind == "mamba_tail":
             caches[seg.name] = mamba_mod.make_ssm_state(cfg, seg.n_layers,
-                                                        batch, dev)
+                                                        batch, dev, dtype)
         elif seg.kind == "mamba_groups":
             g = seg.n_groups
-            st = mamba_mod.make_ssm_state(cfg, g * seg.per_group, batch, dev)
+            st = mamba_mod.make_ssm_state(cfg, g * seg.per_group, batch, dev,
+                                          dtype)
             caches[seg.name] = {
                 "ssm": {"h": st.h.unflatten(0, (g, seg.per_group)),
                         "conv": st.conv.unflatten(0, (g, seg.per_group)),
@@ -843,7 +845,8 @@ def _seg_full(seg: Segment, params: Model, x: torch.Tensor,
     that group's slice). Returns (x, the segment's MoE aux loss)."""
     blocks = params.segments[seg.name]
     s = x.shape[1]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.promote_types(x.dtype, torch.float32),
+                      device=x.device)
     if seg.kind == "mamba_tail":
         state = () if cache is None else (cache.h, cache.conv)
         return _mamba_prefill_layers(blocks, x, cfg, *state), aux
@@ -893,7 +896,8 @@ def forward(params: Model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     moe_fn = moe_fn or moe_mod.moe_capacity
     x = embed_inputs(params, cfg, batch)
     positions = _positions(x)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_total = torch.zeros((), dtype=torch.promote_types(
+        x.dtype, torch.float32), device=x.device)
     for seg in build_plan(cfg):
         x, aux = _seg_full(seg, params, x, cfg, moe_fn, positions)
         aux_total = aux_total + aux

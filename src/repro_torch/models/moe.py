@@ -25,7 +25,7 @@ from torch import nn
 
 from repro_torch import dtensor as dt
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import swiglu, weight
+from repro_torch.models.layers import swiglu, weight, widened
 
 
 class MoE(nn.Module):
@@ -60,7 +60,7 @@ def init_moe_params(cfg: ModelConfig, device: torch.device,
 def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (T, D) -> (top-k ids (T,K), renormalized probs (T,K), aux loss)."""
-    logits = x.float() @ router_w
+    logits = widened(x) @ router_w
     probs = dt.softmax(logits, dim=-1)
     sorted_p, sorted_i = torch.sort(probs, dim=-1, descending=True,
                                     stable=True)
@@ -68,7 +68,7 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig
     top_p, top_i = sorted_p[:, :k], sorted_i[:, :k]
     top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     e = cfg.num_experts
-    frac = F.one_hot(top_i, e).float().sum(dim=1).mean(dim=0)
+    frac = F.one_hot(top_i, e).to(probs.dtype).sum(dim=1).mean(dim=0)
     mean_p = probs.mean(dim=0)
     aux = e * (frac * mean_p).sum()
     return top_i, top_p, aux
@@ -88,9 +88,9 @@ def moe_reference(p: MoE, x: torch.Tensor, cfg: ModelConfig
     g = x[None] @ p.w_gate
     u = x[None] @ p.w_up
     y = (F.silu(g) * u) @ p.w_down                              # (E,T,D)
-    w = (F.one_hot(top_i, cfg.num_experts).float()
+    w = (F.one_hot(top_i, cfg.num_experts).to(top_p.dtype)
          * top_p[..., None]).sum(dim=1)                         # (T,E)
-    out = torch.einsum("etd,te->td", y.float(), w).to(x.dtype)
+    out = torch.einsum("etd,te->td", widened(y), w).to(x.dtype)
     return out + _shared_out(p, x), {"aux_loss": aux}
 
 
@@ -144,7 +144,7 @@ def moe_capacity(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     # token are adjacent in the flat order, so the combine is a sum over K.
     safe_s = torch.where(flat_v, flat_s, cap - 1)
     gathered = torch.where(flat_v[:, None], y[flat_e, safe_s], 0)
-    weighted = gathered.float() * top_p.reshape(-1)[:, None]
+    weighted = widened(gathered) * top_p.reshape(-1)[:, None]
     out = weighted.reshape(t, k, d).sum(dim=1).to(x.dtype)
 
     dropped = (~flat_v).sum()

@@ -54,18 +54,20 @@ class OptState(NamedTuple):
     nu: Any
 
 
-def lr_at(cfg: OptConfig, step: Any) -> torch.Tensor:
+def lr_at(cfg: OptConfig, step: Any,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The learning rate at ``step`` (an int or an int tensor): linear
     warmup to ``cfg.lr``, then a cosine down to ``min_lr_frac`` of it.
-    float32, on ``step``'s device."""
+    float32 (``dtype``: float64 for float64 moments), on ``step``'s
+    device."""
     step = torch.as_tensor(step)
-    s = step.float()
+    s = step.to(dtype)
     warm = cfg.lr * (s + 1) / cfg.warmup_steps
     prog = torch.clamp((s - cfg.warmup_steps)
                        / max(1, cfg.total_steps - cfg.warmup_steps), 0, 1)
     cos = cfg.lr * (cfg.min_lr_frac + (1 - cfg.min_lr_frac)
                     * 0.5 * (1 + torch.cos(math.pi * prog)))
-    return torch.where(step < cfg.warmup_steps, warm, cos).float()
+    return torch.where(step < cfg.warmup_steps, warm, cos).to(dtype)
 
 
 def _leaves(params: Any) -> List[Tuple[torch.Tensor, int]]:
@@ -111,9 +113,12 @@ def adamw_update(cfg: OptConfig, params: Any, grads: Any, state: OptState
     gnorm = _global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
-    lr = lr_at(cfg, state.step)
-    bc1 = 1 - torch.pow(cfg.b1, step.float())
-    bc2 = 1 - torch.pow(cfg.b2, step.float())
+    # The schedule's scalars in the moments' dtype: float32, or float64
+    # where a float64 step keeps float64 moments.
+    wide = tree_leaves(state.mu)[0].dtype
+    lr = lr_at(cfg, state.step, wide)
+    bc1 = 1 - torch.pow(cfg.b1, step.to(wide))
+    bc2 = 1 - torch.pow(cfg.b2, step.to(wide))
     # A replicated DTensor step's scalars meet each rank's blocks as its own.
     lr_, bc1, bc2 = (t.to_local() if dt.is_dtensor(t) else t
                      for t in (lr, bc1, bc2))

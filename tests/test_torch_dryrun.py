@@ -538,7 +538,7 @@ def test_mamba2_norms_issue_no_dtensor_collective(sides):
     gradient summed): none that DTensor chose."""
     ops = sides["port"]["ops"]["mamba2"]
     norm = _line("models/layers.py", "return dt.rms_norm(x, gain, eps)")
-    gated = _line("models/mamba2.py", "y = rms_norm(y * F.silu(z.float())")
+    gated = _line("models/mamba2.py", "y = rms_norm(y * F.silu(widened(z))")
     assert sum(b for _, k, b in ops if k == "all-to-all") == 0
     at_norm = [s for s, _, _ in ops if s.endswith(norm) or gated in s]
     assert at_norm and all(s.startswith("core/parallel.py")

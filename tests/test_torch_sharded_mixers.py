@@ -139,7 +139,7 @@ HYBRID_MODES = ("a2a", "rs")
 INT8_TOL = 0.05
 
 PORT_SIDE = textwrap.dedent('''
-    import dataclasses, json, sys
+    import contextlib, dataclasses, json, sys
     import numpy as np, torch
     import torch.distributed as dist
     import torch.multiprocessing as mp
@@ -238,6 +238,7 @@ PORT_SIDE = textwrap.dedent('''
                     rows[name]["f64_gate"] = {k: row[k] for k in (
                         "ok", "over", "param_f64_excess", "mu_f64_excess",
                         "nu_f64_excess", "f64")}
+        f64 = f64_rows(rank, mesh, plan["step_tol"])
         from repro_torch.launch import dryrun
         from repro_torch.train.optimizer import OptConfig
 
@@ -279,7 +280,90 @@ PORT_SIDE = textwrap.dedent('''
                                   keep=rank == 0)
             arrays.update({f"hybrid:{mode}:{k}": v.numpy()
                            for k, v in got.items()})
-        return {"rows": rows, "arrays": arrays}
+        return {"rows": rows, "arrays": arrays, **f64}
+
+    def f64_rows(rank, mesh, step_tol):
+        """Every case in float64 over the mesh against the same step
+        unsharded in float64 on rank 0 (``sharded_step.compare_f64``),
+        both under ``NarrowOps`` (every rank's records joined); then
+        train-mamba2 again with ``dtensor.rms_norm`` broken on rank 0 as
+        ``broken_rms_norm`` breaks it, held by the float64 gate and by the
+        fixed one (``compare``), with its own record."""
+        import torch.distributed as dist
+        from repro_torch.launch import sharded_step as ss
+
+        rows, ops, want_m2 = {}, {}, None
+        for name in ss.CASES:
+            _, shape, step, args = ss.case_step(name, mesh, "cpu", smoke=True,
+                                                dtype=torch.float64)
+            with ss.NarrowOps() as audit:
+                out, _ = ss.run_counted(step, args)
+            got = ss.step_results(shape.kind, out, keep=rank == 0)
+            joined = [None] * dist.get_world_size()
+            dist.all_gather_object(joined, audit.ops)
+            if rank == 0:
+                # ``reference``, its step alone under the record
+                _, _, ref, ref_args = ss.case_step(
+                    name, None, "cpu", smoke=True, n_micro=mesh.size(0),
+                    dtype=torch.float64)
+                with ss.NarrowOps() as ref_audit:
+                    out = ref(*ref_args)
+                want = ss.step_results(shape.kind, out, to=None)
+                rows[name] = ss.compare_f64(shape.kind, got, want)
+                rows[name]["n_rows"] = shape.global_batch
+                for rec in joined + [ref_audit.ops]:
+                    for k, n in rec.items():
+                        ops[k] = ops.get(k, 0) + n
+                if name == "train-mamba2":
+                    want_m2 = want
+        broken = {}
+        for how in ("perturb", "demote"):
+            _, shape, step, args = ss.case_step("train-mamba2", mesh, "cpu",
+                                                smoke=True,
+                                                dtype=torch.float64)
+            with broken_rms_norm(rank, how), ss.NarrowOps() as audit:
+                out, _ = ss.run_counted(step, args)
+            got = ss.step_results("train", out, keep=rank == 0)
+            if rank == 0:
+                broken[how] = {"f64": ss.compare_f64("train", got, want_m2),
+                               "fixed": ss.compare("train", got, want_m2,
+                                                   step_tol),
+                               "audit": audit.ops}
+        return {"f64": rows, "f64_audit": ops, "f64_broken": broken}
+
+    @contextlib.contextmanager
+    def broken_rms_norm(rank, how):
+        """``dtensor.rms_norm`` (Mamba2's gated norm over its head-cut
+        width) broken inside the block: "perturb" scales rank 0's partial
+        sum of squares by 1 + 1e-7 before its all-reduce; "demote"
+        computes the body in float32 again, as it did before it widened."""
+        from repro_torch import dtensor as dt
+        from repro_torch.core import parallel as par
+
+        norm, reduce, widened = dt.rms_norm, par.all_reduce, dt.widened
+        inside = []
+
+        def rms_norm(*a, **k):
+            inside.append(True)
+            try:
+                return norm(*a, **k)
+            finally:
+                inside.pop()
+
+        def all_reduce(t, *a, **k):
+            if inside and rank == 0 and t.shape[-1] == 1:
+                t = t * (1 + 1e-7)
+            return reduce(t, *a, **k)
+
+        dt.rms_norm = rms_norm
+        if how == "perturb":
+            par.all_reduce = all_reduce
+        else:
+            dt.widened = lambda x: x.float() if inside else widened(x)
+        try:
+            yield
+        finally:
+            dt.rms_norm, par.all_reduce, dt.widened = norm, reduce, widened
 
     def one_rank_and_records(steps, init):
         """(Rank 0, its world of 4 gone.) ``decode-r1`` over a 1 x 1 mesh
@@ -937,6 +1021,140 @@ def test_train_steps_hold_against_float64(sides, case):
     row = ports["steps"]["rows"][case]["f64_gate"]
     assert row["ok"], row
     assert set(row["f64"]["sharded_max_err"]) == {"param", "mu", "nu"}
+
+
+@pytest.mark.parametrize("case", STEP_CASES)
+def test_sharded_step_float64_exact(sides, case):
+    """Each case's step in float64 at 2 x 2 (``case_step(dtype=float64)``:
+    the case's weights drawn as its own step draws them, then widened, as
+    each is placed; caches and moments float64) against the same step
+    unsharded in float64 over the data ranks' row groups, every gated
+    quantity within ``F64_TOL`` = 1e-9 of its largest value: a train
+    step's loss and gradient norm, every parameter and both moments; a
+    prefill's or decode step's logits on every row (a decode row whose
+    cache spans two sequence blocks included), every cache leaf and the
+    rows it wrote, and its greedy tokens equal on every row."""
+    ports, _ = sides
+    row = ports["steps"]["f64"][case]
+    assert row["ok"] and not row["over"], row
+    assert row["worst_err"] <= ss.F64_TOL, row
+    if ss.CASES[case].kind != "train":
+        assert len(row["greedy_equal_by_row"]) == row["n_rows"], row
+        assert len(row["logits_err_by_row"]) == row["n_rows"], row
+
+
+#: what a float64 step may compute narrower than float64, by the port's
+#: file and function, with the reason: the INT8 payload's per-row scale
+#: is float32 bits in its tail (``src/repro/core/lep.py:176-178``)
+F64_NARROW = {
+    ("repro_torch/kernels/dispatch_quant/ref.py", "dispatch_quantize_ref"):
+        "the row's scale rounded once to the payload's float32, its bytes "
+        "packed into the tail",
+    ("repro_torch/core/lep.py", "_unpack"):
+        "the float32 scale read back from the payload's tail"}
+
+
+def test_float64_steps_compute_in_float64(sides):
+    """The ten float64 steps, sharded (every rank) and unsharded, under
+    ``sharded_step.NarrowOps``: no op gives a floating output narrower
+    than float64 but those of ``F64_NARROW`` (float32, the INT8 payload's
+    scale), which the cases with INT8 dispatch do run."""
+    ports, _ = sides
+    ops = ports["steps"]["f64_audit"]
+    sites = {}
+    for key in ops:
+        where, func, _, dtype = key.split(" ")
+        assert dtype == "float32", key
+        sites[(where.rsplit(":", 1)[0], func)] = key
+    assert set(sites) == set(F64_NARROW), sorted(ops)
+
+
+@pytest.mark.parametrize("how", ["perturb", "demote"])
+def test_float64_gate_sees_what_the_fixed_gate_cannot(sides, how):
+    """train-mamba2 in float64 at 2 x 2 with ``dtensor.rms_norm`` broken
+    (rank 0's partial sum of squares off by one part in 1e7, or the body
+    computed in float32 again) fails ``F64_TOL`` against the float64
+    unsharded step while it passes the fixed gate of ``compare``
+    (STEP_TOL, LOSS_RTOL); the demoted body is in the step's
+    ``NarrowOps`` record."""
+    ports, _ = sides
+    row = ports["steps"]["f64_broken"][how]
+    assert not row["f64"]["ok"], row["f64"]
+    assert ss.F64_TOL < row["f64"]["worst_err"] < ss.STEP_TOL, row["f64"]
+    assert row["fixed"]["ok"], row["fixed"]
+    in_norm = [k for k in row["audit"]
+               if k.startswith("repro_torch/dtensor.py:")]
+    assert bool(in_norm) == (how == "demote"), row["audit"]
+
+
+@pytest.mark.parametrize("what", ["within", "leaf_past", "loss_past",
+                                  "token"])
+def test_compare_f64_gates_at_1e_9(what):
+    """``sharded_step.compare_f64``: a moment off by 0.5 F64_TOL of its
+    leaf's largest passes, by 2 F64_TOL fails and is named; a loss off by
+    2 F64_TOL relative fails; a decode step whose one row's greedy token
+    flips fails, whatever its logits' error."""
+    gen = torch.Generator().manual_seed(0)
+    if what == "token":
+        want = {"logits": torch.randn(4, 32, generator=gen,
+                                      dtype=torch.float64),
+                "cache/x": torch.randn(2, 4, generator=gen,
+                                       dtype=torch.float64)}
+        got = {k: v.clone() for k, v in want.items()}
+        top = want["logits"][2].argmax()
+        got["logits"][2, top] = want["logits"][2].min()
+        row = ss.compare_f64("decode", got, want)
+        assert row["greedy_equal_by_row"] == [True, True, False, True], row
+        assert not row["ok"]
+        return
+    want = {"loss": torch.tensor(2.0, dtype=torch.float64),
+            "grad_norm": torch.tensor(1.0, dtype=torch.float64)}
+    for part in ("param", "mu", "nu"):
+        want[f"{part}/a"] = torch.randn(8, 4, generator=gen,
+                                        dtype=torch.float64)
+    got = {k: v.clone() for k, v in want.items()}
+    if what == "loss_past":
+        got["loss"] += 2 * ss.F64_TOL * 2.0
+    else:
+        off = 0.5 if what == "within" else 2.0
+        got["mu/a"][1, 2] += off * ss.F64_TOL * want["mu/a"].abs().max()
+    row = ss.compare_f64("train", got, want)
+    if what == "within":
+        assert row["ok"] and not row["over"], row
+        return
+    assert row["over"] == (["loss"] if what == "loss_past" else ["mu/a"])
+    assert not row["ok"]
+
+
+def test_float64_reaches_only_the_plain_versions():
+    """The dispatch-quantize and MLA wrappers take float64 on the CPU (the
+    plain versions, a float64 step's) and refuse it elsewhere, so float64
+    reaches no kernel. A float64 row of float32 values packs the scale
+    bytes its float32 row packs; its codes are ``round(x / scale)`` of that
+    scale in float64."""
+    from repro_torch.kernels.dispatch_quant import dispatch_quantize
+    from repro_torch.kernels.mla_attention.ops import mla_decode_attention
+
+    x = torch.randn(16, 40, generator=torch.Generator().manual_seed(1)) \
+        * torch.logspace(-3, 3, 16)[:, None]
+    packed32 = dispatch_quantize(x, pack=True)
+    packed64 = dispatch_quantize(x.double(), pack=True)
+    assert torch.equal(packed64[:, 40:], packed32[:, 40:])
+    q, scale = dispatch_quantize(x.double())
+    assert scale.dtype == torch.float32
+    assert torch.equal(q, torch.round(x.double() / scale.double()).clamp(
+        -127, 127).to(torch.int8))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        dispatch_quantize(x.double().to("meta"))
+    ql, qr, cache, lens, s = _lse_inputs([5, -1, 23, 24])
+    o64 = mla_decode_attention(ql.double(), qr.double(), cache.double(),
+                               lens, s)
+    assert o64.dtype == torch.float64
+    torch.testing.assert_close(o64.float(), mla_decode_attention(
+        ql, qr, cache, lens, s), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="must be float32"):
+        mla_decode_attention(ql.double().to("meta"), qr.double().to("meta"),
+                             cache.double().to("meta"), lens.to("meta"), s)
 
 
 @pytest.mark.parametrize("mode", HYBRID_MODES)
