@@ -124,7 +124,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    step against the same step unsharded on the card (the hybrid against
    the plain prefill), and the collective bytes the counter sees (0,
    equal to the dry run's 1 x 1 record of the same case, traced in a
-   process of its own).
+   process of its own). Then, R1's weights freed, ``train-r1`` (R1 with
+   LEP in a train step at its widths, f32, 12 experts of top-8) cut to
+   SHARDED_LAYERS' 2 layers (a dense one, a MoE one) at B = 2, S = 512,
+   held and counted alike: 1 dispatch-quantize.
 8c''. kimi-lep-agree, serve-kimi, serve-kimi-tokens: with R1's weights
    freed, Kimi K2 at its widths (d_model 7168, 64 heads over 8 KV heads,
    384 experts top-8 of d_ff 2048, 1 shared expert, vocab 163840) cut to
@@ -679,8 +682,8 @@ DRYRUN_CPU_SWEEP = {
     "olmoe-1b-7b × decode_32k × 16x16": (404930688, 201326592),
     "kimi-k2-1t-a32b × decode_32k × 16x16": (130837500384, 0),
     "kimi-k2-1t-a32b × decode_32k × 2x16x16": (131093682560, 0),
-    "qwen3-8b × train_4k × 16x16": (79575887876, 0),
-    "deepseek-r1 × train_4k × 16x16": (240666593748, 0),
+    "qwen3-8b × train_4k × 16x16": (79575869444, 0),
+    "deepseek-r1 × train_4k × 16x16": (133650205140, 0),
     "deepseek-r1 × prefill_32k × 16x16": (120433426896, 0),
     "mamba2-780m × train_4k × 16x16": (25614242884, 0),
     "zamba2-1.2b × train_4k × 16x16": (30916738628, 0),
@@ -717,7 +720,8 @@ DRYRUN_TIMEOUT_S = 300
 #: value (bf16 weights, as TOL of ``scripts/torch_parallel_nccl.py``); the
 #: launches each case's step must make on the DTensor path (R1's cut: 4
 #: MLA layers, 1 MoE layer, its prefill's MLA plain PyTorch; Mamba2: one
-#: SSD scan a layer, the backward plain), the cases in their order
+#: SSD scan a layer, the backward plain; train-r1 at 2 layers: 1 MoE
+#: layer, its MLA the prefill form), the cases in their order
 SHARDED_TRAIN_SHAPE = (2, 512)
 SHARDED_DECODE_TOL = 0.02
 SHARDED_LAUNCHES = {"decode-r1": {"mla_attention": 4, "dispatch_quant": 1,
@@ -729,11 +733,20 @@ SHARDED_LAUNCHES = {"decode-r1": {"mla_attention": 4, "dispatch_quant": 1,
                                      "int8_gemm": 0, "ssd_scan": 48},
                     "prefill-mamba2": {"mla_attention": 0,
                                        "dispatch_quant": 0, "int8_gemm": 0,
-                                       "ssd_scan": 48}}
+                                       "ssd_scan": 48},
+                    "train-r1": {"mla_attention": 0, "dispatch_quant": 1,
+                                 "int8_gemm": 0, "ssd_scan": 0}}
 #: the cases run at SHARDED_TRAIN_SHAPE (decode-r1 at its own)
-SHARDED_REDUCED = ("prefill-r1-a2a", "train-mamba2", "prefill-mamba2")
-#: the cases whose weights are the R1 serve's
+SHARDED_REDUCED = ("prefill-r1-a2a", "train-mamba2", "prefill-mamba2",
+                   "train-r1")
+#: the cases whose weights are the R1 serve's; they run while the serve's
+#: weights are held, the others after they are freed
 SHARDED_SERVE_WEIGHTS = ("decode-r1", "prefill-r1-a2a")
+#: the cases cut to fewer layers on one card: train-r1's unsharded step
+#: and its sharded one at 1 x 1 each hold every weight, its gradient and
+#: both moments in float32 (3.6 B parameters at its 3 layers, 2.8 B at 2);
+#: the 2 x 2 step of ``scripts/torch_parallel_nccl.py`` runs all 3
+SHARDED_LAYERS = {"train-r1": 2}
 SPILL_GATED = ("int8_gemm", "mla_decode_attention", "dispatch_quant")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 
@@ -3390,12 +3403,13 @@ def one_rank_mesh(torch, dev="cuda"):
     return make_debug_mesh(1, 1, dev)
 
 
-def sharded_step_phase(torch, params, mesh, dev="cuda") -> list:
-    """The dry run's sharded steps on real tensors over the 1 x 1 NCCL
-    mesh (``launch/sharded_step.py``'s ``decode-r1``, then
+def sharded_step_phase(torch, params, mesh, cases, dev="cuda") -> list:
+    """The dry run's sharded steps ``cases`` on real tensors over the 1 x 1
+    NCCL mesh (of ``launch/sharded_step.py``'s: ``decode-r1``, then
     ``prefill-r1-a2a`` -- R1's prefill with every MLA layer through the
-    §4.3.1 hybrid --, ``train-mamba2`` and ``prefill-mamba2`` at
-    SHARDED_TRAIN_SHAPE), each through ``dryrun.build_step`` on the card
+    §4.3.1 hybrid --, ``train-mamba2``, ``prefill-mamba2`` and
+    ``train-r1`` at SHARDED_TRAIN_SHAPE, the last at SHARDED_LAYERS'
+    depth), each through ``dryrun.build_step`` on the card
     with its weights drawn from SEED and placed one at a time: the
     kernels' launches on the DTensor path (counts set to 0 just before the
     step and read just after: MLA once and dispatch-quantize once a layer
@@ -3414,21 +3428,34 @@ def sharded_step_phase(torch, params, mesh, dev="cuda") -> list:
         if dev == "cuda":
             torch.cuda.synchronize()
 
+    def peak_gib():
+        """The peak allocated GiB since the last call (0 off the card)."""
+        if dev != "cuda":
+            return 0.0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()
+        return peak
+
     b, s = SHARDED_TRAIN_SHAPE
     records = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.sharded_step", "--cases",
-         ",".join(SHARDED_LAUNCHES), "--mesh", "1x1",
-         *(f"--shape={name}={b}x{s}" for name in SHARDED_REDUCED)], cwd=HERE,
+         ",".join(cases), "--mesh", "1x1",
+         *(f"--shape={name}={b}x{s}" for name in SHARDED_REDUCED
+           if name in cases),
+         *(f"--layers={name}={n}" for name, n in SHARDED_LAYERS.items()
+           if name in cases)], cwd=HERE,
         env={**os.environ, "PYTHONPATH": str(SRC)}, text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     rows = []
     try:
-        for name in SHARDED_LAUNCHES:
+        for name in cases:
             shape = ss.case_shape(name, batch=b, seq_len=s) \
                 if name in SHARDED_REDUCED else None
+            cfg = ss.case_config(name, layers=SHARDED_LAYERS.get(name))
+            peak_gib()
             t0 = time.perf_counter()
             _, shape, step, args = ss.case_step(name, mesh, dev, seed=SEED,
-                                                shape=shape)
+                                                shape=shape, cfg=cfg)
             sync()
             build_s = time.perf_counter() - t0
             row = {"case": name, "mesh": "1x1", "B": shape.global_batch,
@@ -3443,19 +3470,21 @@ def sharded_step_phase(torch, params, mesh, dev="cuda") -> list:
             sync()
             step_s = time.perf_counter() - t0
             row["kernel_launches"] = read_counts()
+            row["peak_gib"] = peak_gib()
             got = ss.step_results(shape.kind, out)
             del out, step, args
             free_model(torch)
             t0 = time.perf_counter()
             want = ss.reference(name, dev, seed=SEED, shape=shape,
                                 params=params if name in
-                                SHARDED_SERVE_WEIGHTS else None)
+                                SHARDED_SERVE_WEIGHTS else None, cfg=cfg)
             sync()
             row.update(ss.compare(shape.kind, got, want, SHARDED_DECODE_TOL))
             row.update(counter_bytes=ss.bytes_by_kind(counts),
                        counter_count=counts["count"], build_s=build_s,
                        step_s=step_s,
-                       reference_s=time.perf_counter() - t0)
+                       reference_s=time.perf_counter() - t0,
+                       reference_peak_gib=peak_gib())
             del want, got
             free_model(torch)
             rows.append(row)
@@ -4171,15 +4200,19 @@ def main(argv=None) -> int:
                     "decode_tokens_per_s")}))
     log(f"serve-hybrid: phase {time.perf_counter() - tp:.1f} s")
     tp = time.perf_counter()
-    sharded = sharded_step_phase(torch, params, mesh)
+    sharded = sharded_step_phase(torch, params, mesh, [
+        name for name in SHARDED_LAUNCHES if name in SHARDED_SERVE_WEIGHTS])
+    del params
+    free_model(torch)
+    sharded += sharded_step_phase(torch, None, mesh, [
+        name for name in SHARDED_LAUNCHES
+        if name not in SHARDED_SERVE_WEIGHTS])
     for row in sharded:
         log(f"sharded-step: {json.dumps(row)} on {device}")
     sharded_counts = {k: sum(r["kernel_launches"][k] for r in sharded)
                       for k in KERNEL_MODULES}
     log(f"sharded-step: phase {time.perf_counter() - tp:.1f} s, kernel "
         f"launches {json.dumps(sharded_counts)}")
-    del params
-    free_model(torch)
 
     # Kimi K2 at its widths, 2 layers, after R1's weights are freed.
     kcfg = kimi_config()

@@ -40,13 +40,16 @@ and the sharded steps of ``launch/sharded_step.py``'s ``CASES``
 4. The dry run's sharded steps (``train-qwen3``, ``train-olmoe``,
    ``train-mamba2``, ``decode-r1``, ``decode-olmoe``, ``prefill-r1``,
    ``prefill-r1-a2a``, ``prefill-r1-rs``, ``prefill-qwen3``,
-   ``prefill-mamba2``; their configs, depth cuts, shapes and hybrid modes
-   in ``launch/sharded_step.py``'s ``CASES``) on real CUDA tensors:
+   ``prefill-mamba2``, ``train-r1``; their configs, depth cuts, shapes and
+   hybrid modes in ``launch/sharded_step.py``'s ``CASES``) on real CUDA
+   tensors:
    ``dryrun.build_step`` on the card, every weight drawn from the seed and
    placed by the specs one at a time, caches and batch placed as the dry
    run places its meta tensors, TF32 off. Each is held against the same
-   step unsharded on rank 0's card, run over the row groups the data
-   ranks hold, at fixed tolerances (``sharded_step.compare``: a train
+   step unsharded on rank 0's card, run over the row groups the ranks'
+   products take (``sharded_step.row_groups``: a data rank's rows; in a
+   train step with LEP, ``train-olmoe`` and ``train-r1``, a mesh rank's,
+   LEP's token split), at fixed tolerances (``sharded_step.compare``: a train
    step's loss and global gradient norm within 1e-5, each parameter and
    both moments within 2e-4 of the leaf's largest -- for ``train-qwen3``
    and ``train-mamba2``, which carry no INT8 payload, no further from the
@@ -56,11 +59,14 @@ and the sharded steps of ``launch/sharded_step.py``'s ``CASES``
    written rows) within TOL, and on the rows ``Case.logits`` names its
    logits within TOL and its greedy tokens equal where the top-2 margin
    exceeds it; ``decode-r1``'s and the prefills' logits through the same
-   step run again with float32 weights, every row within TOL). Printed
+   step run again with float32 weights, every row within TOL;
+   ``train-olmoe`` and ``train-r1`` again with an unquantized payload on
+   both sides, ``Case.f32_payload``, a row of its own held alike). Printed
    beside it, never a limit: that reference against itself evaluated
-   otherwise (``floor``: a train or prefill step over the whole batch, a
-   decode step with its caches nudged by one part in 1e7), how far
-   rounding alone moves it. And
+   otherwise (``floor``: a train or prefill step over the whole batch --
+   a train step with LEP over the data ranks' row groups --, a decode
+   step with its caches nudged by one part in 1e7), how far rounding
+   alone moves it. And
    its collective bytes by kind on rank 0
    (``CollectiveCounter``) against the dry run's record of the same case
    on a fake 2 x 2 group (``python -m repro_torch.launch.sharded_step``,
@@ -73,8 +79,11 @@ and the sharded steps of ``launch/sharded_step.py``'s ``CASES``
    seconds, and each rank's peak GiB.
 
 Rank 0 prints one JSON line per case, then ``{"ok": true, ...}``; any
-failed check fails the run. The same collectives are held against JAX on
-the CPU by ``tests/test_torch_lep2d.py``,
+failed check fails the run. The caching allocator grows its blocks in
+place (``expandable_segments``, unless ``PYTORCH_CUDA_ALLOC_CONF`` says
+otherwise): train-r1's unsharded step fills most of
+rank 0's card, where fixed segments fragment. The same collectives are
+held against JAX on the CPU by ``tests/test_torch_lep2d.py``,
 ``tests/test_torch_hybrid_parallel.py`` and
 ``tests/test_torch_sharded_mixers.py`` (gloo ranks).
 """
@@ -97,6 +106,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(HERE / "src"))
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 WORLD, N_DATA, N_MODEL = 4, 2, 2
 DECODE_LENS = [971, 846, 300, 479, 2048, 994, 5, 296]   # 300, 5: block 0 only
@@ -156,6 +166,7 @@ def same_on_every_rank(torch, dist, t):
 def run(rank, init, out_path, cases, trace_dir):
     import torch
     import torch.distributed as dist
+    from repro_torch.launch import sharded_step as ss
     from repro_torch.launch.mesh import make_debug_mesh
 
     torch.cuda.set_device(rank)
@@ -185,6 +196,11 @@ def run(rank, init, out_path, cases, trace_dir):
         if name not in LAYER_CASES:
             keep([sharded_step_row(torch, dist, rank, mesh, name,
                                    trace_dir)])
+            if ss.CASES[name].f32_payload:
+                keep([{"case": name, "payload": "float32",
+                       **(f32_row(torch, rank, mesh, name, quantize=False)
+                          or {})}])
+                dist.barrier()
     dist.destroy_process_group()
 
 
@@ -421,23 +437,26 @@ def sharded_step_row(torch, dist, rank, mesh, name, trace_dir):
 
 def reference_row(torch, ss, name, shape, got):
     """(Rank 0.) ``got`` against the step unsharded on this card over the
-    data ranks' row groups (``sharded_step.compare`` on the case's held
-    rows; a train case marked ``f64`` also against that step in float64
-    on the host, ``sharded_step.truth``, with its seconds and the
+    ranks' row groups (``sharded_step.row_groups``; ``sharded_step.
+    compare`` on the case's held rows; a train case marked ``f64`` also
+    against that step in float64 on the host, ``sharded_step.truth``,
+    with its seconds and the
     process's peak RSS before and after it); beside it, as ``floor``,
     that reference against itself evaluated otherwise -- a train step or a
-    prefill over the whole batch in one group, a decode step with its
-    caches nudged by ``sharded_step.NUDGE`` -- and, given the truth, by
-    the same float64 gate."""
+    prefill over the whole batch in one group (a train step with LEP over
+    the data ranks' row groups, as before LEP's token split), a decode
+    step with its caches nudged by ``sharded_step.NUDGE`` -- and, given
+    the truth, by the same float64 gate."""
     kind = shape.kind
+    groups = ss.row_groups(name, N_DATA, N_MODEL)
     # The floor's results wait on the host, so that one reference at a
     # time holds the card (a train step's state and activations).
     other = {k: v.cpu() for k, v in ss.reference(
         name, "cuda", seed=SEED,
         **({"n_micro": N_DATA, "nudge": ss.NUDGE} if kind == "decode"
-           else {"n_micro": 1})).items()}
+           else {"n_micro": N_DATA if groups != N_DATA else 1})).items()}
     free(torch)
-    want = ss.reference(name, "cuda", n_micro=N_DATA, seed=SEED)
+    want = ss.reference(name, "cuda", n_micro=groups, seed=SEED)
     truth, f64 = None, {}
     if ss.CASES[name].f64:
         f64["rss_peak_gib_before"] = peak_rss_gib()
@@ -468,22 +487,25 @@ def peak_rss_gib():
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
 
 
-def f32_row(torch, rank, mesh, name):
+def f32_row(torch, rank, mesh, name, quantize=None):
     """Case ``name``'s step again with float32 weights over the same mesh
     (every rank), against the same float32 step unsharded on rank 0's
-    card, every row held (``sharded_step.compare``); rank 0's row."""
+    card, every row held (``sharded_step.compare``); with ``quantize``
+    False, with an unquantized payload on both sides; rank 0's row."""
     from repro_torch.launch import sharded_step as ss
 
     cfg = ss.case_config(name, dtype="float32")
     _, shape, step, args = ss.case_step(name, mesh, "cuda", seed=SEED,
-                                        cfg=cfg)
+                                        cfg=cfg, quantize=quantize)
     out, _ = ss.run_counted(step, args)
     got = ss.step_results(shape.kind, out, keep=rank == 0)
     del out, step, args
     free(torch)
     row = None
     if rank == 0:
-        want = ss.reference(name, "cuda", n_micro=N_DATA, seed=SEED, cfg=cfg)
+        want = ss.reference(name, "cuda", seed=SEED, cfg=cfg,
+                            n_micro=ss.row_groups(name, N_DATA, N_MODEL),
+                            quantize=quantize)
         row = {"dtype": "float32", **ss.compare(shape.kind, got, want, TOL)}
         del want, got
         free(torch)
@@ -555,7 +577,10 @@ def main(argv=None) -> int:
     out = tmp / "out"
     for line in (out.read_text().splitlines() if out.exists() else []):
         row = json.loads(line)
-        if row["case"] in recs:
+        if "payload" in row:
+            if not row["ok"]:
+                failed.append(f"{row['case']} ({row['payload']} payload)")
+        elif row["case"] in recs:
             from repro_torch.launch.sharded_step import bytes_by_kind
 
             record = bytes_by_kind(recs[row["case"]])

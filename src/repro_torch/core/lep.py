@@ -44,6 +44,7 @@ issues no collective and copies no weight.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 from typing import Dict, Optional, Sequence, Tuple
@@ -219,7 +220,7 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
                     quantize_gather: bool = False,
                     capacity_factor: Optional[float] = None,
                     capacity_align: int = 8, naive: bool = False,
-                    pack_scales: bool = True):
+                    pack_scales: bool = True, split_tokens: bool = False):
     """Build a ``moe_fn`` that runs the routed experts with LEP over the
     ranks of ``group`` (1-D) or of ``mesh`` (with ``ep_axes``,
     ``ffn_shard_axis``, ``ffn_gather`` and ``quantize_gather``, as in the
@@ -233,7 +234,15 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
     ``pack_scales=False`` sends payload and scales in two.
 
     MoE weights that :func:`keep_local_experts` has cut to this rank's
-    share are used as they are (serving only); whole ones are cut here."""
+    share are used as they are (serving only); whole ones are cut here.
+
+    ``split_tokens`` (a training step over ``mesh``, as ``dryrun.
+    build_step`` builds it) leaves the output on LEP's token split: the
+    function carries ``split_rows``, which ``models/model.py::_moe_block``
+    applies to the residual stream before the block's norm
+    (:func:`_on_token_split`)."""
+    if split_tokens and mesh is None:
+        raise ValueError("split_tokens splits over a mesh: pass mesh=")
     if ffn_gather not in ("weights", "tokens"):
         raise ValueError(f"ffn_gather must be 'weights' or 'tokens', not "
                          f"{ffn_gather!r}")
@@ -413,7 +422,58 @@ def make_lep_moe_fn(group: Optional["dist.ProcessGroup"] = None, *,
                               redundancy, ffn_shard_axis)
         return run(p, x, cfg, lay)
 
+    if split_tokens:
+        moe_fn.split_rows = functools.partial(_on_token_split, mesh=mesh)
     return moe_fn
+
+
+def _on_token_split(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The residual stream ``x`` (B, S, D) of a training step on LEP's
+    token split, the MoE layer's output then left there, as XLA leaves the
+    output of JAX's ``shard_map`` on its ``tok_spec`` (every mesh axis,
+    ``repro/core/lep.py:134,251``): each rank's block of batch rows is cut
+    again over the axes that replicate it, in mesh order, so that LEP's
+    :func:`_on_blocks` finds the tokens already split and gathers nothing
+    back, and the layers after it run on their own rows, their weights
+    gathered (``dtensor.linear``'s ZeRO-3 rule). The split is a local
+    slice whose backward all-gathers x's gradient over those axes: once,
+    at the first MoE layer (after it the rows come cut).
+
+    Only for a DTensor ``x`` whose split falls on whole batch rows (the
+    rank's batch block divides over the axes), and only in a training
+    step (``make_lep_moe_fn(split_tokens=True)``). Elsewhere ``x`` stays
+    as it is, and LEP gathers its output back over the token axes, which
+    moves fewer bytes there:
+
+    * a split inside a row (R1's prefill_32k: 2 rows a data rank over 16
+      model ranks) leaves no whole row for the attention after it, which
+      XLA answers by gathering K/V (196.5 GB a rank against the port's
+      60.2 GB of all-gathers in all);
+    * a prefill or decode step writes every layer's latent or K/V into
+      caches placed as decode reads them (batch over ``data``, sequence
+      over ``model``), so rows kept cut over ``model`` would move back
+      for each later layer's cache; a decode step's gather is its few
+      rows (13 MB a rank on R1's decode_32k)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not dt.is_dtensor(x):
+        return x
+    names = tuple(mesh.mesh_dim_names)
+    cut = [i for i, pl in enumerate(x.placements) if pl == Shard(0)]
+    tok = [i for i, pl in enumerate(x.placements) if pl.is_replicate()]
+    n_cut = math.prod(mesh.size(i) for i in cut)
+    n_tok = math.prod(mesh.size(i) for i in tok)
+    if n_tok == 1 or len(cut) + len(tok) != mesh.ndim \
+            or (cut and tok and max(cut) > min(tok)) \
+            or x.shape[0] % (n_cut * n_tok):
+        return x
+    group = par.axes_group(mesh, tuple(names[i] for i in tok))
+    return local_map(
+        lambda xb: (par.split_replicated(xb, group),),
+        out_placements=((Shard(0),) * mesh.ndim,),
+        in_placements=(tuple(x.placements),),
+        redistribute_inputs=False, device_mesh=mesh)(x)[0]
 
 
 def _on_blocks(run, p, x, cfg: ModelConfig, mesh, lay: _Layout,

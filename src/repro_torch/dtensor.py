@@ -133,17 +133,44 @@ def reduce_partial(x: torch.Tensor) -> torch.Tensor:
 
     placements = tuple(Replicate() if p.is_partial() else p
                        for p in x.placements)
-    return x.redistribute(x.device_mesh, placements)
+    return _redistributed(x, placements)
 
 
 def placed_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """``x`` placed as ``ref`` (one redistribution: a pending sum is
     reduce-scattered onto a shard, all-reduced onto a replica); anything
     but two DTensors as it is."""
-    if not (is_dtensor(x) and is_dtensor(ref)) \
-            or tuple(x.placements) == tuple(ref.placements):
+    if not (is_dtensor(x) and is_dtensor(ref)):
         return x
-    return x.redistribute(ref.device_mesh, tuple(ref.placements))
+    return _redistributed(x, tuple(ref.placements))
+
+
+def _redistributed(x: DTensor, placements: Tuple) -> DTensor:
+    """``x`` redistributed to ``placements``, its pending sums over the
+    mesh dimensions that ``placements`` replicate taken by one all-reduce
+    over all of them at once, as XLA's reassociation merges them (a norm
+    gain's gradient summed over rows cut over ``data`` and ``model``),
+    where DTensor would all-reduce over each dimension in turn."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.core import parallel as par
+
+    mesh = x.device_mesh
+    dims = [m for m, (p, q) in enumerate(zip(x.placements, placements))
+            if p.is_partial() and p.reduce_op == "sum" and q.is_replicate()]
+    if len(dims) > 1:
+        group = par.axes_group(mesh, tuple(mesh.mesh_dim_names[m]
+                                           for m in dims))
+        summed = tuple(Replicate() if m in dims else p
+                       for m, p in enumerate(x.placements))
+        x = local_map(lambda b: (par.sum_replicated(b, group),),
+                      out_placements=(summed,),
+                      in_placements=(tuple(x.placements),),
+                      redistribute_inputs=False, device_mesh=mesh)(x)[0]
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(mesh, placements)
 
 
 def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:

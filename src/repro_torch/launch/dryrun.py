@@ -164,14 +164,14 @@ def _moe_fn_for(cfg: ModelConfig, mesh, serving: bool,
                 lep: Optional[dict] = None):
     """LEP over ``mesh``, planned as ``lep`` (``make_lep_moe_fn``'s
     keywords) or as JAX's plan, with INT8 dispatch unless ``lep`` says
-    otherwise; over no mesh, the 1-D LEP at world size 1 (no
-    collective)."""
+    otherwise, a training step's output left on its token split; over no
+    mesh, the 1-D LEP at world size 1 (no collective)."""
     if not cfg.is_moe:
         return None
     lep = {"quantize": True, **(lep or {})}
     if mesh is None:
         return make_lep_moe_fn(quantize=lep["quantize"])
-    return make_lep_moe_fn(mesh=mesh, **{
+    return make_lep_moe_fn(mesh=mesh, split_tokens=not serving, **{
         **pick_lep_plan(cfg, mesh, serving=serving), **lep})
 
 

@@ -104,6 +104,13 @@ class Case:
     #: same step in float64 (:func:`truth`): no INT8 payload on its path,
     #: whose codes f32 and f64 may round one apart
     f64: bool = False
+    #: a train step with an INT8 payload, held a second time with an
+    #: unquantized payload on both sides (``quantize=False``) at the same
+    #: tolerances: its layers before the first MoE layer run at other row
+    #: counts than the reference's (:func:`row_groups`), and a product
+    #: rounded apart there can move an INT8 code by one and the step by
+    #: more than a tolerance, an unquantized payload only by a rounding
+    f32_payload: bool = False
 
 
 _F32, _BF16 = {"dtype": "float32"}, {"dtype": "bfloat16"}
@@ -123,6 +130,21 @@ _R1_CUT = {"num_layers": 4, "first_k_dense": 3}
 #: reference's dispatch buffers (about 31 GB) beside its 56 GB of weights
 #: on one 80 GB card
 _PREFILL_NO_DROP = {"capacity_factor": 16.0}
+#: train-r1's cut: one dense MLA layer, then two MoE layers (the second's
+#: attention takes the rows LEP leaves on its token split), 12 of the 256
+#: experts (3 a rank at 2 x 2), top-8 as R1's: 3.6 B parameters, 1.85 B of
+#: them the embedding and the head, so that the unsharded float32 step
+#: with its gradients and both AdamW moments fits one 80 GB card over the
+#: whole batch, and so over the row groups ``scripts/
+#: torch_parallel_nccl.py`` runs on rank 0's card; with 16 experts the
+#: whole batch did not fit
+_R1_TRAIN_CUT = {"num_layers": 3, "first_k_dense": 1, "num_experts": 12}
+#: capacity factor 1.5: a token picks 8 distinct experts of 12, so an
+#: expert takes at most every token of a shard, which a buffer of
+#: t x 8 x 1.5 / 12 + 1 rows holds: no token is dropped at any world size,
+#: with a fifth of the dispatch buffers _NO_DROP's factor 8 would give
+#: the unsharded step
+_R1_TRAIN_NO_DROP = {"capacity_factor": 1.5}
 CASES: Dict[str, Case] = {
     # 4 of 36 layers; plain GQA, the projections through dtensor.linear
     "train-qwen3": Case("qwen3-8b", {"num_layers": 4, **_F32}, "train",
@@ -133,7 +155,8 @@ CASES: Dict[str, Case] = {
     # it, which the whole batch's at world size 1 is not
     "train-olmoe": Case("olmoe-1b-7b", {"num_layers": 4, **_F32, **_NO_DROP,
                                         **_NO_AUX},
-                        "train", 4, 1024, 4, 16, {**_NO_DROP, **_NO_AUX}),
+                        "train", 4, 1024, 4, 16, {**_NO_DROP, **_NO_AUX},
+                        f32_payload=True),
     # whole; the SSD scan's forward through mamba2._scan's local_map
     "train-mamba2": Case("mamba2-780m", _F32, "train", 4, 1024, 4, 64,
                          f64=True),
@@ -180,18 +203,31 @@ CASES: Dict[str, Case] = {
     # whole; the SSD scan per head slice, the final state and conv window
     "prefill-mamba2": Case("mamba2-780m", _BF16, "prefill", 4, 1024, 4, 64,
                            logits="f32"),
+    # R1 with LEP in a train step (the training plan, INT8 dispatch), its
+    # output left on the token split from the first MoE layer on: the cut
+    # of _R1_TRAIN_CUT (at smoke width its depth: dense, MoE, MoE), the
+    # balance loss weighted 0 as train-olmoe's
+    "train-r1": Case("deepseek-r1", {**_R1_TRAIN_CUT, **_F32,
+                                     **_R1_TRAIN_NO_DROP, **_NO_AUX},
+                     "train", 4, 1024, 4, 16,
+                     {"num_layers": 3, "first_k_dense": 1, **_NO_DROP,
+                      **_NO_AUX}, f32_payload=True),
 }
 
 
 def case_config(name: str, smoke: bool = False,
-                dtype: Optional[str] = None) -> ModelConfig:
-    """Case ``name``'s config (its weights in ``dtype`` where given)."""
+                dtype: Optional[str] = None,
+                layers: Optional[int] = None) -> ModelConfig:
+    """Case ``name``'s config (its weights in ``dtype``, its depth cut to
+    ``layers``, where given)."""
     case = CASES[name]
     if smoke:
         cfg = dataclasses.replace(smoke_variant(get_config(case.arch)),
                                   **case.smoke_fields)
     else:
         cfg = dataclasses.replace(get_config(case.arch), **case.fields)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
 
 
@@ -225,10 +261,12 @@ def case_step(name: str, mesh, device, *, smoke: bool = False, seed: int = 0,
               params=None, cfg: Optional[ModelConfig] = None,
               shape: Optional[InputShape] = None, n_micro: int = 1,
               inputs: Optional[Dict[str, Any]] = None,
-              dtype: Optional[torch.dtype] = None):
+              dtype: Optional[torch.dtype] = None,
+              quantize: Optional[bool] = None):
     """(cfg, shape, step, its arguments) of case ``name`` over ``mesh``
     (None: unsharded, a hybrid case's prefill plain) on ``device``:
-    ``dryrun.build_step`` with the case's plan, float32 caches as a
+    ``dryrun.build_step`` with the case's plan (its payload quantized or
+    not as ``quantize`` says, where given), float32 caches as a
     serving engine keeps them, the decode lengths of DECODE_LENS
     (SMOKE_DECODE_LENS, or cut to the batch), ``n_micro`` groups of rows
     and ``inputs`` where given. With ``dtype`` (float64, on the CPU) the
@@ -258,7 +296,9 @@ def case_step(name: str, mesh, device, *, smoke: bool = False, seed: int = 0,
         cfg, shape, mesh, cache_dtype, device=device, seed=seed,
         params=params, inputs=inputs,
         cache_len=lens if case.kind == "decode" else None,
-        lep=case.lep, expert_axes=case.expert_axes,
+        lep=case.lep if quantize is None else
+        {**(case.lep or {}), "quantize": quantize},
+        expert_axes=case.expert_axes,
         opt_cfg=OptConfig(**TRAIN_OPT), n_micro=n_micro,
         hybrid=case.hybrid if mesh is not None else "")
     return cfg, shape, step, args
@@ -268,20 +308,22 @@ def reference(name: str, device, *, n_micro: int = 1, smoke: bool = False,
               seed: int = 0, shape: Optional[InputShape] = None,
               params=None, cfg: Optional[ModelConfig] = None,
               nudge: float = 0.0, inputs: Optional[Dict[str, Any]] = None,
-              dtype: Optional[torch.dtype] = None
+              dtype: Optional[torch.dtype] = None,
+              quantize: Optional[bool] = None
               ) -> Dict[str, torch.Tensor]:
     """:func:`step_results` (where they are) of case ``name``'s step
     unsharded on ``device`` over ``n_micro`` groups of rows: as many as
-    the mesh's ``data`` axis has ranks, the same function with each
-    product at a data rank's row count (an INT8 code turns the rounding of
-    a product run at other row counts into more than a tolerance). With
-    ``nudge``, a decode step's float caches are first scaled by 1 + nudge
-    x N(0, 1), element by element (seeded): a rounding of its inputs.
-    ``dtype`` as :func:`case_step` takes it."""
+    :func:`row_groups` gives, the same function with each product at a
+    rank's row count (an INT8 code turns the rounding of a product run at
+    other row counts into more than a tolerance). With ``nudge``, a
+    decode step's float caches are first scaled by 1 + nudge x N(0, 1),
+    element by element (seeded): a rounding of its inputs. ``dtype`` and
+    ``quantize`` as :func:`case_step` takes them."""
     _, shape, step, args = case_step(name, None, device, smoke=smoke,
                                      seed=seed, params=params, cfg=cfg,
                                      shape=shape, n_micro=n_micro,
-                                     inputs=inputs, dtype=dtype)
+                                     inputs=inputs, dtype=dtype,
+                                     quantize=quantize)
     if nudge:
         gen = torch.Generator(device=device).manual_seed(seed + 2)
         for t in named_leaves(args[2]).values():
@@ -289,6 +331,24 @@ def reference(name: str, device, *, n_micro: int = 1, smoke: bool = False,
                 t.mul_(1 + nudge * torch.randn(t.shape, generator=gen,
                                                device=device))
     return step_results(shape.kind, step(*args), to=None)
+
+
+def row_groups(name: str, n_data: int, n_model: int,
+               smoke: bool = False) -> int:
+    """The groups of rows :func:`reference` runs case ``name``'s step
+    over for a ``n_data`` x ``n_model`` mesh: one a rank of ``data``,
+    whose rows the step's products take; for a training step with LEP
+    whose token split falls on whole rows one a rank of the mesh, whose
+    rows its products take from the first MoE layer on (LEP's output
+    left on its token split, ``core/lep.py::_on_token_split``); the
+    layers before it run at a data rank's rows on the mesh
+    (tensor-parallel) and at a mesh rank's here."""
+    cfg = case_config(name, smoke)
+    n = n_data * n_model
+    if CASES[name].kind == "train" and cfg.is_moe and n_model > 1 \
+            and case_shape(name, smoke).global_batch % n == 0:
+        return n
+    return n_data
 
 
 def truth(name: str, draw_on, *, n_micro: int = 1, smoke: bool = False,
@@ -405,23 +465,43 @@ def _err(got: torch.Tensor, want: torch.Tensor,
     return _worst(got, want, mask)[0]
 
 
+#: elements :func:`_worst` takes at a time, so that its float64
+#: differences stay small beside the results it compares (train-r1's
+#: 0.93 B-element embedding is 7.4 GB a float64 copy, which does not fit
+#: one card beside the unsharded step's results)
+_CHUNK = 1 << 24
+
+
 def _worst(got: torch.Tensor, want: torch.Tensor,
            mask: Optional[torch.Tensor] = None) -> Tuple[float, float]:
     """(max |got - want| over max |want|, |want| there over max |want|),
-    over ``mask``."""
+    over ``mask``, in float64, the first such element where several
+    tie."""
     if got.shape != want.shape:
         raise AssertionError(f"shape {tuple(got.shape)} != "
                              f"{tuple(want.shape)}")
-    got = got.to(want.device)
-    diff = (got.double() - want.double()).abs()
-    ref = want.double().abs()
-    if mask is not None:
-        diff, ref = diff[mask], ref[mask]
-    if not diff.numel():
+    got, want = got.reshape(-1), want.reshape(-1)
+    mask = None if mask is None else mask.reshape(-1)
+    worst = at = None
+    for lo in range(0, want.numel(), _CHUNK):
+        part = want[lo:lo + _CHUNK].double()
+        diff = (got[lo:lo + _CHUNK].to(want.device).double() - part).abs()
+        ref = part.abs()
+        if mask is not None:
+            keep = mask[lo:lo + _CHUNK].to(want.device)
+            diff, ref = diff[keep], ref[keep]
+        if not diff.numel():
+            continue
+        i = diff.argmax()
+        err = diff[i].item()
+        if worst is None or err > worst or err != err:
+            worst, at = err, ref[i].item()
+            if err != err:              # NaN: the comparison fails
+                break
+    if worst is None:
         return 0.0, 0.0
-    scale = max(want.double().abs().max().item(), 1e-30)
-    at = diff.flatten().argmax()
-    return diff.flatten()[at].item() / scale, ref.flatten()[at].item() / scale
+    scale = max(want.abs().max().double().item(), 1e-30)
+    return worst / scale, at / scale
 
 
 #: the quantities :func:`compare` gates, by kind, with their tolerance
@@ -717,20 +797,22 @@ def collective_ms(counts: Dict[str, int]) -> float:
 
 def record_collectives(names: Sequence[str], mesh_shape: Dict[str, int],
                        smoke: bool = False,
-                       shapes: Optional[Dict[str, Tuple[int, int]]] = None
+                       shapes: Optional[Dict[str, Tuple[int, int]]] = None,
+                       layers: Optional[Dict[str, int]] = None
                        ) -> Dict[str, Dict[str, int]]:
     """(In a process of its own: it joins a fake process group as rank 0.)
     The dry run's collective bytes by kind of each case's step over a fake
     mesh of ``mesh_shape``, traced on meta tensors (``dryrun._measure``
     with the case's plan, a hybrid case's prefill through its hybrid);
-    ``shapes`` gives a case's (batch, seq_len)
-    where it is not the case's own."""
+    ``shapes`` gives a case's (batch, seq_len) and ``layers`` its depth
+    where they are not the case's own."""
     mesh = dryrun.fake_mesh(mesh_shape)
     out = {}
     for name in names:
         case = CASES[name]
         b, s = (shapes or {}).get(name, (None, None))
-        rec = dryrun._measure(case_config(name, smoke),
+        rec = dryrun._measure(case_config(name, smoke, layers=(
+                                  layers or {}).get(name)),
                               case_shape(name, smoke, b, s), mesh,
                               torch.float32, lep=case.lep,
                               expert_axes=case.expert_axes,
@@ -831,15 +913,19 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", default="2x2", help="data x model")
     ap.add_argument("--shape", action="append", default=[],
                     help="case=BxS: a case's batch and length")
+    ap.add_argument("--layers", action="append", default=[],
+                    help="case=N: a case's depth")
     args = ap.parse_args(argv)
     n_data, n_model = (int(n) for n in args.mesh.split("x"))
     shapes = {}
     for item in args.shape:
         name, bs = item.split("=")
         shapes[name] = tuple(int(n) for n in bs.split("x"))
+    layers = {name: int(n) for name, n in
+              (item.split("=") for item in args.layers)}
     print(json.dumps(record_collectives(
         args.cases.split(","), {"data": n_data, "model": n_model},
-        shapes=shapes)))
+        shapes=shapes, layers=layers)))
 
 
 if __name__ == "__main__":

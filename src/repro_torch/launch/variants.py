@@ -193,7 +193,7 @@ def build_variant(cfg: ModelConfig, shape: InputShape, mesh, variant: str
     moe_fn = None
     if cfg.is_moe:
         kw = lep_keywords(cfg, shape, mesh, variant)
-        moe_fn = make_lep_moe_fn(mesh=mesh, **kw)
+        moe_fn = make_lep_moe_fn(mesh=mesh, split_tokens=train, **kw)
     int8 = variant in ("int8_weights", "int8_weights_token_gather",
                        "full_opt", "int8_aligned", "best")
     n_micro = 2 if variant == "microbatch2" else 1

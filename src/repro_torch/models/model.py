@@ -260,6 +260,14 @@ def _mlp_block(pl_mlp, x, cfg):
 
 
 def _moe_block(pl_moe, x, cfg, moe_fn: MoeFn):
+    # A MoE function that leaves its output on a split of the rows (LEP's
+    # in a training step, ``make_lep_moe_fn(split_tokens=True)``) names it
+    # as ``split_rows``; the residual stream goes there before the norm,
+    # so that one gather in the backward serves the norm's and the
+    # residual's gradients.
+    split_rows = getattr(moe_fn, "split_rows", None)
+    if split_rows is not None:
+        x = split_rows(x)
     b, s, d = x.shape
     h = rms_norm(x, pl_moe.ln, cfg.norm_eps)
     out, aux = moe_fn(pl_moe, h.reshape(b * s, d), cfg)

@@ -117,15 +117,17 @@ TIMEOUT_S = 240
 #: smoke train pairs traced op by op on the fake 2 x 4 group (rows of x a
 #: rank: BATCH x SEQ over data's 2 ranks), by name: (arch, replaced fields)
 OP_PAIRS = {"qwen3-kv2": ("qwen3-8b", {"num_kv_heads": 2}),
-            "r1": ("deepseek-r1", {}), "mamba2": ("mamba2-780m", {})}
+            "r1": ("deepseek-r1", {}), "mamba2": ("mamba2-780m", {}),
+            "r1-3": ("deepseek-r1", {"num_layers": 3})}
 OP_ROWS = 8 * 64 // 2
 #: (pair, file, the projection's call, the input's width, the all-reduces
 #: of its gradient in the backward: one a layer whose columns the model
 #: axis cuts). Qwen3: both layers, attention and MLP; R1 (one dense layer
 #: then one MoE layer, whose attention the specs replicate): q/k/v once
 #: (wkv_a's columns are whole; its weight's gradient is summed over data,
-#: not its input's), wk_b/wv_b once, SwiGLU twice (the dense MLP and the
-#: MoE layer's shared expert, tensor-parallel at these few rows).
+#: not its input's), wk_b/wv_b once, SwiGLU once (the dense MLP: the MoE
+#: layer's rows come on LEP's token split, where its shared expert runs
+#: with its weights gathered whole).
 SHARED_INPUTS = [
     ("qwen3-kv2", "models/attention.py", "dt.linear(x, (p.wq, p.wk, p.wv)",
      256, 2),
@@ -133,7 +135,9 @@ SHARED_INPUTS = [
      2),
     ("r1", "models/mla.py", "dt.linear(x, (p.wq_a, p.wkv_a))", 256, 1),
     ("r1", "models/mla.py", "dt.linear(c_kv, (p.wk_b, p.wv_b))", 32, 1),
-    ("r1", "models/layers.py", "dt.linear(x, (w_gate, w_up))", 256, 2)]
+    ("r1", "models/layers.py", "dt.linear(x, (w_gate, w_up))", 256, 1)]
+#: R1's smoke serve steps traced site by site on the fake 2 x 4 group
+SERVE_KINDS = ("decode", "prefill")
 
 JAX_SIDE = textwrap.dedent('''
     import json, os, re, sys
@@ -212,6 +216,13 @@ JAX_SIDE = textwrap.dedent('''
 
     mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
     set_current_mesh(mesh)
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "jax_reference", Path(D.__file__).parents[3] / "scripts"
+        / "torch_dryrun_jax_reference.py")
+    reference = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reference)
     for arch, kind, b, s in pairs:
         cfg = smoke_variant(get_config(arch))
         with mesh:
@@ -225,6 +236,8 @@ JAX_SIDE = textwrap.dedent('''
             "collectives": hlo.collective_bytes(text),
             "collectives_untupled": hlo.collective_bytes(
                 re.sub(r"/\\*index=\\d+\\*/", "", text))}
+        if (arch, kind) == ("deepseek-r1", "train"):
+            out["r1_train_sites"] = reference.sites_of(text)
     import dataclasses
     for arch, b, s, fields in score_pairs:
         cfg = dataclasses.replace(smoke_variant(get_config(arch)), **fields)
@@ -322,6 +335,26 @@ PORT_SIDE = textwrap.dedent('''
         y.redistribute(mesh, (Replicate(), Shard(1)))
         y.redistribute(mesh, (Replicate(), Replicate()))
     out["direct"], out["redistribute"] = direct.counts, redist.counts
+    # A gradient pending over both axes (a norm gain's, its rows cut over
+    # data and model) placed as its replicated parameter.
+    from torch.distributed.tensor import DTensor, Partial
+    from repro_torch import dtensor as dt
+    gain = meta_dtensor((256,), torch.float32, mesh, ())
+    pending = DTensor.from_local(gain.to_local(), mesh,
+                                 (Partial(), Partial()), run_check=False)
+    with CollectiveCounter() as merged:
+        dt.placed_like(pending, gain)
+    with CollectiveCounter() as merged_fwd:
+        dt.reduce_partial(pending)
+    with CollectiveCounter() as apart:
+        pending.redistribute(mesh, gain.placements)
+    out["pending"] = [merged.counts, merged_fwd.counts, apart.counts]
+    r1 = smoke_variant(get_config("deepseek-r1"))
+    out["r1_serve"] = {}
+    for kind in ("decode", "prefill"):
+        ops = []
+        sites_mod.measure_sites(r1, InputShape("p", 64, 8, kind), mesh, ops)
+        out["r1_serve"][kind] = ops
     with CollectiveCounter() as permute:
         par.send_recv([(x, 1)], [(x[:2].clone(), 2)])
         par.send_recv([(x[:2], 1)], [(x.clone(), 3)])
@@ -385,6 +418,7 @@ def sides(tmp_path_factory):
     finally:
         _kill_all(procs)
     results[0]["pairs"].update(results[1]["pairs"])
+    results[0]["r1_train_sites"] = results[1]["r1_train_sites"]
     return {"jax": results[0], "port": results[2]}
 
 
@@ -614,6 +648,61 @@ def test_counter_counts_each_permute_batch_apart(sides):
     assert sides["port"]["permute"] == {
         "all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
         "all-to-all": 0, "collective-permute": 1024, "count": 4}
+
+
+def test_pending_sums_reduce_in_one_all_reduce(sides):
+    """A gradient pending over both mesh axes (Partial, Partial) placed as
+    its replicated parameter (``dtensor.placed_like``), or its sums taken
+    (``reduce_partial``): one all-reduce over both axes, as XLA's
+    reassociation merges them, where DTensor's own redistribution issues
+    one per axis (two)."""
+    merged, merged_fwd, apart = sides["port"]["pending"]
+    one = {"all-gather": 0, "all-reduce": 1024, "reduce-scatter": 0,
+           "all-to-all": 0, "collective-permute": 0, "count": 1}
+    assert merged == merged_fwd == one
+    assert apart == dict(one, **{"all-reduce": 2048, "count": 2})
+
+
+def test_r1_lep_output_left_on_token_split(sides):
+    """R1's smoke train step on the fake 2 x 4 group, a dense layer then
+    two MoE layers: LEP leaves its output on its token split, as XLA
+    leaves the output of JAX's ``shard_map`` on its ``tok_spec`` (JAX's
+    HLO of R1's smoke train pair has no forward collective at
+    ``repro/core/lep.py:248``, the ``shard_map``; its transpose there
+    sums the split's gradient): nothing at LEP's output gather nor at its
+    own split of the tokens (the rows arrive split), and the split of the
+    residual stream gathers x's gradient once, at the first MoE layer (a
+    data rank's rows x D float32), none at the second."""
+    ops = sides["port"]["ops"]["r1-3"]
+    gather = _line("core/lep.py", "par.gather_replicated(out, lay.tok_group)")
+    run_split = _line("core/lep.py", "x_loc = par.split_replicated(")
+    split = _line("core/lep.py", "lambda xb: (par.split_replicated(xb, group)")
+    assert not [s for s, _, _ in ops
+                if s.endswith(gather) or s.endswith(run_split)]
+    assert [(k, b) for s, k, b in ops if s.endswith(split)] \
+        == [("all-gather", OP_ROWS * 256 * 4)]
+    assert [s for s, _, _ in ops if "core/lep.py" in s]
+    jax_sites = sides["jax"]["r1_train_sites"]
+    assert "repro/core/lep.py:235" in jax_sites      # the combine
+    assert "repro/core/lep.py:248" not in jax_sites
+
+
+@pytest.mark.parametrize("kind", SERVE_KINDS)
+def test_r1_serve_pairs_keep_their_collectives(sides, kind):
+    """R1's smoke decode and prefill pairs (8 rows of 64 on the fake 2 x 4
+    group) keep LEP's output gather: one all-gather a MoE layer there, of
+    a data rank's rows x D float32 (its 4 rows at decode, 4 x 64 at
+    prefill), and nothing at the split of a train step's residual
+    stream."""
+    cfg = smoke_variant(get_config("deepseek-r1"))
+    ops = sides["port"]["r1_serve"][kind]
+    gather = _line("core/lep.py", "par.gather_replicated(out, lay.tok_group)")
+    split = _line("core/lep.py", "lambda xb: (par.split_replicated(xb, group)")
+    rows = 8 // 2 * (1 if kind == "decode" else 64)
+    assert [(k, b) for s, k, b in ops if s.endswith(gather)] \
+        == [("all-gather", rows * cfg.d_model * 4)] \
+        * (cfg.num_layers - cfg.first_k_dense)
+    assert not [s for s, _, _ in ops if s.endswith(split)]
 
 
 @pytest.mark.parametrize("case", [f"{n}/{k}" for n, k in VARIANT_CASES])

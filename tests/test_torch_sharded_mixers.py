@@ -46,10 +46,13 @@ process (its LEP and train step in a third subprocess, JAX_EXTRA).
 * The dry run's sharded steps (``launch/sharded_step.py``'s cases: train,
   prefill and decode) at 2 x 2 against the same steps unsharded and
   against the dry run's records, the train cases without an INT8 payload
-  also against the same step in float64; and R1's prefill step through
+  also against the same step in float64; R1's prefill step through
   the §4.3.1 hybrid in both o-proj modes (``REPRO_MLA_HYBRID``, LEP with
   an unquantized payload) against JAX's ``model.prefill`` under the same
-  setting on its forced 4-device mesh (1e-5).
+  setting on its forced 4-device mesh (1e-5); and the LEP train steps of
+  OLMoE and of R1 (a dense layer, then two MoE layers: LEP's output left
+  on its token split into the second) against JAX's ``make_train_step``
+  with JAX's LEP on that mesh.
 
 In this process: the MLA plain version's ``return_lse`` against a direct
 log-sum-exp, an empty row (o = 0, lse = -inf) included, and the kernel's
@@ -126,9 +129,21 @@ REAL_STEP_TOL = 1e-5
 #: the OLMoE + LEP train step held against JAX's on its forced 2 x 2 mesh:
 #: no token dropped, the balance loss at its configured weight
 OLMOE_JAX_FIELDS = {"capacity_factor": 8.0}
-#: its dispatch payloads: INT8 (the training plan's, as
-#: ``test_multidevice.py`` runs it) and unquantized (float32 at smoke width)
-OLMOE_PAYLOADS = {"int8": True, "f32": False}
+#: R1's, at the depth of ``train-r1``'s smoke step (a dense layer, then two
+#: MoE layers: LEP leaves the first one's output on its token split, which
+#: the second one's attention takes)
+R1_LEP_FIELDS = {"num_layers": 3, "first_k_dense": 1, "capacity_factor": 8.0}
+#: the LEP train steps, by name: (the model's key, its arch, its fields,
+#: the sharded-step case whose batch it takes, the dispatch payload's
+#: quantization). OLMoE: INT8 (the training plan's, as
+#: ``test_multidevice.py`` runs it) and unquantized (float32 at smoke
+#: width); R1 unquantized
+LEP_STEPS = {"int8": ("olmoe", "olmoe-1b-7b", OLMOE_JAX_FIELDS, "train-olmoe",
+                      True),
+             "f32": ("olmoe", "olmoe-1b-7b", OLMOE_JAX_FIELDS, "train-olmoe",
+                     False),
+             "r1-f32": ("r1lep", "deepseek-r1", R1_LEP_FIELDS, "train-r1",
+                        False)}
 #: R1's prefill through the hybrid against JAX's: the prefill cases' smoke
 #: fields (4 MLA layers, the last a MoE layer; no token dropped)
 HYBRID_FIELDS = ss.CASES["prefill-r1-a2a"].smoke_fields
@@ -226,7 +241,8 @@ PORT_SIDE = textwrap.dedent('''
             calls = {k: n - calls[k] for k, n in hybrid_parallel.CALLS.items()}
             got = ss.step_results(shape.kind, out, keep=rank == 0)
             if rank == 0:
-                n_micro = mesh.size(0)
+                n_micro = ss.row_groups(name, mesh.size(0), mesh.size(1),
+                                        smoke=True)
                 want = ss.reference(name, "cpu", n_micro=n_micro, smoke=True)
                 rows[name] = dict(ss.compare(shape.kind, got, want,
                                              plan["step_tol"]),
@@ -243,22 +259,25 @@ PORT_SIDE = textwrap.dedent('''
         from repro_torch.train.optimizer import OptConfig
 
         d = np.load(inp)
-        cfg = dataclasses.replace(smoke_variant(get_config("olmoe-1b-7b")),
-                                  **plan["olmoe_fields"])
-        tree = nest({k[len("olmoe:p:"):]: d[k] for k in d.files
-                     if k.startswith("olmoe:p:")})
         arrays = {}
-        for payload, quantize in plan["olmoe_payloads"].items():
+        for payload, (model_key, arch, fields, case, quantize) in \
+                plan["lep_steps"].items():
+            cfg = dataclasses.replace(smoke_variant(get_config(arch)),
+                                      **fields)
+            tree = nest({k[len(model_key) + 3:]: d[k] for k in d.files
+                         if k.startswith(f"{model_key}:p:")})
             model = params_from_jax_numpy(tree, cfg, "cpu")
             step, args = dryrun.build_step(
-                cfg, ss.case_shape("train-olmoe", smoke=True), mesh,
+                cfg, ss.case_shape(case, smoke=True), mesh,
                 device="cpu", params=model, lep={"quantize": quantize},
+                inputs={k: torch.from_numpy(d[f"{model_key}:{k}"])
+                        for k in ("tokens", "labels")},
                 opt_cfg=OptConfig(**plan["opt"]))
             got = ss.step_results("train", ss.run_counted(step, args)[0],
                                   keep=rank == 0)
             if rank == 0:
                 names = [n for n, _ in model.named_parameters()]
-                key = f"olmoe:{payload}"
+                key = f"{model_key}:{payload}"
                 for part in ("param", "mu", "nu"):
                     arrays.update({k: v.numpy() for k, v in as_tree(
                         [got[f"{part}/{n}"] for n in names], cfg, tree,
@@ -592,8 +611,8 @@ JAX_EXTRA = textwrap.dedent('''
     from repro.train.loop import make_train_step
     from repro.train.optimizer import OptConfig, init_opt_state
     d = np.load(sys.argv[1])
-    kw, steps, opt, shared_ff, olmoe_fields, payloads, hybrid = (
-        json.loads(a) for a in sys.argv[2:9])
+    kw, steps, opt, shared_ff, lep_steps, hybrid = (
+        json.loads(a) for a in sys.argv[2:8])
     out = {}
 
     def smoke(arch, **fields):
@@ -638,17 +657,18 @@ JAX_EXTRA = textwrap.dedent('''
             nest("lep_shared:"), jnp.asarray(d["lep_shared_x"]))
     out["lep_shared"], out["lep_shared:grad:x"] = np.asarray(o), np.asarray(gx)
     out.update({f"lep_shared:grad:{k}": v for k, v in flat(gp).items()})
-    cfg = smoke("olmoe-1b-7b", **olmoe_fields)
-    params = nest("olmoe:p:")
-    batch = {k: jnp.asarray(d[f"olmoe:{k}"]) for k in ("tokens", "labels")}
-    for payload, quantize in payloads.items():
+    for payload, (model_key, arch, fields, _, quantize) in lep_steps.items():
+        cfg = smoke(arch, **fields)
+        params = nest(f"{model_key}:p:")
+        batch = {k: jnp.asarray(d[f"{model_key}:{k}"])
+                 for k in ("tokens", "labels")}
         fn = make_lep_moe_fn(mesh, **pick_lep_plan(cfg, mesh),
                              quantize=quantize)
         with mesh:
             new, state, metrics = jax.jit(make_train_step(
                 cfg, OptConfig(**opt), fn))(params, init_opt_state(params),
                                             batch)
-        key = f"olmoe:{payload}"
+        key = f"{model_key}:{payload}"
         out[f"{key}:gnorm"], out[f"{key}:loss"] = (
             np.asarray(metrics[k]) for k in ("grad_norm", "loss"))
         for name, tree in (("param", new), ("mu", state.mu),
@@ -686,7 +706,7 @@ JAX_EXTRA = textwrap.dedent('''
         out.update({f"hybrid:{mode}:cache/{k}": v
                     for k, v in flat(caches).items()})
     del os.environ["REPRO_MLA_HYBRID"]
-    np.savez(sys.argv[9], **out)
+    np.savez(sys.argv[8], **out)
 ''')
 
 
@@ -763,15 +783,19 @@ def inputs():
     d["lep_shared_cot"] = f(LEP_SHARED_TOKENS, r1moe.d_model)
     d.update(lin_x=f(B, S_PREFILL, LINEAR_D), lin_wq=f(LINEAR_D, 16),
              lin_wk=f(LINEAR_D, 8), lin_wv=f(LINEAR_D, 8))
-    olmoe = _smoke("olmoe-1b-7b", **OLMOE_JAX_FIELDS)
-    params = jax.jit(j_init_params, static_argnums=(1,))(
-        jax.random.PRNGKey(2), olmoe)
-    d.update({f"olmoe:p:{k}": v for k, v in _flat(params).items()})
-    # the batch build_step draws for the case (seed 0: its inputs from 1)
-    batch = dryrun.step_inputs(ss.case_config("train-olmoe", smoke=True),
-                               ss.case_shape("train-olmoe", smoke=True),
-                               "cpu", seed=1)
-    d.update({f"olmoe:{k}": v.numpy() for k, v in batch.items()})
+    models = {m: (arch, fields, case)
+              for m, arch, fields, case, _ in LEP_STEPS.values()}
+    for seed, (m, (arch, fields, case)) in enumerate(models.items(), 2):
+        cfg = _smoke(arch, **fields)
+        params = jax.jit(j_init_params, static_argnums=(1,))(
+            jax.random.PRNGKey(seed), cfg)
+        d.update({f"{m}:p:{k}": v for k, v in _flat(params).items()})
+        # the batch build_step draws for the case (seed 0: its inputs
+        # from 1)
+        batch = dryrun.step_inputs(ss.case_config(case, smoke=True),
+                                   ss.case_shape(case, smoke=True), "cpu",
+                                   seed=1)
+        d.update({f"{m}:{k}": v.numpy() for k, v in batch.items()})
     hyb = _smoke("deepseek-r1", **HYBRID_FIELDS)
     params = jax.jit(j_init_params, static_argnums=(1,))(
         jax.random.PRNGKey(3), hyb)
@@ -805,8 +829,7 @@ def sides(inputs, tmp_path_factory):
                     "lep": LEP_KW if name == "2x2" else None,
                     "linear": LINEAR if name == "2x2" else {},
                     "real_steps": name == "2x2", "step_tol": REAL_STEP_TOL,
-                    "olmoe_fields": OLMOE_JAX_FIELDS,
-                    "olmoe_payloads": OLMOE_PAYLOADS,
+                    "lep_steps": LEP_STEPS,
                     "hybrid_fields": HYBRID_FIELDS,
                     "hybrid_modes": HYBRID_MODES})])
         for name, shape in MESHES.items()}
@@ -814,7 +837,7 @@ def sides(inputs, tmp_path_factory):
         str(tmp / "in.npz"), json.dumps(LEP_KW),
         json.dumps({case: step[:2] for case, step in STEP.items()}),
         json.dumps(STEP_OPT), json.dumps(LEP_SHARED_FF),
-        json.dumps(OLMOE_JAX_FIELDS), json.dumps(OLMOE_PAYLOADS),
+        json.dumps(LEP_STEPS),
         json.dumps({"fields": HYBRID_FIELDS, "modes": HYBRID_MODES}),
         str(tmp / "jax_extra.npz")],
         xla_devices=4)
@@ -1055,7 +1078,7 @@ F64_NARROW = {
 
 
 def test_float64_steps_compute_in_float64(sides):
-    """The ten float64 steps, sharded (every rank) and unsharded, under
+    """The eleven float64 steps, sharded (every rank) and unsharded, under
     ``sharded_step.NarrowOps``: no op gives a floating output narrower
     than float64 but those of ``F64_NARROW`` (float32, the INT8 payload's
     scale), which the cases with INT8 dispatch do run."""
@@ -1085,6 +1108,39 @@ def test_float64_gate_sees_what_the_fixed_gate_cannot(sides, how):
     in_norm = [k for k in row["audit"]
                if k.startswith("repro_torch/dtensor.py:")]
     assert bool(in_norm) == (how == "demote"), row["audit"]
+
+
+@pytest.mark.parametrize("chunk", [5, 64, 1 << 24])
+def test_worst_in_chunks_equals_the_whole(monkeypatch, chunk):
+    """``sharded_step._worst`` takes a leaf a chunk at a time (so that its
+    float64 differences of train-r1's 0.93 B-element embedding fit the
+    card beside the results): the same worst error and |want| there, of
+    the leaf's largest, as over the whole leaf at once, with and without
+    a mask, the first of tied elements, and (0, 0) over no element."""
+    monkeypatch.setattr(ss, "_CHUNK", chunk)
+    gen = torch.Generator().manual_seed(3)
+
+    def whole(got, want, mask=None):
+        diff = (got.double() - want.double()).abs()
+        ref = want.double().abs()
+        if mask is not None:
+            diff, ref = diff[mask], ref[mask]
+        if not diff.numel():
+            return 0.0, 0.0
+        scale = max(want.double().abs().max().item(), 1e-30)
+        at = diff.flatten().argmax()
+        return (diff.flatten()[at].item() / scale,
+                ref.flatten()[at].item() / scale)
+
+    for shape in [(7, 13), (1000,), (3, 5, 11)]:
+        want = torch.randn(shape, generator=gen)
+        got = want + 1e-3 * torch.randn(shape, generator=gen)
+        tied = want.clone()
+        tied.view(-1)[[3, 40 % tied.numel()]] += 1.0
+        for mask in (None, torch.rand(shape, generator=gen) > 0.5,
+                     torch.zeros(shape, dtype=torch.bool)):
+            assert ss._worst(got, want, mask) == whole(got, want, mask)
+            assert ss._worst(tied, want, mask) == whole(tied, want, mask)
 
 
 @pytest.mark.parametrize("what", ["within", "leaf_past", "loss_past",
@@ -1213,12 +1269,14 @@ def test_sharded_step_one_rank_counts_nothing(sides):
     assert row["counts"] == ports["steps"]["one_rank_record"]
 
 
-@pytest.mark.parametrize("payload", list(OLMOE_PAYLOADS))
+@pytest.mark.parametrize("payload", list(LEP_STEPS))
 def test_sharded_olmoe_lep_train_step_matches_jax(sides, payload):
     """The OLMoE + LEP train step at 2 x 2 through ``build_step`` (JAX's
     weights, the training LEP plan, the balance loss at its configured
     weight) against JAX's ``make_train_step`` with JAX's LEP on a forced
-    4-device 2 x 2 mesh, as ``test_multidevice.py`` runs it. Unquantized:
+    4-device 2 x 2 mesh, as ``test_multidevice.py`` runs it; and R1's
+    (``r1-f32``: a dense layer, then two MoE layers, the output of the
+    first left on LEP's token split into the second). Unquantized:
     the loss and the global gradient norm within 1e-5, every parameter
     within 2e-4 of the leaf's largest where the first moment is clear of
     0, both moments within 2e-4. INT8: the loss and gradient norm within
@@ -1227,9 +1285,9 @@ def test_sharded_olmoe_lep_train_step_matches_jax(sides, payload):
     first moment is clear of INT8_TOL of its largest."""
     ports, want = sides
     got = ports["2x2"]
-    key = f"olmoe:{payload}"
-    tol, rtol = (STEP_TOL, LOSS_RTOL) if payload == "f32" else \
-        (INT8_TOL, INT8_TOL)
+    model_key, *_, quantize = LEP_STEPS[payload]
+    key = f"{model_key}:{payload}"
+    tol, rtol = (INT8_TOL, INT8_TOL) if quantize else (STEP_TOL, LOSS_RTOL)
     for k in ("loss", "gnorm"):
         np.testing.assert_allclose(got[f"{key}:{k}"], want[f"{key}:{k}"],
                                    rtol=rtol)
