@@ -66,7 +66,16 @@ and the sharded steps of ``launch/sharded_step.py``'s ``CASES``
    otherwise (``floor``: a train or prefill step over the whole batch --
    a train step with LEP over the data ranks' row groups --, a decode
    step with its caches nudged by one part in 1e7), how far rounding
-   alone moves it. And
+   alone moves it. ``train-olmoe`` and ``train-r1`` with their INT8
+   payload are held instead by their discrete choices: the INT8 codes,
+   scales and router picks of every MoE layer, recorded on every rank by
+   global token (``sharded_step.record_choices``), against the reference's
+   own (``choices``: codes within one, scales within 1e-4, a flipped pick
+   only where the reference's two probabilities lie within 1e-4 of the
+   token's largest, ``sharded_step.compare_choices``), and by the
+   reference run again on rank 0 with the step's choices in place of its
+   own (``replay``: ``compare`` at its fixed tolerances), its seconds and
+   rank 0's peak GiB beside it (``replay_s``, ``replay_peak_gib``). And
    its collective bytes by kind on rank 0
    (``CollectiveCounter``) against the dry run's record of the same case
    on a fake 2 x 2 group (``python -m repro_torch.launch.sharded_step``,
@@ -85,7 +94,7 @@ otherwise): train-r1's unsharded step fills most of
 rank 0's card, where fixed segments fragment. The same collectives are
 held against JAX on the CPU by ``tests/test_torch_lep2d.py``,
 ``tests/test_torch_hybrid_parallel.py`` and
-``tests/test_torch_sharded_mixers.py`` (gloo ranks).
+``tests/test_torch_sharded_steps.py`` (gloo ranks).
 """
 from __future__ import annotations
 
@@ -389,8 +398,11 @@ def sharded_step_row(torch, dist, rank, mesh, name, trace_dir):
     before = kernel_counts()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
         if rank == 0 else contextlib.nullcontext()
+    # An INT8 LEP train step's choices, recorded in the run that is held
+    int8 = ss.CASES[name].f32_payload
     t0 = time.perf_counter()
-    with prof:
+    with prof, (ss.record_choices(ss.mesh_block(mesh)) if int8
+                else contextlib.nullcontext()) as rec:
         out, counts = ss.run_counted(step, args)
         torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
@@ -398,7 +410,8 @@ def sharded_step_row(torch, dist, rank, mesh, name, trace_dir):
     peak = torch.tensor([torch.cuda.max_memory_allocated() / 2 ** 30],
                         device="cuda")
     got = ss.step_results(shape.kind, out, keep=rank == 0)
-    del out, step, args
+    choices = ss.gather_choices(rec) if int8 else None
+    del out, step, args, rec
     free(torch)
     peaks = [torch.zeros_like(peak) for _ in range(WORLD)]
     dist.all_gather(peaks, peak)
@@ -423,7 +436,14 @@ def sharded_step_row(torch, dist, rank, mesh, name, trace_dir):
                "build_s": build_s, "step_s": step_s,
                "reference_s": time.perf_counter() - t0,
                "peak_gib_per_rank": [p.item() for p in peaks]}
-        del got
+        if choices is not None:
+            torch.cuda.reset_peak_memory_stats()
+            row.update(ss.hold_choices(
+                name, "cuda", got, choices, seed=SEED,
+                n_micro=ss.row_groups(name, N_DATA, N_MODEL)))
+            row["replay_peak_gib"] = \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+        del got, choices
         free(torch)
     dist.barrier()
     if ss.CASES[name].logits == "f32":
@@ -589,7 +609,11 @@ def main(argv=None) -> int:
             row["nccl_trace_within_1pct"] = not row["nccl_trace_unknown"] \
                 and trace_within(row["counter_bytes"],
                                  row["nccl_trace_bytes"])
-            if not (row["ok"] and row["counter_equals_record"]
+            # An INT8 LEP train step is held by its choices and its replay
+            # (its fixed comparison and floor are printed beside them)
+            held = row["choices"]["ok"] and row["replay"]["ok"] \
+                if "choices" in row else row["ok"]
+            if not (held and row["counter_equals_record"]
                     and row["nccl_trace_within_1pct"]):
                 failed.append(row["case"])
         print(json.dumps(row), flush=True)

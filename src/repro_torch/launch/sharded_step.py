@@ -6,7 +6,7 @@ over blocks that hold values, placed by the same specs. The cases below run
 it at full width on the card -- one rank over NCCL in ``chip_smoke.py``'s
 ``sharded-step`` phase, four over a 2 x 2 mesh in
 ``scripts/torch_parallel_nccl.py`` -- and at smoke width over gloo in
-``tests/test_torch_sharded_mixers.py``. Each is held to three things:
+``tests/test_torch_sharded_steps.py``. Each is held to three things:
 
 * the same step unsharded, on plain tensors with the same seeded weights
   and inputs (the MoE layers through the 1-D LEP at world size 1, the MLA
@@ -24,13 +24,19 @@ it at full width on the card -- one rank over NCCL in ``chip_smoke.py``'s
 * the collectives the backend itself ran, read from a ``torch.profiler``
   trace of the step (:func:`traced_collectives`), in the counter's
   convention.
+
+A train step with an INT8 payload is held, in place of the first, by its
+discrete choices (:func:`record_choices`, :func:`compare_choices`) and by
+the reference run again with them (:func:`replay`, :func:`hold_choices`).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, Optional, Sequence,
+                    Tuple)
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -727,6 +733,284 @@ def compare_f64(kind: str, got: Dict[str, torch.Tensor],
         row["worst_mu_at"] = mu[at].item() / max(mu.max().item(), 1e-300)
     row["over"] = sorted(k for k, e in errs.items() if e > F64_TOL)
     row["ok"] = not row["over"] and all(row.get("greedy_equal_by_row", []))
+    return row
+
+
+# ---------------------------------------------------------------------------
+# The INT8 LEP train steps' discrete choices: recorded, gated, replayed
+# ---------------------------------------------------------------------------
+
+#: the choices gate (:func:`compare_choices`). A code may lie one from the
+#: reference's (the token's element rounded apart near a half-integer of
+#: x / scale). A scale is the row's max|x| / 127, and float32 rounding of
+#: the layers before moves max|x| by parts in 1e-7 to 1e-5 (train-r1: 4.5e-7
+#: at smoke width on the CPU, 4.5e-6 at full width on four H100s): within
+#: SCALE_RTOL relative, which moves no code by more than 127 x SCALE_RTOL
+#: = 0.013 of one. A pick may flip where the
+#: reference's probabilities of the two experts lie within PICK_RTOL of
+#: the token's largest probability (router logits carrying the same
+#: rounding part by about as much). A partition fault (a row on the wrong
+#: rank, a token split off by a row) moves codes by tens, scales by parts
+#: in 10, and flips picks whose probabilities part by parts in 100.
+CODE_APART = 1
+SCALE_RTOL = 1e-4
+PICK_RTOL = 1e-4
+
+
+def moe_layers(cfg: ModelConfig) -> int:
+    """The MoE layers of ``cfg``: every layer from ``first_k_dense`` on."""
+    return cfg.num_layers - cfg.first_k_dense if cfg.is_moe else 0
+
+
+def _dest_rows(top_i: torch.Tensor, n_slots: int, n_rows: int
+               ) -> torch.Tensor:
+    """The dispatch buffer's row of each pick of ``top_i`` (T, K) over
+    ``n_slots`` slots in a buffer of ``n_rows`` (``core/lep.py``'s
+    FusedDispatch packing, redundancy 1); every pick must be kept."""
+    from repro_torch.models import moe
+
+    cap = n_rows // n_slots
+    pos, kept = moe.dispatch_indices(top_i, n_slots, cap)
+    if not bool(kept.all()):
+        raise AssertionError("a pick was dropped: the choices are held "
+                             "where every pick has a slot")
+    return top_i * cap + pos
+
+
+@contextlib.contextmanager
+def record_choices(where: Callable[[int, ModelConfig], Tuple[int, int]],
+                   replay: Optional[Dict[int, Dict[str, torch.Tensor]]] = None
+                   ) -> Iterator[Dict[int, Dict[int, Dict[str, torch.Tensor]]]]:
+    """Inside the block, LEP's discrete choices in each MoE layer's call,
+    recorded by (layer, block) as ``where(call index, cfg)`` names them:
+    the router's top-k picks (``models/moe.py`` ``route``) and each token's
+    INT8 codes and scale (``core/lep.py`` ``_quantize_rows``: the code row
+    of its first pick's dispatch row), ``{layer: {block: {"top_i", "codes",
+    "scale"}}}``, a block's rows in order. Both functions are patched
+    inside the block and restored after it; a training step with LEP and
+    redundancy 1 (in-place dispatch, no drop) is what it records.
+
+    With ``replay`` (:func:`stitch_choices` of another step's choices, by
+    global row) the step takes those choices in place of its own: each
+    call's picks (the combine weights its own probabilities of those
+    experts, renormalized as ``route`` does) and its tokens' codes and
+    scales, block b's rows being rows b x T .. (b + 1) x T of the global
+    ones. What it records is then its own choices before they were
+    replaced, with its router probabilities (``probs``)."""
+    from repro_torch import dtensor as dt
+    from repro_torch.core import lep
+    from repro_torch.models import moe
+    from repro_torch.models.layers import widened
+
+    quantize_rows, route = lep._quantize_rows, moe.route
+    rec: Dict[int, Dict[int, Dict[str, torch.Tensor]]] = {}
+    calls = [0]
+    pending = []
+
+    def routed(router_w, x, cfg):
+        layer, block = where(calls[0], cfg)
+        calls[0] += 1
+        top_i, top_p, aux = route(router_w, x, cfg)
+        entry = rec.setdefault(layer, {}).setdefault(block, {})
+        entry["top_i"] = top_i.detach().clone()
+        if replay is not None:
+            probs = dt.softmax(widened(x) @ router_w, dim=-1)
+            entry["probs"] = probs.detach().clone()
+            t, e = x.shape[0], cfg.num_experts
+            top_i = replay[layer]["top_i"][block * t:(block + 1) * t].to(
+                x.device)
+            top_p = probs.gather(-1, top_i)
+            top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+            frac = torch.nn.functional.one_hot(top_i, e).to(
+                probs.dtype).sum(dim=1).mean(dim=0)
+            aux = e * (frac * probs.mean(dim=0)).sum()
+        pending.append((layer, block, top_i, cfg.num_experts))
+        return top_i, top_p, aux
+
+    def quantized(x, pack):
+        if not pack:
+            raise ValueError("the choices are recorded from a packed "
+                             "payload (make_lep_moe_fn's pack_scales)")
+        out = quantize_rows(x, pack)
+        layer, block, top_i, n_slots = pending.pop()
+        d = x.shape[-1]
+        dest = _dest_rows(top_i, n_slots, x.shape[0])
+        first = dest[:, 0]
+        entry = rec[layer][block]
+        entry["codes"] = out[first, :d]
+        entry["scale"] = out[first, d:].contiguous().view(
+            torch.float32).reshape(-1)
+        if replay is not None:
+            t, k = top_i.shape
+            rows = slice(block * t, (block + 1) * t)
+            at = dest.reshape(-1)
+            out[at, :d] = replay[layer]["codes"][rows].to(
+                out.device).repeat_interleave(k, 0)
+            out[at, d:] = replay[layer]["scale"][rows].to(
+                out.device).repeat_interleave(k, 0).reshape(-1, 1).view(
+                torch.int8)
+        return out
+
+    lep._quantize_rows, moe.route = quantized, routed
+    try:
+        yield rec
+    finally:
+        lep._quantize_rows, moe.route = quantize_rows, route
+
+
+def stitch_choices(rec: Dict[int, Dict[int, Dict[str, torch.Tensor]]]
+                   ) -> Dict[int, Dict[str, torch.Tensor]]:
+    """:func:`record_choices`' record (or several ranks' records merged) by
+    layer over the global rows: each leaf's blocks joined in block
+    order."""
+    out = {}
+    for layer, blocks in sorted(rec.items()):
+        order = sorted(blocks)
+        if order != list(range(len(order))):
+            raise AssertionError(f"layer {layer}: blocks {order}")
+        out[layer] = {k: torch.cat([blocks[b][k] for b in order])
+                      for k in blocks[order[0]]}
+    return out
+
+
+def gather_choices(rec) -> Dict[int, Dict[str, torch.Tensor]]:
+    """Every rank's :func:`record_choices` record, merged and stitched on
+    the host (every rank calls this)."""
+    import torch.distributed as dist
+
+    mine = {layer: {b: {k: v.cpu() for k, v in e.items()}
+                    for b, e in blocks.items()}
+            for layer, blocks in rec.items()}
+    joined = [None] * dist.get_world_size()
+    dist.all_gather_object(joined, mine)
+    merged: Dict[int, Dict[int, Dict[str, torch.Tensor]]] = {}
+    for part in joined:
+        for layer, blocks in part.items():
+            merged.setdefault(layer, {}).update(blocks)
+    return stitch_choices(merged)
+
+
+def mesh_block(mesh) -> Callable[[int, ModelConfig], Tuple[int, int]]:
+    """``record_choices``' ``where`` of a step over ``mesh`` whose training
+    LEP leaves the rows on its token split: call c is MoE layer c, the
+    rank's rows the block of its place in the mesh (mesh order, as
+    ``core/lep.py::_on_token_split`` cuts them)."""
+    coord = mesh.get_coordinate()
+    block = 0
+    for i, c in enumerate(coord):
+        block = block * mesh.size(i) + c
+    return lambda c, cfg: (c, block)
+
+
+def group_block(c: int, cfg: ModelConfig) -> Tuple[int, int]:
+    """``record_choices``' ``where`` of :func:`reference` over row groups:
+    the groups run one after another, each through every MoE layer."""
+    n = moe_layers(cfg)
+    return c % n, c // n
+
+
+def compare_choices(got: Dict[int, Dict[str, torch.Tensor]],
+                    want: Dict[int, Dict[str, torch.Tensor]]
+                    ) -> Dict[str, Any]:
+    """The sharded step's choices (``got``, :func:`gather_choices`) against
+    the reference's own (``want``, recorded by :func:`replay`: each layer's
+    own choices from inputs that carry ``got``'s choices of the layers
+    before, so that only float32 rounding of the same function parts
+    them), by layer and global row: every code within CODE_APART of
+    ``want``'s, every scale within SCALE_RTOL of it (relative), and every
+    flipped pick one whose expert ``want`` ranked within PICK_RTOL of the
+    token's largest probability of the expert it picked instead (for a
+    token, the largest probability of an expert ``want`` picked and
+    ``got`` did not, less the smallest of one ``got`` picked and ``want``
+    did not). Reported: the share of codes one apart, the flipped picks
+    and their tokens, the worst of each, by layer and over all, ``over``
+    (the gated quantities past their bound) and ``ok``."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"layers {sorted(got)} != {sorted(want)}")
+    layers = []
+    for layer in sorted(want):
+        g, w = got[layer], want[layer]
+        for k in ("top_i", "codes", "scale"):
+            if g[k].shape != w[k].shape:
+                raise AssertionError(f"layer {layer} {k}: shape "
+                                     f"{tuple(g[k].shape)} != "
+                                     f"{tuple(w[k].shape)}")
+        apart = (g["codes"].to(w["codes"].device).short()
+                 - w["codes"].short()).abs()
+        s_want = w["scale"].double()
+        scale_err = ((g["scale"].to(s_want.device).double() - s_want).abs()
+                     / s_want).max().item()
+        probs = w["probs"].double()
+        e = probs.shape[-1]
+        onehot = torch.nn.functional.one_hot
+        picked_w = onehot(w["top_i"], e).sum(1) > 0
+        picked_g = onehot(g["top_i"].to(w["top_i"].device), e).sum(1) > 0
+        lost, gained = picked_w & ~picked_g, picked_g & ~picked_w
+        flipped = lost.any(-1)
+        margin = 0.0
+        if bool(flipped.any()):
+            hi = torch.where(lost, probs, -1.0).amax(-1)
+            lo = torch.where(gained, probs, 2.0).amin(-1)
+            rel_margin = (hi - lo) / probs.amax(-1)
+            margin = rel_margin[flipped].max().item()
+        layers.append({"layer": layer, "tokens": int(w["top_i"].shape[0]),
+                       "codes_max_apart": int(apart.max()),
+                       "codes_one_apart_share":
+                           (apart == 1).double().mean().item(),
+                       "scale_max_rel_err": scale_err,
+                       "picks_flipped": int(gained.sum()),
+                       "tokens_flipped": int(flipped.sum()),
+                       "flip_max_margin": margin})
+    row: Dict[str, Any] = {
+        "codes_max_apart": max(r["codes_max_apart"] for r in layers),
+        "codes_one_apart_share": sum(
+            r["codes_one_apart_share"] for r in layers) / len(layers),
+        "scale_max_rel_err": max(r["scale_max_rel_err"] for r in layers),
+        "picks_flipped": sum(r["picks_flipped"] for r in layers),
+        "tokens_flipped": sum(r["tokens_flipped"] for r in layers),
+        "flip_max_margin": max(r["flip_max_margin"] for r in layers),
+        "bounds": {"codes_max_apart": CODE_APART,
+                   "scale_max_rel_err": SCALE_RTOL,
+                   "flip_max_margin": PICK_RTOL},
+        "by_layer": layers}
+    row["over"] = [k for k, bound in row["bounds"].items() if row[k] > bound]
+    row["ok"] = not row["over"]
+    return row
+
+
+def replay(name: str, device, choices: Dict[int, Dict[str, torch.Tensor]],
+           *, n_micro: int = 1, smoke: bool = False, seed: int = 0
+           ) -> Tuple[Dict[str, torch.Tensor],
+                      Dict[int, Dict[str, torch.Tensor]]]:
+    """:func:`reference` of case ``name`` over ``n_micro`` row groups with
+    the sharded step's ``choices`` (:func:`gather_choices`) in place of its
+    own (:func:`record_choices`' ``replay``): (its :func:`step_results`,
+    its own choices, with their router probabilities). What is left between
+    it and the sharded step is float32 rounding of one function, which
+    :func:`compare` holds at its fixed tolerances."""
+    with record_choices(group_block, replay=choices) as rec:
+        want = reference(name, device, n_micro=n_micro, smoke=smoke,
+                         seed=seed)
+    return want, stitch_choices(rec)
+
+
+def hold_choices(name: str, device, got: Dict[str, torch.Tensor],
+                 choices: Dict[int, Dict[str, torch.Tensor]], *,
+                 n_micro: int, smoke: bool = False, seed: int = 0
+                 ) -> Dict[str, Any]:
+    """The gates of an INT8 LEP train step (``got``, the sharded step's
+    :func:`step_results`; ``choices``, its :func:`gather_choices`):
+    ``choices``, :func:`compare_choices` against the replayed reference's
+    own; ``replay``, :func:`compare` against the replayed reference at the
+    fixed tolerances; and the replay's seconds (``replay_s``)."""
+    import time
+
+    t0 = time.perf_counter()
+    want, own = replay(name, device, choices, n_micro=n_micro, smoke=smoke,
+                       seed=seed)
+    row = {"choices": compare_choices(choices, own),
+           "replay": compare("train", got, want, STEP_TOL)}
+    row["replay_s"] = time.perf_counter() - t0
     return row
 
 
